@@ -1,0 +1,197 @@
+"""Bayesian Sample Inference (BSI), sampling surface.
+
+PyTorch counterpart of ``bsi_tpu/core/bsi.py``. The class is a frozen
+dataclass of hyperparameters acting on a ``model_fn(mu, t)`` callable, as in
+the JAX package. Randomness comes from an explicit ``torch.Generator`` where
+JAX threads a key, and JAX's ``lax.scan`` over the schedule is a Python loop
+(eager PyTorch launches each step's kernels directly).
+
+The training loss and the ELBO come with the training slice of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional
+
+import torch
+
+from .common import ModelFn, broadcast_right, protect_const, resolve_device
+from .discretization import Discretization
+from .distributions import LogUniform
+
+# Noise of one sampling step: step index -> standard normal of the sample shape.
+StepNoise = Callable[[int], torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class BSI:
+    """Bayesian Sample Inference.
+
+    The generative model maintains a Gaussian belief ``N(mu, 1/lambda)`` over
+    the data sample and refines it through simulated noisy measurements of
+    increasing precision.
+
+    Args:
+        data_shape: Per-sample data shape, e.g. ``(32, 32, 3)`` for CIFAR-10
+            (images are NHWC, as in the JAX package).
+        lambda_0: Initial belief precision.
+        alpha_M: Maximum total measurement precision (e.g. 1e6).
+        alpha_R: Reconstruction precision.
+        k: Default number of sampling steps.
+        preconditioning: ``"edm"`` or ``None``.
+        low_discrepancy_sampling: Low-discrepancy noise-level sampling for the
+            training loss.
+        discretization: Optional data discretization for bits-per-dim.
+    """
+
+    data_shape: tuple[int, ...]
+    lambda_0: float
+    alpha_M: float
+    alpha_R: float
+    k: int = 50
+    preconditioning: Optional[str] = "edm"
+    low_discrepancy_sampling: bool = True
+    discretization: Optional[Discretization] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "data_shape", tuple(self.data_shape))
+        if self.preconditioning not in (None, "edm"):
+            raise ValueError(f"Unknown preconditioning {self.preconditioning!r}")
+
+    @property
+    def p_lambda(self) -> LogUniform:
+        """Noise-precision distribution p(lambda) on [lambda_0, lambda_0 + alpha_M]."""
+        return LogUniform(self.lambda_0, self.lambda_0 + self.alpha_M)
+
+    @property
+    def n_dim(self) -> int:
+        return math.prod(self.data_shape)
+
+    def default_schedule(self, dtype=torch.float32, device=None) -> torch.Tensor:
+        return torch.linspace(0.0, 1.0, self.k + 1, dtype=dtype, device=device)
+
+    # -------------------------------------------------------------- sampling
+
+    def sample(
+        self,
+        model_fn: ModelFn,
+        generator: torch.Generator,
+        n_samples: int,
+        *,
+        device: torch.device | str | None = None,
+        t: Optional[torch.Tensor] = None,
+        dtype=torch.float32,
+    ) -> torch.Tensor:
+        """Draw ``n_samples`` samples via the k-step Bayesian update loop.
+
+        Each step decodes ``x_hat``, simulates a measurement
+        ``y = x_hat + eps / sqrt(alpha_i)`` and performs the precision-weighted
+        belief update ``mu <- (alpha_i * y + lambda_i * mu) / lambda_{i+1}``.
+        Runs on ``device`` (the card when ``None``), which must be the
+        generator's device.
+        """
+        with torch.inference_mode():
+            t, eps0, step_eps = self._noise(generator, n_samples, device, t, dtype)
+            mu, _ = self._sample_loop(model_fn, eps0, step_eps, t)
+            return self._predict_x(model_fn, mu, protect_const(t.new_ones((n_samples,))))
+
+    def sample_history(
+        self,
+        model_fn: ModelFn,
+        generator: torch.Generator,
+        n_samples: int,
+        *,
+        device: torch.device | str | None = None,
+        t: Optional[torch.Tensor] = None,
+        dtype=torch.float32,
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Draw samples and return all intermediate states.
+
+        Returns ``(mus, x_hats, ys)`` of shapes ``(k+1, n, *data)``,
+        ``(k+1, n, *data)`` and ``(k, n, *data)``.
+        """
+        with torch.inference_mode():
+            t, eps0, step_eps = self._noise(generator, n_samples, device, t, dtype)
+            mu_final, (mus, x_hats, ys) = self._sample_loop(
+                model_fn, eps0, step_eps, t, with_history=True
+            )
+            final_x_hat = self._predict_x(
+                model_fn, mu_final, protect_const(t.new_ones((n_samples,)))
+            )
+            return (
+                torch.stack(mus),
+                torch.stack(x_hats + [final_x_hat]),
+                torch.stack(ys),
+            )
+
+    def _noise(self, generator, n_samples, device, t, dtype):
+        """Schedule and the standard-normal draws of one sampling run."""
+        device = resolve_device(device)
+        if generator.device.type != device.type:
+            raise ValueError(
+                f"generator lives on {generator.device}, sampling runs on {device}"
+            )
+        if t is None:
+            t = self.default_schedule(dtype, device)
+        t = t.to(device=device, dtype=dtype)
+        shape = (n_samples,) + self.data_shape
+        draw = lambda: torch.randn(shape, generator=generator, dtype=dtype, device=device)
+        eps0 = draw()
+        return t, eps0, lambda i: draw()
+
+    def _sample_loop(
+        self,
+        model_fn: ModelFn,
+        eps0: torch.Tensor,
+        step_eps: StepNoise,
+        t: torch.Tensor,
+        *,
+        with_history: bool = False,
+    ):
+        """The update loop on given noise: ``eps0`` for the initial belief and
+        ``step_eps(i)`` for the measurement of step ``i``.
+
+        Returns ``(mu_final, history)``, where history is ``None`` or the
+        lists ``(mus, x_hats, ys)``, ``mus`` starting with the initial belief.
+        """
+        lambda_ = self.p_lambda.icdf(t)
+        alpha = torch.diff(lambda_)
+        n_samples = eps0.shape[0]
+        mu = torch.rsqrt(lambda_[0]) * eps0
+        mus, x_hats, ys = [mu], [], []
+        for i in range(alpha.shape[0]):
+            x_hat = self._predict_x(model_fn, mu, t[i].expand(n_samples))
+            y = x_hat + torch.rsqrt(alpha[i]) * step_eps(i)
+            mu = (alpha[i] * y + lambda_[i] * mu) / lambda_[i + 1]
+            if with_history:
+                mus.append(mu)
+                x_hats.append(x_hat)
+                ys.append(y)
+        return mu, ((mus, x_hats, ys) if with_history else None)
+
+    # --------------------------------------------------------------- internals
+
+    def _predict_x(self, model_fn: ModelFn, mu: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """Decode the belief mean into a data estimate, with optional preconditioning."""
+        if self.preconditioning is None:
+            return model_fn(mu, t)
+        c_skip, c_out, c_in = self._edm_preconditioning(t)
+        return broadcast_right(c_skip, mu) * mu + broadcast_right(c_out, mu) * model_fn(
+            broadcast_right(c_in, mu) * mu, t
+        )
+
+    def _edm_preconditioning(self, t: torch.Tensor):
+        """EDM-style preconditioning coefficients.
+
+        ``kappa`` is written as ``1 + alpha * (alpha / lambda)`` to avoid
+        squaring alpha (f32 overflow), as in the JAX package.
+        """
+        lambda_ = self.p_lambda.icdf(t)
+        alpha = lambda_ - self.lambda_0
+        kappa = 1.0 + alpha * (alpha / lambda_)
+        c_skip = alpha / kappa
+        c_out = torch.rsqrt(kappa)
+        c_in = torch.sqrt(lambda_ / kappa)
+        return c_skip, c_out, c_in

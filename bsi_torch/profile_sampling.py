@@ -1,0 +1,160 @@
+"""Where the time of one BSI sampling step goes on the card.
+
+    python -m bsi_torch.profile_sampling [--batch 64] [--steps 3] [--out FILE]
+
+Builds the full-width CIFAR-10 VDM-UNet (bf16, random weights from a seed),
+times ``--steps`` preconditioned decodes as the k=128 sampler runs them, once
+with host clocks around synchronised steps and once under
+``torch.profiler``, and prints: wall ms per step, device-busy ms per step
+(kernel time summed), the device's idle share, and the kernels grouped by
+kind (K1, K7, convolutions, the rest) and by name, and the step's FLOPs
+counted from the layer shapes. ``--out`` also writes the numbers as JSON.
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+from collections import defaultdict
+
+import torch
+
+from bsi_torch import BSI
+from bsi_torch.models import DenoisingVDMUNet
+from bsi_torch.nn import Attention2D, FourierFeatures, NyquistPositionalEmbedding
+
+
+def _kind(name: str) -> str:
+    if "attn_fwd" in name:
+        return "K1 flash_attention"
+    if "gn_silu_fwd" in name:
+        return "K7 groupnorm_silu_fwd"
+    low = name.lower()
+    if "conv" in low or "cudnn" in low or "xmma" in low or "gemm" in low or "sm90" in low:
+        return "convolution / matmul (cuDNN, cuBLAS)"
+    return "other (elementwise, casts, reductions, copies)"
+
+
+def count_flops(model: torch.nn.Module, run) -> dict[str, float]:
+    """FLOPs of ``run()`` by layer kind, from the shapes the layers see:
+    2 per multiply-add of convolutions and dense layers, 4*B*H*S^2*D for
+    attention's two products."""
+    flops: dict[str, float] = defaultdict(float)
+
+    def conv(mod, inp, out):
+        flops["convolution"] += 2.0 * out.numel() * mod.weight[0].numel()
+
+    def dense(mod, inp, out):
+        flops["dense"] += 2.0 * out.numel() * mod.in_features
+
+    def attention(mod, inp, out):
+        b, c, h, w = inp[0].shape
+        flops["attention"] += 4.0 * b * (h * w) ** 2 * c
+
+    hooks = []
+    for mod in model.modules():
+        if isinstance(mod, torch.nn.Conv2d):
+            hooks.append(mod.register_forward_hook(conv))
+        elif isinstance(mod, torch.nn.Linear):
+            hooks.append(mod.register_forward_hook(dense))
+        elif isinstance(mod, Attention2D):
+            hooks.append(mod.register_forward_hook(attention))
+    try:
+        run()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return dict(flops)
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        value = getattr(evt, attr, None)
+        if value:
+            return float(value)
+    return 0.0
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--batch", type=int, default=64)
+    parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--out", default=None)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_sampling needs a CUDA device")
+    dev = torch.device("cuda")
+    torch.manual_seed(args.seed)
+    model = DenoisingVDMUNet(
+        (32, 32, 3), NyquistPositionalEmbedding(32, 100), dim=128, levels=32, pos_emb_mult=4,
+        n_attention_heads=1, fourier_features=FourierFeatures(6, 8), dtype=torch.bfloat16,
+        device=dev,
+    ).eval()
+    algo = BSI(data_shape=(32, 32, 3), lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=128)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    mu = torch.randn((args.batch, 32, 32, 3), generator=gen, device=dev)
+    t = torch.full((args.batch,), 0.5, device=dev)
+
+    def step():
+        return algo._predict_x(model, mu, t)
+
+    with torch.inference_mode():
+        flops = count_flops(model, step)
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        wall = []
+        for _ in range(args.steps):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(args.steps):
+                step()
+            torch.cuda.synchronize()
+
+    by_name: dict[str, list] = defaultdict(lambda: [0.0, 0])
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.key][0] += us / 1e3 / args.steps
+            by_name[evt.key][1] += evt.count / args.steps
+    busy = sum(ms for ms, _ in by_name.values())
+    by_kind: dict[str, float] = defaultdict(float)
+    for name, (ms, _) in by_name.items():
+        by_kind[_kind(name)] += ms
+    wall_ms = statistics.median(wall)
+    result = {
+        "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip(),
+        "batch": args.batch,
+        "wall_ms_per_step": wall_ms,
+        "device_busy_ms_per_step": busy if busy > 0 else None,
+        "device_idle_share": (1.0 - busy / wall_ms) if busy > 0 else None,
+        "by_kind_ms_per_step": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+        "tflop_per_step": {k: v / 1e12 for k, v in flops.items()},
+        "tflop_per_s_of_wall": sum(flops.values()) / 1e9 / wall_ms,
+        "top_kernels": [
+            {"name": name[:120], "ms_per_step": ms, "launches_per_step": n}
+            for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+        ],
+    }
+    print(json.dumps(result, indent=1))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,83 @@
+"""The port's kernels on the card, against their plain versions.
+
+These tests need an NVIDIA GPU and import neither JAX nor ``bsi_tpu``, so
+they run where only PyTorch is installed:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
+
+Without a card they skip.
+"""
+
+import pytest
+import torch
+
+from bsi_torch.ops import attention, flash_attention as fa, groupnorm_silu as gn
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(gen, *shape, dtype, device):
+    return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("shape", [(2, 1, 1024, 128), (3, 2, 200, 64), (1, 2, 384, 256)])
+def test_flash_attention_kernel_matches_twin(cuda, shape, dtype, atol):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (_randn(gen, *shape, dtype=dtype, device=cuda) for _ in range(3))
+    got = fa.flash_attention_cuda(q, k, v)
+    want = fa._fwd_math(q, k, v, fa._scale(q))
+    assert got.dtype == dtype and got.shape == q.shape
+    assert (got.float() - want).abs().max().item() <= atol
+
+
+def test_cuda_tensor_routes_to_flash_attention(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = _randn(gen, 2, 256, 3 * 128, dtype=torch.bfloat16, device=cuda)
+    q, k, v = attention.split_qkv_grouped(qkv, 1)
+    before = fa.flash_attention_cuda.launches
+    out = attention.multi_head_attention(q, k, v)
+    assert fa.flash_attention_cuda.launches == before + 1
+    want = fa._fwd_math(q, k, v, fa._scale(q))
+    assert (out.float() - want).abs().max().item() <= 2e-2
+    # a shape the JAX package sends to plain math goes there here too
+    short = _randn(gen, 2, 1, 64, 128, dtype=torch.bfloat16, device=cuda)
+    attention.multi_head_attention(short, short, short)
+    assert fa.flash_attention_cuda.launches == before + 1
+
+
+def test_flash_attention_kernel_rejects_unsupported(cuda):
+    x = torch.zeros(1, 1, 128, 32, device=cuda)
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(x, x, x)
+    y = torch.zeros(1, 1, 128, 64, device=cuda).transpose(2, 3)
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(y, y, y)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("shape", [(2, 1024, 128), (2, 1024, 256), (3, 100, 64)])
+def test_groupnorm_silu_kernel_matches_twin(cuda, shape, dtype, atol):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    c = shape[-1]
+    x = _randn(gen, *shape, dtype=dtype, device=cuda) * 2.0 + 0.5
+    gamma = (1.0 + 0.1 * torch.randn(c, generator=gen, device=cuda)).to(dtype)
+    beta = (0.1 * torch.randn(c, generator=gen, device=cuda)).to(dtype)
+    before = gn.groupnorm_silu_cuda.launches
+    got = gn.groupnorm_silu(x, gamma, beta, 32)
+    assert gn.groupnorm_silu_cuda.launches == before + 1
+    want = gn._reference_math(x, gamma, beta, 32).float()
+    assert got.dtype == dtype
+    # bf16: f32 statistics summed in another order can move a rounding by one
+    # bf16 ulp (2^-7 relative at most)
+    rtol = 2**-7 if dtype == torch.bfloat16 else 0.0
+    assert ((got.float() - want).abs() <= atol + rtol * want.abs()).all()
