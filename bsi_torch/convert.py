@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package's flax models to the port's modules.
+"""Carry weights and train states between the JAX package and the port.
 
 The port names its submodules after the flax names, so the mapping is
 mechanical: the flax path joined by dots, with
@@ -8,14 +8,19 @@ mechanical: the flax path joined by dots, with
 - GroupNorm ``scale`` -> ``weight``; every ``bias`` -> ``bias``.
 
 qkv projections stay in the grouped layout both packages use.
+:func:`params_to_jax` is the inverse (for the port's gradients, say), and
+:func:`train_state_from_jax` carries a whole JAX train state across.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
+
+from bsi_torch.core.common import resolve_device
+from bsi_torch.train import AdamState, TrainState
 
 
 def params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
@@ -42,3 +47,64 @@ def params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
     walk(tree, "")
     return state
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+    """A flax-shaped tree of numpy arrays (the inner ``params`` dict) from
+    tensors named as the port names its parameters."""
+    tree: dict[str, Any] = {}
+    for path, tensor in state.items():
+        *parents, name = path.split(".")
+        arr = tensor.detach().cpu().numpy()
+        if name == "weight" and arr.ndim == 2:
+            arr, name = arr.T, "kernel"
+        elif name == "weight" and arr.ndim == 4:
+            arr, name = arr.transpose(2, 3, 1, 0), "kernel"
+        elif name == "weight" and arr.ndim == 1:
+            name = "scale"
+        elif name != "bias":
+            raise ValueError(f"no flax name for {path} of shape {arr.shape}")
+        node = tree
+        for parent in parents:
+            node = node.setdefault(parent, {})
+        node[name] = arr
+    return tree
+
+
+def train_state_from_jax(
+    state: Any,
+    *,
+    generator: torch.Generator,
+    device: torch.device | str | None = None,
+    convert: Callable[[Any], dict[str, torch.Tensor]] = params_from_jax,
+) -> TrainState:
+    """The port's :class:`~bsi_torch.train.TrainState` from a JAX ``TrainState``
+    whose optimizer is ``make_optimizer``'s chain (clip, then optax's adam or
+    adamw): its step, params, EMA params and Adam moments and count.
+
+    ``convert`` maps a parameter-shaped tree to named tensors
+    (:func:`params_from_jax` for the flax models). The tensors go to
+    ``device``, the card when ``None``. ``generator`` becomes the state's
+    generator; the JAX key does not carry over.
+    """
+    device = resolve_device(device)
+    adam = _find_adam_state(state.opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the JAX optimizer state")
+    tensors = lambda tree: {k: v.to(device) for k, v in convert(tree).items()}
+    params = {k: v.requires_grad_() for k, v in tensors(state.params).items()}
+    opt_state = AdamState(count=int(adam.count), mu=tensors(adam.mu), nu=tensors(adam.nu))
+    return TrainState(step=int(state.step), params=params, ema_params=tensors(state.ema_params),
+                      opt_state=opt_state, generator=generator)
+
+
+def _find_adam_state(opt_state: Any):
+    """The first node with ``count``, ``mu`` and ``nu`` in a nest of optax states."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _find_adam_state(sub)
+            if found is not None:
+                return found
+    return None

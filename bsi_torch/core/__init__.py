@@ -1,5 +1,13 @@
 from .bsi import BSI
-from .common import ModelFn, broadcast_right, protect_const, resolve_device
+from .common import (
+    ModelFn,
+    broadcast_right,
+    lds_grid,
+    mc_var,
+    protect_const,
+    resolve_device,
+    sample_lds_t,
+)
 from .discretization import Discretization
 from .distributions import (
     LogUniform,
@@ -14,8 +22,11 @@ __all__ = [
     "LogUniform",
     "ModelFn",
     "broadcast_right",
+    "lds_grid",
+    "mc_var",
     "protect_const",
     "resolve_device",
+    "sample_lds_t",
     "normal_cdf",
     "normal_log_prob",
     "discretized_normal_log_prob",

@@ -1,4 +1,4 @@
-"""Bayesian Sample Inference (BSI), sampling surface.
+"""Bayesian Sample Inference (BSI): the training loss and the samplers.
 
 PyTorch counterpart of ``bsi_tpu/core/bsi.py``. The class is a frozen
 dataclass of hyperparameters acting on a ``model_fn(mu, t)`` callable, as in
@@ -6,7 +6,9 @@ the JAX package. Randomness comes from an explicit ``torch.Generator`` where
 JAX threads a key, and JAX's ``lax.scan`` over the schedule is a Python loop
 (eager PyTorch launches each step's kernels directly).
 
-The training loss and the ELBO come with the training slice of the port.
+Each random function is split into a part that draws and a part that takes
+the draws (``train_loss`` over ``_train_loss_on``, ``_sample_loop``), so the
+tests can feed JAX's own draws to the port. The ELBO is not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Callable, Optional
 
 import torch
 
-from .common import ModelFn, broadcast_right, protect_const, resolve_device
+from .common import ModelFn, broadcast_right, protect_const, resolve_device, sample_lds_t
 from .discretization import Discretization
 from .distributions import LogUniform
 
@@ -71,6 +73,63 @@ class BSI:
 
     def default_schedule(self, dtype=torch.float32, device=None) -> torch.Tensor:
         return torch.linspace(0.0, 1.0, self.k + 1, dtype=dtype, device=device)
+
+    # ---------------------------------------------------------------- training
+
+    def train_loss(self, model_fn: ModelFn, generator: torch.Generator, x: torch.Tensor) -> torch.Tensor:
+        """Per-example training loss, shape ``(batch,)``.
+
+        A 1-sample estimate of the infinite-step ELBO measurement term with a
+        mean over data dimensions (instead of a sum) and without constant
+        factors. ``generator`` lives on x's device.
+        """
+        t, eps = self.train_noise(generator, x)
+        return self._train_loss_on(model_fn, x, t, eps)
+
+    def train_noise(self, generator: torch.Generator, x: torch.Tensor):
+        """The draws of one ``train_loss``: the time quantiles ``t`` [batch]
+        and the standard normal ``eps`` of x's shape."""
+        if generator.device.type != x.device.type:
+            raise ValueError(f"generator lives on {generator.device}, x on {x.device}")
+        t = sample_lds_t(generator, 1, x.shape[0], low_discrepancy=self.low_discrepancy_sampling,
+                         dtype=x.dtype)[0]
+        eps = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+        return t, eps
+
+    def _train_loss_on(self, model_fn: ModelFn, x: torch.Tensor, t: torch.Tensor,
+                       eps: torch.Tensor) -> torch.Tensor:
+        """``train_loss`` on given draws. The model sees
+        ``p_lambda.cdf(p_lambda.icdf(t))``, as in the JAX package, which
+        differs from ``t`` in the last bits."""
+        lambda_ = self.p_lambda.icdf(t)
+        mu = self._q_mu_lambda(x, lambda_, eps)
+        x_hat = self._predict_x(model_fn, mu, self.p_lambda.cdf(lambda_))
+        decoding_error = ((x - x_hat) ** 2).reshape(x.shape[0], -1).mean(-1)
+        return self.p_lambda.reciprocal_pdf(lambda_) * decoding_error
+
+    def _sample_lambda(self, generator: torch.Generator, n_samples: int, batch_size: int,
+                       dtype) -> torch.Tensor:
+        """Sample noise precisions ``lambda ~ p(lambda)``, shape ``(n_samples, batch)``."""
+        t = sample_lds_t(generator, n_samples, batch_size,
+                         low_discrepancy=self.low_discrepancy_sampling, dtype=dtype)
+        return self.p_lambda.icdf(t)
+
+    def _sample_q_mu_lambda(self, generator: torch.Generator, x: torch.Tensor,
+                            lambda_: torch.Tensor) -> torch.Tensor:
+        """Sample the posterior-mean belief ``mu ~ q(mu | x, lambda)``."""
+        eps = torch.randn(lambda_.shape + self.data_shape, generator=generator, dtype=x.dtype,
+                          device=x.device)
+        return self._q_mu_lambda(x, lambda_, eps)
+
+    def _q_mu_lambda(self, x: torch.Tensor, lambda_: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+        """``mu = (lambda - lambda_0) / lambda * x + eps / sqrt(lambda)``.
+
+        ``lambda_`` has shape ``(..., batch)`` and ``eps`` that shape plus the
+        data shape; x broadcasts to it.
+        """
+        x_b = x.reshape((1,) * (lambda_.ndim - 1) + x.shape)
+        mean_coef = (lambda_ - self.lambda_0) / lambda_
+        return broadcast_right(mean_coef, x_b) * x_b + broadcast_right(torch.rsqrt(lambda_), eps) * eps
 
     # -------------------------------------------------------------- sampling
 

@@ -46,3 +46,47 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def lds_grid(perm: torch.Tensor, offset: torch.Tensor, n_samples: int, batch_size: int) -> torch.Tensor:
+    """The stratified time quantiles of :func:`sample_lds_t` from its draws: a
+    permutation ``perm`` of ``range(n_samples * batch_size)`` and one uniform
+    ``offset``. Returns ``(n_samples, batch_size)`` in ``offset``'s dtype."""
+    total = n_samples * batch_size
+    grid = perm.to(offset.dtype) / (1 + total)
+    # torch.remainder takes the divisor's sign, as jnp.remainder does
+    return torch.remainder(grid.reshape(n_samples, batch_size) + offset, 1.0)
+
+
+def sample_lds_t(
+    generator: torch.Generator,
+    n_samples: int,
+    batch_size: int,
+    *,
+    low_discrepancy: bool = True,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """Sample time quantiles ``t in [0, 1)`` of shape ``(n_samples, batch_size)``
+    on the generator's device.
+
+    With ``low_discrepancy=True`` this is the VDM-style stratified sampler: one
+    uniform offset shared by an evenly spaced grid ``i / (1 + total)``, randomly
+    permuted so a batch element is not evaluated at consecutive noise levels.
+    Otherwise plain iid uniforms. ``torch.rand`` and ``torch.randperm`` stand
+    in for JAX's uniform and permutation, so the numbers differ from JAX's.
+    """
+    device = generator.device
+    if low_discrepancy:
+        offset = torch.rand((), generator=generator, dtype=dtype, device=device)
+        perm = torch.randperm(n_samples * batch_size, generator=generator, device=device)
+        return lds_grid(perm, offset, n_samples, batch_size)
+    return torch.rand((n_samples, batch_size), generator=generator, dtype=dtype, device=device)
+
+
+def mc_var(values: torch.Tensor, n_samples: int) -> torch.Tensor:
+    """Variance of the Monte Carlo mean estimator from per-sample values.
+
+    ``values`` has shape ``(n_samples, batch)``; returns per-batch variance of
+    the mean estimate (unbiased sample variance divided by n).
+    """
+    return torch.var(values, dim=0, correction=1) / n_samples

@@ -11,23 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention import flash_attention
+from .flash_attention import _xla_attention, flash_attention
 from .flash_attention_packed import qkv_heads_per_group
-
-
-def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Plain attention over ``[batch, heads, seq, head_dim]``.
-
-    As in the JAX package, the logits are f32 whatever the input dtype (so
-    f64 inputs lose precision here), and the probabilities go back to the
-    input dtype for the product with v.
-    """
-    dim = q.shape[-1]
-    scale = 1.0 / torch.sqrt(torch.tensor(dim, dtype=torch.float32)).to(q.dtype)
-    acc = torch.promote_types(q.dtype, torch.float32)
-    logits = torch.matmul((q * scale).to(acc), k.to(acc).transpose(-1, -2))
-    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
-    return torch.matmul(probs, v)
 
 
 def _kernel_applicable(q: torch.Tensor) -> bool:

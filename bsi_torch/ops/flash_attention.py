@@ -3,12 +3,15 @@
 Counterpart of ``bsi_tpu/ops/flash_attention.py::flash_attention`` (the
 ``pallas_call`` of ``_attn_kernel``). The kernel source is
 ``csrc/flash_attention.cu``; its header note gives the design and the bound
-on an H100. ``_fwd_math`` is its plain PyTorch version: the CPU path, the
-reference on the card, and the recomputation the backward differentiates.
+on an H100. ``_fwd_math`` is its plain PyTorch version: the CPU path and the
+reference on the card.
 
-The gradient recomputes through ``_fwd_math`` under autograd, as the JAX
-package differentiates its plain formulation at sequences above 512. A
-backward kernel comes with the training slice.
+The backward follows the JAX package's rule (``ops/attention.py``'s
+``fused_bwd``): above ``MAX_FUSED_TRAIN_SEQ`` it is the VJP of the plain
+attention ``_xla_attention``, the function JAX differentiates there (the
+scale and ``q * scale`` rounded to the input dtype, P V in the input dtype).
+At or below it JAX has a fused backward kernel (K5b, not yet ported); until
+it is, the port differentiates ``_fwd_math`` there.
 """
 
 from __future__ import annotations
@@ -22,6 +25,25 @@ from . import _build
 
 SOURCE = "flash_attention.cu"
 HEAD_DIMS = (64, 128, 256)
+# Longest sequence the JAX package's fused backward kernel takes; longer ones
+# take the VJP of the plain attention.
+MAX_FUSED_TRAIN_SEQ = 512
+
+
+def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain attention over ``[batch, heads, seq, head_dim]``, the JAX
+    package's XLA formulation.
+
+    The logits are f32 whatever the input dtype (so f64 inputs lose
+    precision here), and the probabilities go back to the input dtype for
+    the product with v.
+    """
+    dim = q.shape[-1]
+    scale = 1.0 / torch.sqrt(torch.tensor(dim, dtype=torch.float32)).to(q.dtype)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.matmul((q * scale).to(acc), k.to(acc).transpose(-1, -2))
+    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return torch.matmul(probs, v)
 
 
 def _fwd_math(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -96,7 +118,10 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v = ctx.saved_tensors
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-            out = _fwd_math(*leaves, _scale(q)).to(q.dtype)
+            if q.shape[-2] > MAX_FUSED_TRAIN_SEQ:
+                out = _xla_attention(*leaves)
+            else:
+                out = _fwd_math(*leaves, _scale(q)).to(q.dtype)
             return torch.autograd.grad(out, leaves, g)
 
 

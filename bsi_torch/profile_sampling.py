@@ -33,6 +33,8 @@ def _kind(name: str) -> str:
         return "K1 flash_attention"
     if "gn_silu_fwd" in name:
         return "K7 groupnorm_silu_fwd"
+    if "gn_silu_bwd" in name:
+        return "K7b groupnorm_silu_bwd"
     low = name.lower()
     if "conv" in low or "cudnn" in low or "xmma" in low or "gemm" in low or "sm90" in low:
         return "convolution / matmul (cuDNN, cuBLAS)"
@@ -79,6 +81,38 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def summarize(prof, steps: int, wall_ms: float, flops: dict[str, float]) -> dict:
+    """The card, wall and device-busy ms per step, the idle share, device ms
+    by kernel kind and the top kernels from a profile of ``steps`` steps."""
+    by_name: dict[str, list] = defaultdict(lambda: [0.0, 0])
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.key][0] += us / 1e3 / steps
+            by_name[evt.key][1] += evt.count / steps
+    busy = sum(ms for ms, _ in by_name.values())
+    by_kind: dict[str, float] = defaultdict(float)
+    for name, (ms, _) in by_name.items():
+        by_kind[_kind(name)] += ms
+    return {
+        "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip(),
+        "wall_ms_per_step": wall_ms,
+        "device_busy_ms_per_step": busy if busy > 0 else None,
+        "device_idle_share": (1.0 - busy / wall_ms) if busy > 0 else None,
+        "by_kind_ms_per_step": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+        "tflop_per_step": {k: v / 1e12 for k, v in flops.items()},
+        "tflop_per_s_of_wall": sum(flops.values()) / 1e9 / wall_ms,
+        "top_kernels": [
+            {"name": name[:120], "ms_per_step": ms, "launches_per_step": n}
+            for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+        ],
+    }
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch", type=int, default=64)
@@ -120,35 +154,7 @@ def main(argv=None) -> dict:
                 step()
             torch.cuda.synchronize()
 
-    by_name: dict[str, list] = defaultdict(lambda: [0.0, 0])
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[evt.key][0] += us / 1e3 / args.steps
-            by_name[evt.key][1] += evt.count / args.steps
-    busy = sum(ms for ms, _ in by_name.values())
-    by_kind: dict[str, float] = defaultdict(float)
-    for name, (ms, _) in by_name.items():
-        by_kind[_kind(name)] += ms
-    wall_ms = statistics.median(wall)
-    result = {
-        "device": torch.cuda.get_device_name(0),
-        "nvidia_smi": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True,
-        ).stdout.strip(),
-        "batch": args.batch,
-        "wall_ms_per_step": wall_ms,
-        "device_busy_ms_per_step": busy if busy > 0 else None,
-        "device_idle_share": (1.0 - busy / wall_ms) if busy > 0 else None,
-        "by_kind_ms_per_step": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
-        "tflop_per_step": {k: v / 1e12 for k, v in flops.items()},
-        "tflop_per_s_of_wall": sum(flops.values()) / 1e9 / wall_ms,
-        "top_kernels": [
-            {"name": name[:120], "ms_per_step": ms, "launches_per_step": n}
-            for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-        ],
-    }
+    result = {"batch": args.batch, **summarize(prof, args.steps, statistics.median(wall), flops)}
     print(json.dumps(result, indent=1))
     if args.out:
         with open(args.out, "w") as f:

@@ -1,0 +1,20 @@
+from .ema import EMAConfig, ema_decay, ema_update, maybe_switch_ema
+from .optim import AdamState, Optimizer, global_norm, make_optimizer, warmup_cosine_schedule, warmup_schedule
+from .state import TrainState
+from .step import make_train_step, module_apply
+
+__all__ = [
+    "AdamState",
+    "EMAConfig",
+    "Optimizer",
+    "TrainState",
+    "ema_decay",
+    "ema_update",
+    "global_norm",
+    "make_optimizer",
+    "make_train_step",
+    "maybe_switch_ema",
+    "module_apply",
+    "warmup_cosine_schedule",
+    "warmup_schedule",
+]

@@ -4,19 +4,22 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from the sources in this checkout, holds each one
-against its plain PyTorch version at the main path's shapes, checks the
+against its plain PyTorch version at the main paths' shapes, checks the
 full-width CIFAR-10 VDM-UNet on the card against the same weights on the
-CPU, then runs the main path -- BSI sampling at k=128, batch 64, bf16 --
-and checks that it went through the kernels. Prints one line per phase, a
-JSON line with every kernel's numbers, the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``. Any failure raises and exits
-non-zero; without a CUDA device it exits 1 before printing a result.
+CPU (its output and its train-loss gradients), then runs the two main
+paths -- BSI sampling at k=128, batch 64, bf16, and the train step of the
+JAX package's UNet train bench (``scripts/bench_train.py``) at batch 128,
+bf16 -- and checks that each went through its kernels. Prints one line per
+phase, a JSON line with every kernel's numbers, the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and
+exits non-zero; without a CUDA device it exits 1 before printing a result.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -37,10 +40,23 @@ DATA_SHAPE = (32, 32, 3)
 UNET = dict(dim=128, levels=32, pos_emb_mult=4, n_attention_heads=1)
 BATCH = 64
 K_STEPS = 128
+# The train bench: batch 128, dropout 0.1, AdamW 2e-4 with warmup 100 and a
+# cosine to 1e6 steps, clip 1.0, EMA after step 1000; 1 warm-up step, then
+# TRAIN_STEPS timed ones.
+TRAIN_BATCH = 128
+TRAIN_STEPS = 10
 # One UNet forward: 34 GroupNorm+SiLU at 128 channels (32 down, centre in
 # and out) and 32 at 256 (the up blocks' concatenated input); one attention.
 K7_PER_FORWARD = 66
 K1_PER_FORWARD = 1
+# A train step: one forward and one backward; K7b once per K7f, and K1's
+# backward at S=1024 is the plain VJP, as in the JAX package.
+K7B_PER_STEP = 66
+# K7b's f32 operations per element: x*x and two sums for the statistics;
+# subtract and scale (xhat); the affine (2); the sigmoid (negate, exp, add,
+# divide); silu' and the product with g (5); two sums and dz*xhat (3);
+# dz*gamma; dx's subtract, multiply-subtract and scale (4).
+K7B_OPS_PER_ELEM = 24
 
 
 def phase(name: str, **fields) -> None:
@@ -77,6 +93,36 @@ def check_close(name: str, got, want, atol: float, rtol: float = 0.0) -> float:
     return diff.max().item()
 
 
+def check_bwd(name: str, got, want, dtype) -> list[float]:
+    """K7b's outputs against the plain VJP: dx within 1e-5 (f32) or 2e-2
+    plus one bf16 ulp (bf16, as K7f); dgamma and dbeta, sums over every row
+    of every image, within 1e-4 of their largest element (f32 sums in
+    another order), plus one ulp in bf16, where they are rounded to bf16."""
+    import torch
+
+    ulp = 2**-7 if dtype == torch.bfloat16 else 0.0
+    errs = []
+    for part, a, b in zip(("dx", "dgamma", "dbeta"), got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{name} {part}: {a.dtype} {tuple(a.shape)} vs {b.dtype} {tuple(b.shape)}")
+        atol = (2e-2 if dtype == torch.bfloat16 else 1e-5) if part == "dx" else 1e-4 * b.abs().max().item()
+        errs.append(check_close(f"{name} {part}", a, b, atol, ulp))
+    return errs
+
+
+def predicted_train_peak_gib(batch: int, pixels: int, dim: int, levels: int) -> float:
+    """Activations autograd keeps for one bf16 train step, from the shapes:
+    per residual block its input (GroupNorm and skip), the GroupNorm output
+    (conv1's input), conv1's output (FiLM's product), FiLM's output (SiLU's
+    input), the dropout mask (1 byte) and output (conv2's input); plus the
+    plain attention backward's f32 logits and probabilities and bf16
+    probabilities at S=pixels, alive at once."""
+    per_row = lambda c_in: 2 * c_in * 2 + 3 * dim * 2 + dim
+    blocks = (levels + 2) * per_row(dim) + levels * per_row(2 * dim)
+    attention = batch * pixels * pixels * (4 + 4 + 2)
+    return (batch * pixels * blocks + attention) / 2**30
+
+
 def main() -> int:
     import torch
 
@@ -92,6 +138,15 @@ def main() -> int:
     from bsi_torch.ops import _build
     from bsi_torch.ops import flash_attention as fa
     from bsi_torch.ops import groupnorm_silu as gn
+    from bsi_torch.profile_sampling import count_flops
+    from bsi_torch.train import (
+        EMAConfig,
+        TrainState,
+        make_optimizer,
+        make_train_step,
+        module_apply,
+        warmup_cosine_schedule,
+    )
 
     dev = torch.device("cuda")
     # f32 results are compared against the CPU and the plain versions: no TF32.
@@ -112,15 +167,27 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         nvcc = pool.submit(_build.build, fa.SOURCE)
         x = torch.randn(2, 64, 64, device=dev)
-        gn.groupnorm_silu_cuda(x, torch.ones(64, device=dev), torch.zeros(64, device=dev), 32)
+        gamma, beta = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+        gn.groupnorm_silu_cuda(x, gamma, beta, 32)
         torch.cuda.synchronize()
         triton_s = time.perf_counter() - start
+        gn.groupnorm_silu_bwd_cuda(x, gamma, beta, x, 32)
+        torch.cuda.synchronize()
+        triton_bwd_s = time.perf_counter() - start - triton_s
         lib_path, nvcc_s, log = nvcc.result()
     ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
     phase("build", k1_nvcc_s=f"{nvcc_s:.2f}", k7_triton_first_launch_s=f"{triton_s:.2f}",
+          k7b_triton_first_launch_s=f"{triton_bwd_s:.2f}",
           total_s=f"{time.perf_counter() - start:.2f}", library=lib_path.name)
     for line in ptxas:
         phase("build.ptxas", info=repr(line))
+    # Triton's compiled kernels carry their register and spill counts (the
+    # ptxas report of the CUDA route); older Triton may lack the fields.
+    for name, wrapper in (("k7f", gn.groupnorm_silu_cuda), ("k7b", gn.groupnorm_silu_bwd_cuda)):
+        compiled = wrapper.compiled
+        phase("build.triton", kernel=name, registers=getattr(compiled, "n_regs", "unknown"),
+              spills=getattr(compiled, "n_spills", "unknown"),
+              shared_bytes=getattr(compiled, "shared", "unknown"))
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     randn = lambda *shape, dtype=torch.float32: torch.randn(
@@ -205,6 +272,52 @@ def main() -> int:
         **k7_times[256], at_c128=k7_times[128],
     ))
 
+    # ----------------------------------------------------- K7b vs its twin
+    # At the train step's shapes: [128, 1024, C], gamma and beta in x's dtype.
+    k7b_times = {}
+    for c in (128, 256):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = randn(TRAIN_BATCH, 1024, c, dtype=dtype)
+            g = randn(TRAIN_BATCH, 1024, c, dtype=dtype)
+            gamma = (1.0 + 0.1 * randn(c)).to(dtype)
+            beta = (0.1 * randn(c)).to(dtype)
+            got = gn.groupnorm_silu_bwd_cuda(x, gamma, beta, g, 32)
+            want = gn._bwd_math(x, gamma, beta, g, 32)
+            torch.cuda.synchronize()
+            errs = check_bwd(f"K7b C={c} {dtype}", got, want, dtype)
+            phase("k7b.check", shape=(TRAIN_BATCH, 1024, c), dtype=str(dtype),
+                  max_abs_err_dx=f"{errs[0]:.3e}", max_abs_err_dgamma=f"{errs[1]:.3e}",
+                  max_abs_err_dbeta=f"{errs[2]:.3e}")
+            del got, want
+            if dtype != torch.bfloat16:
+                continue
+            # the library's backward: autograd through group_norm + silu on
+            # channels-first copies, graph kept, only the backward timed
+            x_lib = x.permute(0, 2, 1).contiguous().requires_grad_()
+            g_lib = g.permute(0, 2, 1).contiguous()
+            gamma_lib, beta_lib = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
+            out_lib = F.silu(F.group_norm(x_lib, 32, gamma_lib, beta_lib, 1e-6))
+            elems = x.numel()
+            k7b_bytes = 3 * elems * x.element_size() + 4 * c * x.element_size()
+            k7b_ops = K7B_OPS_PER_ELEM * elems
+            k7b_times[c] = dict(
+                max_abs_err=errs[0],
+                ms=time_ms(lambda: gn.groupnorm_silu_bwd_cuda(x, gamma, beta, g, 32), flush=flush),
+                plain_ms=time_ms(lambda: gn._bwd_math(x, gamma, beta, g, 32), flush=flush),
+                library_ms=time_ms(lambda: torch.autograd.grad(
+                    out_lib, (x_lib, gamma_lib, beta_lib), g_lib, retain_graph=True), flush=flush),
+                bound_ms=max(k7b_bytes / HBM_BYTES_PER_S, k7b_ops / F32_FLOPS) * 1e3,
+                bound_by="bytes" if k7b_bytes / HBM_BYTES_PER_S >= k7b_ops / F32_FLOPS else "operations",
+            )
+            phase("k7b.time", shape=(TRAIN_BATCH, 1024, c), **{
+                key: k7b_times[c][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+            del x_lib, g_lib, out_lib
+    kernels.append(dict(
+        name="groupnorm_silu_bwd", route="triton", source="bsi_torch/ops/groupnorm_silu.py",
+        replaces="bsi_tpu/ops/groupnorm_silu.py:149", shape=[TRAIN_BATCH, 1024, 256], dtype="bfloat16",
+        **k7b_times[256], at_c128=k7b_times[128],
+    ))
+
     # --------------------------------------- whole model, card against CPU
     pos_emb = NyquistPositionalEmbedding(32, 100)
     ff = FourierFeatures(n_min=6, n_max=8)
@@ -254,10 +367,38 @@ def main() -> int:
     loop_err = check_close("sampler loop card vs CPU", loop_dev.cpu(), loop_cpu, 1e-5, 1e-5)
     phase("sampler.check", k=4, batch=2, dtype="float32", decode_max_abs_err=f"{decode_err:.3e}",
           decode_atol=f"{model_tol:.3e}", loop_max_abs_err=f"{loop_err:.3e}", loop_tol="1e-5+1e-5*|x|")
-    del model_f32
+
+    # ------------------------------- train-loss gradients, card against CPU
+    # One f32 gradient of the mean train loss at batch 2, dropout off (eval
+    # mode), the same weights and draws on both sides. Each leaf is held to
+    # 1e-3 of its own norm: the forward agrees to ~1e-6 of its scale (above);
+    # a weight's gradient sums ~2,000 pixel terms of random sign, so its
+    # norm is ~45x below the sum of the terms' sizes, and the backward's
+    # order of sums (cuDNN's against the CPU's) adds its own 1e-6.
+    algo_train = BSI(data_shape=DATA_SHAPE, lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=50,
+                     preconditioning="edm")
+    x_small = torch.rand((2,) + DATA_SHAPE, generator=cpu_gen) * 2.0 - 1.0
+    t_small, eps_small = algo_train.train_noise(cpu_gen, x_small)
+    grads = []
+    for model_g, device in ((model_cpu, "cpu"), (model_f32, dev)):
+        named = dict(model_g.named_parameters())
+        loss = algo_train._train_loss_on(
+            model_g, x_small.to(device), t_small.to(device), eps_small.to(device)).mean()
+        grads.append(dict(zip(named, (gr.cpu() for gr in torch.autograd.grad(loss, list(named.values()))))))
+    worst, worst_name = 0.0, None
+    for name, want_g in grads[0].items():
+        rel = ((grads[1][name] - want_g).norm() / want_g.norm()).item()
+        if not rel <= 1e-3:
+            raise AssertionError(f"train gradient {name}: card vs CPU {rel:.3e} of its norm, limit 1e-3")
+        if rel > worst:
+            worst, worst_name = rel, name
+    phase("train.check", batch=2, dtype="float32", leaves=len(grads[0]), worst_rel_err=f"{worst:.3e}",
+          worst_leaf=worst_name, tol="1e-3 of each leaf's norm", finite=all(
+              bool(torch.isfinite(gr).all()) for gr in grads[1].values()))
+    del model_f32, grads
 
     # ------------------------------------------------ main path: sampling
-    del scrub, q, k, v, x, x_nchw, got, want
+    del scrub, q, k, v, x, x_nchw
     model = DenoisingVDMUNet(DATA_SHAPE, pos_emb, fourier_features=ff, dtype=torch.bfloat16,
                              device=dev, **UNET).eval()
     model.load_state_dict(weights)
@@ -288,7 +429,63 @@ def main() -> int:
           samples_per_s=f"{BATCH / statistics.median(secs):.3f}", peak_mem_gib=f"{peak / 2**30:.3f}",
           launches=launches, finite=True, shape=tuple(samples.shape))
     for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
+        entry["launches"] = launches.get(entry["name"])
+    del model, samples
+
+    # ---------------------------------------------- main path: train step
+    predicted_gib = predicted_train_peak_gib(TRAIN_BATCH, 1024, UNET["dim"], UNET["levels"])
+    train_model = DenoisingVDMUNet(DATA_SHAPE, pos_emb, fourier_features=ff, dropout=0.1,
+                                   dtype=torch.bfloat16, device=dev, **UNET)
+    train_model.load_state_dict(weights)
+    params = dict(train_model.named_parameters())
+    tx = make_optimizer(warmup_cosine_schedule(2e-4, warmup_steps=100, max_steps=10**6))
+    state = TrainState.create(params=params, opt_state=tx.init(params),
+                              generator=torch.Generator(device=dev).manual_seed(SEED + 2))
+    train_step = make_train_step(algo_train, module_apply(train_model), tx, EMAConfig(update_after_step=1000))
+    # synthetic 8-bit-quantised images in [-1, 1], as the bench makes them
+    data_gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    batch = torch.randint(0, 256, (TRAIN_BATCH,) + DATA_SHAPE, generator=data_gen, device=dev) / 255.0 * 2.0 - 1.0
+    with torch.no_grad():
+        forward_flops = sum(count_flops(train_model, lambda: train_model(
+            batch, torch.full((TRAIN_BATCH,), 0.5, device=dev))).values())
+    state, metrics = train_step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_cuda.launches = 0
+    gn.groupnorm_silu_cuda.launches = 0
+    gn.groupnorm_silu_bwd_cuda.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, metrics = train_step(state, batch)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = {"flash_attention": fa.flash_attention_cuda.launches,
+                      "groupnorm_silu_fwd": gn.groupnorm_silu_cuda.launches,
+                      "groupnorm_silu_bwd": gn.groupnorm_silu_bwd_cuda.launches}
+    want = {"flash_attention": K1_PER_FORWARD * TRAIN_STEPS, "groupnorm_silu_fwd": K7_PER_FORWARD * TRAIN_STEPS,
+            "groupnorm_silu_bwd": K7B_PER_STEP * TRAIN_STEPS}
+    if train_launches != want:
+        raise AssertionError(f"kernel launches over {TRAIN_STEPS} train steps {train_launches}, want {want}")
+    final_loss = metrics["train/loss"].item()
+    grad_norm = metrics["train/grad_norm"].item()
+    if not (math.isfinite(final_loss) and final_loss > 0 and math.isfinite(grad_norm)):
+        raise AssertionError(f"bad train metrics: loss {final_loss}, grad norm {grad_norm}")
+    peak = torch.cuda.max_memory_allocated()
+    ms_step = train_s / TRAIN_STEPS * 1e3
+    # MFU: the forward's FLOPs from the layer shapes, times three for the
+    # backward, over the step time, against the dense bf16 peak
+    step_flops = 3 * forward_flops
+    phase("train", batch=TRAIN_BATCH, dtype="bfloat16", dropout=0.1, steps=TRAIN_STEPS, step=state.step,
+          ms_per_step=f"{ms_step:.3f}", examples_per_s=f"{TRAIN_BATCH * TRAIN_STEPS / train_s:.3f}",
+          tflop_per_step=f"{step_flops / 1e12:.3f}",
+          mfu=f"{step_flops / (ms_step / 1e3) / BF16_TENSOR_FLOPS:.4f}",
+          peak_mem_gib=f"{peak / 2**30:.3f}", predicted_peak_gib=f"{predicted_gib:.3f}",
+          final_loss=f"{final_loss:.6g}", grad_norm=f"{grad_norm:.6g}",
+          launches_per_step={name: n // TRAIN_STEPS for name, n in train_launches.items()})
+    for entry in kernels:
+        entry["train_launches"] = train_launches[entry["name"]]
+        if entry["launches"] is None:
+            entry["launches"] = train_launches[entry["name"]]
 
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")

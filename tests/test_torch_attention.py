@@ -6,6 +6,7 @@ import numpy.testing as npt
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from bsi_tpu.nn.attention import _merge_heads as jax_merge_heads
@@ -77,6 +78,38 @@ def test_gradient_recomputes_through_twin():
     torch.autograd.backward(fa._fwd_math(*leaves, 1.0 / np.sqrt(8)).double(), g)
     for ours, ref in zip((q, k, v), leaves):
         npt.assert_allclose(ours.grad.numpy(), ref.grad.numpy(), atol=1e-12)
+
+
+def test_backward_above_512_is_the_vjp_of_jax_plain_attention():
+    # JAX differentiates _xla_attention above MAX_FUSED_TRAIN_SEQ. Values v
+    # close to one constant make dP = g v^T nearly constant along each row,
+    # so the softmax backward cancels to 1e-3 of its inputs and shows which
+    # formulation is differentiated: the VJP of _xla_attention stays within
+    # the tolerance, the recomputation through _fwd_math (the backward before
+    # this rule) misses it at f32 by 2x.
+    rng = np.random.default_rng(6)
+    shape = (1, 2, 640, 64)
+    q, k, g = (rng.normal(size=shape).astype(np.float32) for _ in range(3))
+    v = (1.0 + 0.01 * rng.normal(size=shape)).astype(np.float32)
+    _, vjp = jax.vjp(jax_attention._xla_attention, *map(jnp.asarray, (q, k, v)))
+    want = [np.asarray(w) for w in vjp(jnp.asarray(g))]
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    got = torch.autograd.grad(fa._FlashAttention.apply(*leaves), leaves, torch.from_numpy(g))
+    old_leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    old = torch.autograd.grad(fa._fwd_math(*old_leaves, fa._scale(old_leaves[0])), old_leaves,
+                              torch.from_numpy(g))
+    # f32 on both sides; 1e-4 of each gradient's largest element
+    tol = [1e-4 * np.abs(w).max() for w in want]
+    for ours, w, t in zip(got, want, tol):
+        assert np.abs(ours.numpy() - w).max() <= t
+    assert any(np.abs(o.numpy() - w).max() > t for o, w, t in zip(old, want, tol))
+    # in bf16 the backward is exactly autograd through the plain attention
+    bf = [torch.from_numpy(a).bfloat16().requires_grad_() for a in (q, k, v)]
+    got_bf = torch.autograd.grad(fa._FlashAttention.apply(*bf), bf, torch.from_numpy(g).bfloat16())
+    plain = [a.detach().clone().requires_grad_() for a in bf]
+    want_bf = torch.autograd.grad(fa._xla_attention(*plain), plain, torch.from_numpy(g).bfloat16())
+    for ours, w in zip(got_bf, want_bf):
+        assert torch.equal(ours, w)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

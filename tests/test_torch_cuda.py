@@ -81,3 +81,61 @@ def test_groupnorm_silu_kernel_matches_twin(cuda, shape, dtype, atol):
     # bf16 ulp (2^-7 relative at most)
     rtol = 2**-7 if dtype == torch.bfloat16 else 0.0
     assert ((got.float() - want).abs() <= atol + rtol * want.abs()).all()
+
+
+def _gn_bwd_inputs(gen, shape, dtype, device):
+    c = shape[-1]
+    x = _randn(gen, *shape, dtype=dtype, device=device) * 2.0 + 0.5
+    gamma = (1.0 + 0.1 * torch.randn(c, generator=gen, device=device)).to(dtype)
+    beta = (0.1 * torch.randn(c, generator=gen, device=device)).to(dtype)
+    g = _randn(gen, *shape, dtype=dtype, device=device)
+    return x, gamma, beta, g
+
+
+def assert_bwd_close(got, want, dtype):
+    """dx within 1e-5 (f32) or 2e-2 plus one bf16 ulp (bf16); dgamma and
+    dbeta, sums over every row of every image, within 1e-4 of their largest
+    element (f32 sums in another order), plus one ulp in bf16."""
+    ulp = 2**-7 if dtype == torch.bfloat16 else 0.0
+    dx_atol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        a, b = a.float(), b.float()
+        atol = dx_atol if i == 0 else 1e-4 * b.abs().max().item()
+        assert ((a - b).abs() <= atol + ulp * b.abs()).all(), i
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(128, 1024, 128), (128, 1024, 256), (3, 100, 64)])
+def test_groupnorm_silu_bwd_kernel_matches_plain(cuda, shape, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x, gamma, beta, g = _gn_bwd_inputs(gen, shape, dtype, cuda)
+    before = gn.groupnorm_silu_bwd_cuda.launches
+    got = gn.groupnorm_silu_bwd_cuda(x, gamma, beta, g, 32)
+    assert gn.groupnorm_silu_bwd_cuda.launches == before + 1
+    assert_bwd_close(got, gn._bwd_math(x, gamma, beta, g, 32), dtype)
+
+
+def test_groupnorm_silu_bwd_kernel_takes_strided_gradients(cuda):
+    # the gradient of an NCHW tensor that is not channels_last reaches the
+    # backward as [B, rows, C] with rows of stride 1
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x, gamma, beta, g = _gn_bwd_inputs(gen, (2, 256, 64), torch.float32, cuda)
+    g_strided = g.permute(0, 2, 1).contiguous().permute(0, 2, 1)
+    assert not g_strided.is_contiguous()
+    assert_bwd_close(gn.groupnorm_silu_bwd_cuda(x, gamma, beta, g_strided, 32),
+                     gn._bwd_math(x, gamma, beta, g, 32), torch.float32)
+
+
+def test_cuda_groupnorm_silu_backward_launches_k7b_only(cuda, monkeypatch):
+    def plain_vjp(*args):
+        raise AssertionError("the plain VJP ran on a CUDA tensor")
+
+    monkeypatch.setattr(gn, "_bwd_math", plain_vjp)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x, gamma, beta, g = _gn_bwd_inputs(gen, (2, 1024, 128), torch.bfloat16, cuda)
+    leaves = [t.requires_grad_() for t in (x, gamma, beta)]
+    fwd, bwd = gn.groupnorm_silu_cuda.launches, gn.groupnorm_silu_bwd_cuda.launches
+    torch.autograd.grad(gn.groupnorm_silu(*leaves, 32), leaves, g)
+    assert gn.groupnorm_silu_cuda.launches == fwd + 1
+    assert gn.groupnorm_silu_bwd_cuda.launches == bwd + 1

@@ -1,4 +1,5 @@
-"""K7's plain version and the GroupNorm modules against the JAX package on the CPU."""
+"""K7's plain versions (forward and backward) and the GroupNorm modules
+against the JAX package on the CPU."""
 
 import importlib
 
@@ -77,6 +78,56 @@ def test_gradient_recomputes_through_twin():
         npt.assert_allclose(ours.grad.numpy(), np.asarray(ref), rtol=1e-9, atol=1e-11)
 
 
+def _bwd_inputs(shape, seed, dtype=np.float64):
+    x, gamma, beta = _inputs(shape, seed, dtype)
+    g = np.random.default_rng(seed + 100).normal(size=shape).astype(dtype)
+    return x, gamma, beta, g
+
+
+@pytest.mark.parametrize("c", [64, 128])
+def test_bwd_math_matches_jax_vjp_f64(c):
+    x, gamma, beta, g = _bwd_inputs((2, 16, c), 20 + c)
+    _, vjp = jax.vjp(lambda a, b_, c_: jax_gn._reference_math(a, b_, c_, 32),
+                     *map(jnp.asarray, (x, gamma, beta)))
+    want = vjp(jnp.asarray(g))
+    got = gn._bwd_math(*map(torch.from_numpy, (x, gamma, beta, g)), 32)
+    for ours, ref in zip(got, want):
+        npt.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-10, atol=1e-12)
+
+
+def test_bwd_math_matches_pallas_kernel_in_interpret_mode():
+    x, gamma, beta, g = _bwd_inputs((4, 16, 128), 21, np.float32)
+    dx, dgamma_b, dbeta_b = jax_gn._bwd_pallas(*map(jnp.asarray, (x, gamma, beta, g)), groups=32,
+                                               interpret=True)
+    got = gn._bwd_math(*map(torch.from_numpy, (x, gamma, beta, g)), 32)
+    # f32 on both sides, sums in another order (the partials over 16 rows,
+    # then over 4 images): the JAX package's own kernel test holds 3e-5
+    for ours, ref in zip(got, (dx, dgamma_b.sum(0), dbeta_b.sum(0))):
+        npt.assert_allclose(ours.numpy(), np.asarray(ref), atol=3e-5, rtol=0)
+
+
+def test_bwd_math_matches_autograd_through_forward_twin():
+    # The second reference: autograd through _reference_math, which at f64
+    # rounds nothing, so it is the same function.
+    x, gamma, beta, g = _bwd_inputs((3, 10, 64), 22)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, gamma, beta)]
+    want = torch.autograd.grad(gn._reference_math(*leaves, 32), leaves, torch.from_numpy(g))
+    got = gn._bwd_math(*map(torch.from_numpy, (x, gamma, beta, g)), 32)
+    for ours, ref in zip(got, want):
+        npt.assert_allclose(ours.numpy(), ref.numpy(), rtol=1e-10, atol=1e-12)
+
+
+def test_cpu_backward_takes_the_plain_vjp(monkeypatch):
+    calls = []
+    real = gn._bwd_math
+    monkeypatch.setattr(gn, "_bwd_math", lambda *a: calls.append(1) or real(*a))
+    x, gamma, beta = (torch.from_numpy(a).requires_grad_() for a in _inputs((2, 8, 64), 23))
+    gn.groupnorm_silu(x, gamma, beta, 32).sum().backward()
+    assert calls == [1]
+    with pytest.raises(ValueError, match="no backward"):
+        gn._backward(*(t.detach().to("meta") for t in (x, gamma, beta, x)), 32)
+
+
 def test_channel_blocks_hold_whole_groups():
     # 16 channels of all 1,024 rows per program at the UNet's shapes
     assert gn._block_c(1024, 128, 32) == 16
@@ -91,3 +142,5 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     x, gamma, beta = (torch.from_numpy(a).float() for a in _inputs((2, 8, 64), 11))
     with pytest.raises(ValueError, match="CUDA"):
         gn.groupnorm_silu_cuda(x, gamma, beta, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        gn.groupnorm_silu_bwd_cuda(x, gamma, beta, x, 32)

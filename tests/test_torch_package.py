@@ -10,6 +10,7 @@ import torch
 
 import bsi_torch
 from bsi_torch import BSI
+from bsi_torch.convert import train_state_from_jax
 from bsi_torch.models import DenoisingVDMUNet
 from bsi_torch.nn import NyquistPositionalEmbedding
 
@@ -17,7 +18,8 @@ ROOT = Path(bsi_torch.__file__).resolve().parent
 
 
 def _modules():
-    return ["bsi_torch"] + [
+    # chip_smoke.py, the card's smoke run, is held to the same rule
+    return ["bsi_torch", "chip_smoke"] + [
         m.name for m in pkgutil.walk_packages([str(ROOT)], prefix="bsi_torch.")
     ]
 
@@ -43,6 +45,11 @@ def test_no_library_attention_or_compile():
             text = path.read_text()
             for banned in ("scaled_dot_product_attention", "torch.compile", "import jax", "bsi_tpu."):
                 assert banned not in text, f"{path.relative_to(ROOT.parent)} mentions {banned}"
+    # chip_smoke.py times the library's calls beside the kernels, but imports
+    # nothing of JAX
+    smoke = (ROOT.parent / "chip_smoke.py").read_text()
+    for banned in ("import jax", "from jax", "bsi_tpu."):
+        assert banned not in smoke, f"chip_smoke.py mentions {banned}"
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -55,3 +62,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
         algo.sample(fn, torch.Generator(), 2)
     with pytest.raises(ValueError, match="generator"):
         algo.sample(fn, torch.Generator(), 2, device="meta")
+    # the training slice: the state converter puts its tensors on the card
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_state_from_jax(object(), generator=torch.Generator())
+    # the loss and the step draw on the generator's device, which must be x's
+    with pytest.raises(ValueError, match="generator"):
+        algo.train_loss(fn, torch.Generator(), torch.zeros(2, 8, 8, 3, device="meta"))
