@@ -5,10 +5,13 @@ mechanical: the flax path joined by dots, with
 
 - Dense ``kernel`` [in, out] -> ``weight`` [out, in];
 - Conv ``kernel`` HWIO -> ``weight`` OIHW;
-- GroupNorm ``scale`` -> ``weight``; every ``bias`` -> ``bias``.
+- LayerNorm and GroupNorm ``scale`` -> ``weight``; every ``bias`` -> ``bias``.
 
-qkv projections stay in the grouped layout both packages use.
-:func:`params_to_jax` is the inverse (for the port's gradients, say), and
+qkv projections stay in the grouped layout both packages use. A DiT tree in
+the JAX package's scan layout (``blocks/block/...`` with a leading depth
+axis, what its ``scan_blocks=True`` builds) is split into the loop layout's
+``block_{i}`` first, as ``unstack_block_params`` does. :func:`params_to_jax`
+is the inverse into the loop layout (for the port's gradients, say), and
 :func:`train_state_from_jax` carries a whole JAX train state across.
 """
 
@@ -23,10 +26,40 @@ from bsi_torch.core.common import resolve_device
 from bsi_torch.train import AdamState, TrainState
 
 
+def _unstack_blocks(node: Any) -> Any:
+    """The loop block layout of a tree: every ``blocks: {block: {...}}`` node,
+    whose leaves carry a leading depth axis, becomes ``block_0`` ...
+    ``block_{depth-1}``."""
+    if not isinstance(node, Mapping):
+        return node
+    out: dict[str, Any] = {}
+    for name, value in node.items():
+        if name == "blocks" and isinstance(value, Mapping) and set(value) == {"block"}:
+            stacked = _map_leaves(value["block"], np.asarray)
+            for i in range(len(_first_leaf(stacked))):
+                out[f"block_{i}"] = _map_leaves(stacked, lambda a, i=i: a[i])
+        else:
+            out[name] = _unstack_blocks(value)
+    return out
+
+
+def _first_leaf(node: Any) -> Any:
+    while isinstance(node, Mapping):
+        node = next(iter(node.values()))
+    return node
+
+
+def _map_leaves(node: Any, fn: Callable[[Any], Any]) -> Any:
+    if isinstance(node, Mapping):
+        return {name: _map_leaves(value, fn) for name, value in node.items()}
+    return fn(node)
+
+
 def params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """A ``state_dict`` for the port's model from a flax variable tree
-    (``{"params": {...}}`` or the inner dict) with array leaves."""
-    tree = params["params"] if "params" in params else params
+    (``{"params": {...}}`` or the inner dict) with array leaves, in the loop
+    or the scan block layout."""
+    tree = _unstack_blocks(params["params"] if "params" in params else params)
     state: dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping[str, Any], prefix: str) -> None:

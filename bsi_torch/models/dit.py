@@ -1,0 +1,209 @@
+"""Diffusion Transformer (DiT) denoiser.
+
+Counterpart of ``bsi_tpu/models/dit.py``: DiT (arXiv:2212.09748) with the
+reference's two deviations from upstream DiT, an extra Dense in front of the
+SiLU of the adaLN modulation and dropout before the block MLP. Data is NHWC;
+patchify and unpatchify are reshapes. The 2D positional embedding is a fixed
+table built from two 1D Nyquist embeddings.
+
+Submodules carry the flax names (``dit``, ``patch_encoder``, ``block_{i}``,
+``ada_in``, ``attn``, ``mlp``, ...), so converted weights load by name. The
+JAX package's ``remat``, ``scan_blocks`` and ``token_sharding`` are layout
+and compile knobs of XLA and have no counterpart here: the blocks run as a
+Python loop, and :func:`bsi_torch.convert.params_from_jax` splits a
+scan-layout tree into ``block_{i}``.
+
+On a CUDA tensor each block runs K4f twice (the fused LayerNorm + modulate
+before the attention and before the MLP) and K2 once (the attention, read
+in place from the qkv projection's output). With ``dtype=torch.bfloat16``
+the parameters stay f32 and every layer casts at use, as flax does.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from bsi_torch.core.common import resolve_device
+from bsi_torch.nn import MLP, Dense, FourierFeatures, LayerNorm, NyquistPositionalEmbedding, TokenAttention
+from bsi_torch.ops.ln_modulate import layernorm_modulate
+
+
+def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """adaLN modulation over tokens: ``shift + (scale + 1) * x``."""
+    return shift[:, None, :] + (scale[:, None, :] + 1.0) * x
+
+
+class DiTBlock(nn.Module):
+    """DiT block with adaptive layer norm zero (adaLN-Zero) conditioning.
+
+    ``ada_out`` starts at zero, so at initialisation every gate is 0 and the
+    block is the identity.
+    """
+
+    def __init__(self, dim: int, heads: int, mlp_ratio: int = 4, dropout: float | None = None, *,
+                 dtype=None, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.ada_in = Dense(dim, dim, **kw)
+        self.ada_out = Dense(dim, 6 * dim, **kw)
+        nn.init.zeros_(self.ada_out.weight)
+        self.attn = TokenAttention(dim, heads, dropout or 0.0, **kw)
+        self.dropout = nn.Dropout(dropout) if dropout is not None else None
+        self.mlp = MLP(dim, dim, [mlp_ratio * dim], actfn=functools.partial(F.gelu, approximate="tanh"), **kw)
+
+    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        mod = self.ada_out(F.silu(self.ada_in(c)))
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
+        attn_out = self.attn(layernorm_modulate(x, shift_msa, scale_msa))
+        x = x + gate_msa[:, None, :] * attn_out
+        mlp_in = layernorm_modulate(x, shift_mlp, scale_mlp)
+        if self.dropout is not None:
+            mlp_in = self.dropout(mlp_in)
+        return x + gate_mlp[:, None, :] * self.mlp(mlp_in)
+
+
+class DiT(nn.Module):
+    """Transformer over image patches with adaLN-Zero t-conditioning.
+
+    ``in_channels`` is the channel count of the input ``x`` (flax infers it
+    at init; PyTorch needs it to size ``patch_encoder``).
+    """
+
+    def __init__(
+        self,
+        input_size: tuple[int, int],
+        patch_size: int,
+        in_channels: int,
+        out_channels: int,
+        hidden_size: int,
+        depth: int,
+        heads: int,
+        mlp_ratio: int = 4,
+        dropout: float | None = None,
+        *,
+        dtype=None,
+        device=None,
+    ):
+        super().__init__()
+        self.input_size = tuple(input_size)
+        self.patch_size = patch_size
+        self.out_channels = out_channels
+        self.hidden_size = hidden_size
+        self.depth = depth
+        kw = dict(dtype=dtype, device=device)
+        self.patch_encoder = Dense(patch_size * patch_size * in_channels, hidden_size, **kw)
+        self.decoder_norm = LayerNorm(hidden_size, **kw)
+        self.patch_decoder = Dense(hidden_size, patch_size * patch_size * out_channels, **kw)
+        for i in range(depth):
+            self.add_module(f"block_{i}", DiTBlock(hidden_size, heads, mlp_ratio, dropout, **kw))
+        self.t_emb = NyquistPositionalEmbedding(hidden_size, 1000)
+        self._pos_tables: dict = {}
+
+    def _pos_embedding(self) -> np.ndarray:
+        """Fixed 2D positional embedding: concat of per-row and per-column 1D
+        Nyquist embeddings, h-major patch order (f64 numpy)."""
+        height, width = self.input_size
+        ph, pw = height // self.patch_size, width // self.patch_size
+        emb = NyquistPositionalEmbedding(self.hidden_size // 2, max(height, width))
+        pos_h = emb.table(np.linspace(0.0, 1.0, ph))
+        pos_w = emb.table(np.linspace(0.0, 1.0, pw))
+        rows = np.repeat(pos_h, pw, axis=0)
+        cols = np.tile(pos_w, (ph, 1))
+        return np.concatenate([rows, cols], axis=1)
+
+    def _pos_table(self, like: torch.Tensor) -> torch.Tensor:
+        """The table in ``like``'s dtype on its device, made once per pair."""
+        key = (like.dtype, like.device)
+        if key not in self._pos_tables:
+            self._pos_tables[key] = torch.as_tensor(self._pos_embedding(), dtype=like.dtype, device=like.device)
+        return self._pos_tables[key]
+
+    def embed(self, x: torch.Tensor, t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Patchify + encode + fixed positional embedding; the t-conditioning vector."""
+        b, h, w, c_in = x.shape
+        p = self.patch_size
+        ph, pw = h // p, w // p
+        patches = x.reshape(b, ph, p, pw, p, c_in).permute(0, 1, 3, 2, 4, 5).reshape(b, ph * pw, p * p * c_in)
+        tokens = self.patch_encoder(patches)
+        tokens = tokens + self._pos_table(tokens)
+        return tokens, self.t_emb(t)
+
+    def run_blocks(self, tokens: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        for i in range(self.depth):
+            tokens = getattr(self, f"block_{i}")(tokens, c)
+        return tokens
+
+    def decode(self, tokens: torch.Tensor) -> torch.Tensor:
+        """LayerNorm + linear decode + unpatchify."""
+        b = tokens.shape[0]
+        h, w = self.input_size
+        p = self.patch_size
+        out = self.patch_decoder(self.decoder_norm(tokens))
+        out = out.reshape(b, h // p, w // p, p, p, self.out_channels)
+        return out.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, self.out_channels)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        tokens, c = self.embed(x, t)
+        return self.decode(self.run_blocks(tokens, c))
+
+
+class DenoisingDiT(nn.Module):
+    """DiT under the ``(mu, t) -> prediction`` denoiser contract, with
+    optional per-channel Fourier features of the input.
+
+    Args:
+        data_shape: (H, W, C) image shape.
+        patch_size: Side of a square patch.
+        dim: Token width.
+        depth: Number of DiT blocks.
+        heads: Attention heads.
+        mlp_ratio: MLP hidden width over ``dim``.
+        dropout: Attention and pre-MLP dropout rate, active in ``train()``.
+        fourier_features: Optional per-pixel Fourier features of the input.
+        dtype: Compute dtype (parameters stay f32).
+        device: Where the parameters live; ``None`` means the card.
+    """
+
+    def __init__(
+        self,
+        data_shape: tuple[int, int, int],
+        patch_size: int,
+        dim: int,
+        depth: int,
+        heads: int,
+        mlp_ratio: int = 4,
+        dropout: float | None = None,
+        fourier_features: FourierFeatures | None = None,
+        dtype: torch.dtype | None = None,
+        device: torch.device | str | None = None,
+    ):
+        super().__init__()
+        if len(data_shape) != 3:
+            raise ValueError("DenoisingDiT only supports 2D image data (H, W, C)")
+        device = resolve_device(device)
+        self.data_shape = tuple(data_shape)
+        self.fourier_features = fourier_features
+        channels = data_shape[-1]
+        in_channels = channels * (1 + (fourier_features.n_features() if fourier_features else 0))
+        self.dit = DiT(data_shape[:2], patch_size, in_channels, channels, dim, depth, heads, mlp_ratio,
+                       dropout, dtype=dtype, device=device)
+
+    def _features(self, mu: torch.Tensor) -> torch.Tensor:
+        if self.fourier_features is not None:
+            return torch.cat([mu, self.fourier_features(mu)], dim=-1)
+        return mu
+
+    def embed(self, mu: torch.Tensor, t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.dit.embed(self._features(mu), t)
+
+    def decode(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.dit.decode(tokens)
+
+    def forward(self, mu: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """``mu`` [B, H, W, C] and ``t`` [B] -> prediction [B, H, W, C]."""
+        return self.dit(self._features(mu), t)

@@ -1,7 +1,8 @@
-from .attention import Attention2D, repack_qkv_grouped
+from .attention import Attention2D, TokenAttention, repack_qkv_grouped
 from .blocks import GroupNormSiLU, ResidualBlock, SimplifiedUNet, feature_modulation
 from .fourier import FourierFeatures
-from .layers import Conv, Dense, GroupNorm
+from .layers import Conv, Dense, GroupNorm, LayerNorm
+from .mlp import MLP
 from .pos_emb import NyquistPositionalEmbedding
 
 __all__ = [
@@ -11,9 +12,12 @@ __all__ = [
     "FourierFeatures",
     "GroupNorm",
     "GroupNormSiLU",
+    "LayerNorm",
+    "MLP",
     "NyquistPositionalEmbedding",
     "ResidualBlock",
     "SimplifiedUNet",
+    "TokenAttention",
     "feature_modulation",
     "repack_qkv_grouped",
 ]

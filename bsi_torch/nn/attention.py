@@ -1,8 +1,10 @@
-"""Pixel attention for the UNet.
+"""Attention modules: the DiT's token attention and the UNet's pixel attention.
 
-Counterpart of ``bsi_tpu/nn/attention.py::Attention2D``. The qkv projection's
-output channels use the JAX package's GROUPED layout (see
-:func:`repack_qkv_grouped`), so weights converted from JAX need no reshuffle.
+Counterpart of ``bsi_tpu/nn/attention.py`` (``TokenAttention``,
+``Attention2D``). The qkv projections' output channels use the JAX
+package's GROUPED layout (see :func:`repack_qkv_grouped`), so weights
+converted from JAX need no reshuffle, and the token attention's projection
+output feeds the fused-qkv kernel (K2) as it is.
 """
 
 from __future__ import annotations
@@ -10,16 +12,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from bsi_torch.ops import multi_head_attention, split_qkv_grouped
-from bsi_torch.ops.flash_attention_packed import qkv_heads_per_group
+from bsi_torch.ops import multi_head_attention, multi_head_attention_fused_qkv, split_qkv_grouped
+from bsi_torch.ops.flash_attention_packed import _merge_heads, qkv_heads_per_group
 
-from .layers import Conv
-
-
-def _merge_heads(x: torch.Tensor) -> torch.Tensor:
-    # [B, H, S, D] -> [B, S, H*D]
-    b, h, s, d = x.shape
-    return x.permute(0, 2, 1, 3).reshape(b, s, h * d)
+from .layers import Conv, Dense
 
 
 def repack_qkv_grouped(w: torch.Tensor, heads: int) -> torch.Tensor:
@@ -31,6 +27,25 @@ def repack_qkv_grouped(w: torch.Tensor, heads: int) -> torch.Tensor:
     w = w.reshape(shape[:-1] + (3, heads // hpg, hpg * d))
     w = torch.movedim(w, -3, -2)  # (qkv g x) -> (g qkv x)
     return w.reshape(shape)
+
+
+class TokenAttention(nn.Module):
+    """Multi-head self-attention over a token sequence ``[B, S, F]``: a Dense
+    qkv projection in the grouped layout straight into
+    :func:`bsi_torch.ops.multi_head_attention_fused_qkv`, then a Dense out
+    projection. Attention dropout at ``dropout`` is on in ``train()`` mode."""
+
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0, *, dtype=None, device=None):
+        super().__init__()
+        self.heads = heads
+        self.dropout = dropout
+        self.to_qkv = Dense(dim, 3 * dim, dtype=dtype, device=device)
+        self.to_out = Dense(dim, dim, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        rate = self.dropout if self.training else 0.0
+        out = multi_head_attention_fused_qkv(self.to_qkv(x), heads=self.heads, dropout_rate=rate)
+        return self.to_out(out)
 
 
 class Attention2D(nn.Module):

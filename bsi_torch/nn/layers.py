@@ -70,6 +70,30 @@ class Conv(nn.Conv2d):
         return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), padding=self.padding)
 
 
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last axis: eps 1e-6, statistics in at
+    least f32 by flax's default fast variance (E[x^2] - E[x]^2, clipped at
+    0), ``(x - mean) * (rsqrt(var + eps) * weight) + bias``, output in the
+    compute dtype. ``weight`` is the flax ``scale``."""
+
+    def __init__(self, num_features: int, *, dtype=None, epsilon: float = 1e-6, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        st = torch.promote_types(self.dtype if self.dtype is not None else x.dtype, torch.float32)
+        xs = x.to(st)
+        mean = xs.mean(dim=-1, keepdim=True)
+        var = torch.clamp((xs * xs).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.epsilon) * self.weight.to(st)
+        y = (x.to(torch.promote_types(x.dtype, st)) - mean) * mul + self.bias
+        out_dtype = self.dtype if self.dtype is not None else torch.promote_types(x.dtype, self.weight.dtype)
+        return y.to(out_dtype)
+
+
 class GroupNorm(nn.Module):
     """flax ``nn.GroupNorm`` over NCHW: f32 one-pass statistics with the
     variance clipped at 0, eps 1e-6, f32 affine, output in the compute dtype."""

@@ -46,3 +46,10 @@ class NyquistPositionalEmbedding:
         scale, bias = self._scale_bias
         as_t = lambda a: torch.as_tensor(a, dtype=t.dtype, device=t.device)
         return torch.sin(as_t(scale) * t[..., None] + as_t(bias))
+
+    def table(self, t: np.ndarray) -> np.ndarray:
+        """Pure-numpy embedding of concrete positions (the DiT's fixed patch
+        table). The f32 constants meet ``t`` as numpy promotes them: an f64
+        ``t`` gives an f64 table, as in the JAX package."""
+        scale, bias = self._scale_bias
+        return np.sin(scale * np.asarray(t)[..., None] + bias)

@@ -1,0 +1,442 @@
+// K2 and K6f: attention forward over heads read in place from a packed
+// token-major layout, on Hopper.
+//
+// Replaces the TPU kernels bsi_tpu/ops/flash_attention_packed.py::
+// flash_attention_fused (K2) and ::flash_attention_packed (K6f), the two
+// pallas_calls of `_packed_kernel`. Both compute softmax(q k^T / sqrt(d)) v
+// per head without moving a head into a [B, H, S, D] copy: K2 reads q, k and
+// v straight out of the qkv projection's output [B, S, 3*H*D] in the grouped
+// layout (head h in group g = h / hpg, slot j = h % hpg: q at column
+// g*3*hpg*D + j*D, k hpg*D further, v 2*hpg*D further) and K6f out of three
+// [B, S, H*D] tensors; both write head h to column h*D of [B, S, H*D]. One
+// kernel serves both: the caller passes the three base pointers, the row
+// stride, the column stride between head groups and the heads per group.
+// The TPU kernel masks lanes to split a 128-lane block into two 64-wide
+// heads; here every head is addressed by its own columns and nothing is
+// masked.
+//
+// Grid: one block of 4 warps per (64 query rows, batch*head); the query
+// tiles of one head are adjacent in launch order, so its K and V are read
+// from HBM once and then from L2. At DiT-L/2 (B*H = 1024, S = 256, D = 64)
+// that is 4,096 blocks over 132 SMs.
+//
+// bf16: mma.sync m16n8k16 tensor-core products with f32 accumulation, in
+// registers. Each warp owns 16 query rows; K and V stream through shared
+// memory in tiles of BK keys and ldmatrix feeds the fragments (V through its
+// transposing form). The softmax is online, per tile: the row max and sum
+// in f32, the probabilities rounded to bf16 for P V (as the TPU kernel casts
+// them to v's dtype), the output divided by the row sum at the end. The
+// accumulator layout of one S = Q K^T product is the A-operand layout of the
+// next P V product, so the probabilities never leave registers.
+//
+// f32: exact f32 FMAs on the CUDA cores, no TF32, as the TPU kernel's
+// Precision.HIGHEST; 256 threads, 4 per query row; q is scaled on load.
+//
+// Bound on an H100 SXM at DiT-L/2 (qkv [64, 256, 3072] bf16 -> [64, 256,
+// 1024]): 134.2 MB of HBM traffic (the qkv buffer read once, the output
+// written once), 40 us at 3.35 TB/s, against 4*B*H*S^2*D = 17.2 GFLOP, 17 us
+// at 989 TFLOP/s dense bf16: the bound is bytes. mma.sync reaches a fraction
+// of the wgmma rate and the K/V loads are not overlapped with compute (no
+// cp.async/TMA pipeline); those are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BQ = 64;  // query rows per block
+
+// ------------------------------------------------------------------ bf16
+
+constexpr int BF16_THREADS = 128;  // 4 warps x 16 query rows
+
+template <int D>
+struct Bf16Tiles {
+  static constexpr int BK = D == 256 ? 32 : 64;  // keys per K/V tile
+  // Rows padded by 16 bytes: ldmatrix row addresses stay 16-byte aligned and
+  // the 8 rows of one 8x8 matrix fall on distinct banks.
+  static constexpr int LD = D + 8;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + BQ * LD * 2;
+  static constexpr int V = K + BK * LD * 2;
+  static constexpr int BYTES = V + BK * LD * 2;
+};
+
+// Rows [r0, r0 + ROWS) of one head (D columns at `src`, rows `ld` elements
+// apart) into shared memory, 16 bytes a load, zero past `seq`.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows_bf16(bf16* dst, const bf16* __restrict__ src,
+                                               long long ld, int r0, int seq) {
+  constexpr int VEC = 8;
+  constexpr int PER_ROW = D / VEC;
+  constexpr int LDS = Bf16Tiles<D>::LD;
+  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += BF16_THREADS) {
+    const int r = i / PER_ROW;
+    const int c = (i % PER_ROW) * VEC;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r0 + r < seq) val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * ld + c);
+    *reinterpret_cast<uint4*>(dst + r * LDS + c) = val;
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a b for one 16x8x16 bf16 tile, f32 accumulation.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as bf16 in one register, `lo` in the low half (the lower
+// column of an mma fragment).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(BF16_THREADS)
+    packed_attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ o, int seq, int heads,
+                         int hpg, long long group_stride, long long in_ld, long long out_ld,
+                         float scale) {
+  using T = Bf16Tiles<D>;
+  constexpr int BK = T::BK;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem + T::Q);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + T::K);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + T::V);
+
+  const int b = blockIdx.y / heads;
+  const int h = blockIdx.y % heads;
+  const long long in_off = (long long)b * seq * in_ld + (long long)(h / hpg) * group_stride +
+                           (long long)(h % hpg) * D;
+  const bf16* qh = q + in_off;
+  const bf16* kh = k + in_off;
+  const bf16* vh = v + in_off;
+  bf16* oh = o + (long long)b * seq * out_ld + (long long)h * D;
+  const int q0 = blockIdx.x * BQ;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int quad = lane % 4;  // this lane's column pair in an 8-wide tile
+
+  load_rows_bf16<D, BQ>(Qs, qh, in_ld, q0, seq);
+
+  // Output accumulator: D/8 tiles of 16x8; lane holds rows lane/4 and
+  // lane/4 + 8, columns 2*quad and 2*quad + 1 of each.
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+
+  const int n_tiles = (seq + BK - 1) / BK;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK;
+    __syncthreads();  // every warp is done with the previous K/V tile
+    load_rows_bf16<D, BK>(Ks, kh, in_ld, k0, seq);
+    load_rows_bf16<D, BK>(Vs, vh, in_ld, k0, seq);
+    __syncthreads();
+
+    // S = Q K^T for the warp's 16 rows x BK keys.
+    float s[BK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];  // rows 0-7 | 8-15 at columns kk*16 and kk*16 + 8
+      ldmatrix_x4(a, Qs + (warp * 16 + lane % 8 + ((lane / 8) % 2) * 8) * T::LD + kk * 16 +
+                         (lane / 16) * 8);
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; nt += 2) {
+        uint32_t kb[4];  // keys nt*8.. and nt*8+8.., each at d kk*16 and kk*16 + 8
+        ldmatrix_x4(kb, Ks + (nt * 8 + lane % 8 + (lane / 16) * 8) * T::LD + kk * 16 +
+                            ((lane / 8) % 2) * 8);
+        mma_bf16(s[nt], a, kb[0], kb[1]);
+        mma_bf16(s[nt + 1], a, kb[2], kb[3]);
+      }
+    }
+
+    // Online softmax; a row's 4 lanes (one quad group) combine by shuffles.
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + nt * 8 + quad * 2 + (e & 1);
+        const float x = key < seq ? s[nt][e] * scale : -INFINITY;
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2];
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);  // finite: every tile has a valid key
+      alpha[r] = __expf(m_run[r] - m_new);
+      m_run[r] = m_new;
+    }
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = __expf(s[nt][e] - m_run[e >> 1]);
+        s[nt][e] = p;
+        sum[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l_run[r] = l_run[r] * alpha[r] + sum[r];
+    }
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      acc[dt][0] *= alpha[0];
+      acc[dt][1] *= alpha[0];
+      acc[dt][2] *= alpha[1];
+      acc[dt][3] *= alpha[1];
+    }
+
+    // O += P V: the S tiles 2j and 2j+1 are the A fragment of key step j.
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
+      a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
+      a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
+      a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+#pragma unroll
+      for (int dt = 0; dt < D / 8; dt += 2) {
+        uint32_t vb[4];  // keys j*16.. | j*16+8.., at columns dt*8 and dt*8 + 8
+        ldmatrix_x4_trans(vb, Vs + (j * 16 + ((lane / 8) % 2) * 8 + lane % 8) * T::LD + dt * 8 +
+                                  (lane / 16) * 8);
+        mma_bf16(acc[dt], a, vb[0], vb[1]);
+        mma_bf16(acc[dt + 1], a, vb[2], vb[3]);
+      }
+    }
+  }
+
+  // Epilogue: divide by the row sums, write bf16 pairs.
+  const int row = q0 + warp * 16 + lane / 4;
+  const float inv0 = 1.f / l_run[0];
+  const float inv1 = 1.f / l_run[1];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    const int col = dt * 8 + quad * 2;
+    if (row < seq)
+      *reinterpret_cast<uint32_t*>(oh + (long long)row * out_ld + col) =
+          pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
+    if (row + 8 < seq)
+      *reinterpret_cast<uint32_t*>(oh + (long long)(row + 8) * out_ld + col) =
+          pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
+  }
+}
+
+// ------------------------------------------------------------------- f32
+
+constexpr int F32_THREADS = 256;  // 4 threads per query row
+constexpr int F32_BK = 64;
+
+template <int D>
+struct F32Tiles {
+  static constexpr int LDQ = D + 1;  // odd strides: the 8 rows a warp reads
+  static constexpr int LDK = D + 1;  // at one d fall on distinct banks
+  static constexpr int LDV = D;
+  static constexpr int LDP = F32_BK + 1;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + BQ * LDQ * 4;
+  static constexpr int V = K + F32_BK * LDK * 4;
+  static constexpr int P = V + F32_BK * LDV * 4;
+  static constexpr int BYTES = P + BQ * LDP * 4;
+};
+
+__device__ __forceinline__ void load_rows_f32(float* dst, int lds, const float* __restrict__ src,
+                                              long long ld, int r0, int seq, int d, float mul) {
+  for (int i = threadIdx.x; i < 64 * d; i += F32_THREADS) {
+    const int r = i / d;
+    const int c = i % d;
+    dst[r * lds + c] = (r0 + r < seq) ? src[(long long)(r0 + r) * ld + c] * mul : 0.f;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS)
+    packed_attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o, int seq, int heads,
+                        int hpg, long long group_stride, long long in_ld, long long out_ld,
+                        float scale) {
+  using T = F32Tiles<D>;
+  constexpr int NC = D / 4;       // output columns per thread
+  constexpr int NS = F32_BK / 4;  // scores per thread per tile
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem + T::Q);
+  float* Ks = reinterpret_cast<float*>(smem + T::K);
+  float* Vs = reinterpret_cast<float*>(smem + T::V);
+  float* Ps = reinterpret_cast<float*>(smem + T::P);
+
+  const int b = blockIdx.y / heads;
+  const int h = blockIdx.y % heads;
+  const long long in_off = (long long)b * seq * in_ld + (long long)(h / hpg) * group_stride +
+                           (long long)(h % hpg) * D;
+  float* oh = o + (long long)b * seq * out_ld + (long long)h * D;
+  const int q0 = blockIdx.x * BQ;
+  const int r = threadIdx.x >> 2;  // query row within the tile
+  const int cl = threadIdx.x & 3;  // this thread's columns: cl, cl+4, cl+8, ...
+
+  // q is scaled on load, as the plain version scales q before the product.
+  load_rows_f32(Qs, T::LDQ, q + in_off, in_ld, q0, seq, D, scale);
+
+  float acc[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) acc[c] = 0.f;
+  float m_run = -INFINITY;
+  float l_run = 0.f;
+
+  const int n_tiles = (seq + F32_BK - 1) / F32_BK;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * F32_BK;
+    __syncthreads();
+    load_rows_f32(Ks, T::LDK, k + in_off, in_ld, k0, seq, D, 1.f);
+    load_rows_f32(Vs, T::LDV, v + in_off, in_ld, k0, seq, D, 1.f);
+    __syncthreads();
+
+    float s[NS];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j] = 0.f;
+    const float* qrow = Qs + r * T::LDQ;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      const float qv = qrow[d];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[j] = fmaf(qv, Ks[(cl + 4 * j) * T::LDK + d], s[j]);
+    }
+
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      if (k0 + cl + 4 * j >= seq) s[j] = -INFINITY;
+      mx = fmaxf(mx, s[j]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_run, mx);
+    const float alpha = expf(m_run - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const float p = expf(s[j] - m_new);
+      Ps[r * T::LDP + cl + 4 * j] = p;
+      sum += p;
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    l_run = l_run * alpha + sum;
+    m_run = m_new;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[c] *= alpha;
+    __syncwarp();  // row r's probabilities come from the 4 lanes of this warp
+
+    const float* prow = Ps + r * T::LDP;
+#pragma unroll 4
+    for (int n = 0; n < F32_BK; ++n) {
+      const float p = prow[n];
+      const float* vrow = Vs + n * T::LDV + cl;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[c] = fmaf(p, vrow[4 * c], acc[c]);
+    }
+  }
+
+  if (q0 + r < seq) {
+    float* dst = oh + (long long)(q0 + r) * out_ld + cl;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dst[4 * c] = acc[c] / l_run;
+  }
+}
+
+template <typename T, typename Kernel>
+int launch(Kernel kernel, int threads, int smem_bytes, const void* q, const void* k,
+           const void* v, void* o, int batch, int seq, int heads, int hpg,
+           long long group_stride, long long in_ld, long long out_ld, float scale,
+           cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((seq + BQ - 1) / BQ, batch * heads);
+  kernel<<<grid, threads, smem_bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), seq, heads, hpg, group_stride, in_ld, out_ld, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int dispatch(int is_bf16, const void* q, const void* k, const void* v, void* o, int batch,
+             int seq, int heads, int hpg, long long group_stride, long long in_ld,
+             long long out_ld, float scale, cudaStream_t stream) {
+  if (is_bf16)
+    return launch<bf16>(packed_attn_fwd_bf16<D>, BF16_THREADS, Bf16Tiles<D>::BYTES, q, k, v, o,
+                        batch, seq, heads, hpg, group_stride, in_ld, out_ld, scale, stream);
+  return launch<float>(packed_attn_fwd_f32<D>, F32_THREADS, F32Tiles<D>::BYTES, q, k, v, o,
+                       batch, seq, heads, hpg, group_stride, in_ld, out_ld, scale, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Head h of batch row b reads q, k and v at
+//   base + b*seq*in_ld + (h / hpg)*group_stride + (h % hpg)*head_dim
+// (rows in_ld elements apart) and writes o at b*seq*out_ld + h*head_dim (rows
+// out_ld apart). All bf16 (is_bf16 = 1) or all f32; head_dim 64, 128 or 256;
+// q, k, v, o 16-byte aligned and every stride a multiple of 8 elements.
+// scale is 1/sqrt(head_dim) rounded to f32 by the caller, as the plain
+// version has it. Returns a cudaError_t; 0 means launched.
+int bsi_packed_attention_fwd(const void* q, const void* k, const void* v, void* o, int batch,
+                             int seq, int heads, int head_dim, int hpg, long long group_stride,
+                             long long in_ld, long long out_ld, int is_bf16, float scale,
+                             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64:
+      return dispatch<64>(is_bf16, q, k, v, o, batch, seq, heads, hpg, group_stride, in_ld,
+                          out_ld, scale, st);
+    case 128:
+      return dispatch<128>(is_bf16, q, k, v, o, batch, seq, heads, hpg, group_stride, in_ld,
+                           out_ld, scale, st);
+    case 256:
+      return dispatch<256>(is_bf16, q, k, v, o, batch, seq, heads, hpg, group_stride, in_ld,
+                           out_ld, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+const char* bsi_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

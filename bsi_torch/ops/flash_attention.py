@@ -30,19 +30,26 @@ HEAD_DIMS = (64, 128, 256)
 MAX_FUSED_TRAIN_SEQ = 512
 
 
-def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, dropout_rate: float = 0.0,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
     """Plain attention over ``[batch, heads, seq, head_dim]``, the JAX
     package's XLA formulation.
 
     The logits are f32 whatever the input dtype (so f64 inputs lose
     precision here), and the probabilities go back to the input dtype for
-    the product with v.
+    the product with v. With ``dropout_rate > 0`` each probability is kept
+    where a uniform draw from ``generator`` falls below ``1 - dropout_rate``
+    and scaled by its inverse, as ``jax.random.bernoulli`` keeps it.
     """
     dim = q.shape[-1]
     scale = 1.0 / torch.sqrt(torch.tensor(dim, dtype=torch.float32)).to(q.dtype)
     acc = torch.promote_types(q.dtype, torch.float32)
     logits = torch.matmul((q * scale).to(acc), k.to(acc).transpose(-1, -2))
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    if dropout_rate > 0.0:
+        keep_prob = 1.0 - dropout_rate
+        keep = torch.rand(probs.shape, generator=generator, device=probs.device) < keep_prob
+        probs = torch.where(keep, probs / keep_prob, 0.0)
     return torch.matmul(probs, v)
 
 

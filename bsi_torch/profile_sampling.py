@@ -1,15 +1,17 @@
 """Where the time of one BSI sampling step goes on the card.
 
-    python -m bsi_torch.profile_sampling [--batch 64] [--steps 3] [--out FILE]
+    python -m bsi_torch.profile_sampling [--model unet|dit] [--batch 64] [--steps 3] [--out FILE]
 
-Builds the full-width CIFAR-10 VDM-UNet (bf16, random weights from a seed),
-times ``--steps`` preconditioned decodes as the k=128 sampler runs them, once
-with host clocks around synchronised steps and once under
-``torch.profiler``, and prints: wall ms per step, device-busy ms per step
-(kernel time summed), the device's idle share, and the kernels grouped by
-kind (K1, K7, convolutions, the rest) and by name, and the step's FLOPs
-counted from the layer shapes. ``--out`` also writes the numbers as JSON.
-Needs a CUDA device.
+Builds the full-width model (bf16, random weights from a seed): the
+CIFAR-10 VDM-UNet, or with ``--model dit`` DiT-L/2 at 32x32 (patch 2, dim
+1024, depth 24, 16 heads, Fourier features 6..8, ``ada_out`` filled with
+normals of std 0.02 so the blocks are not the identity), times ``--steps``
+preconditioned decodes as the k=128 sampler runs them, once with host clocks
+around synchronised steps and once under ``torch.profiler``, and prints:
+wall ms per step, device-busy ms per step (kernel time summed), the device's
+idle share, the kernels grouped by kind (the port's kernels, matmuls and
+convolutions, the rest) and by name, and the step's FLOPs counted from the
+layer shapes. ``--out`` also writes the numbers as JSON. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -24,11 +26,18 @@ from collections import defaultdict
 import torch
 
 from bsi_torch import BSI
-from bsi_torch.models import DenoisingVDMUNet
-from bsi_torch.nn import Attention2D, FourierFeatures, NyquistPositionalEmbedding
+from bsi_torch.models import DenoisingDiT, DenoisingVDMUNet
+from bsi_torch.nn import Attention2D, FourierFeatures, NyquistPositionalEmbedding, TokenAttention
+
+# DiT-L/2 at 32x32, the JAX package's DiT serving shape (bench.py).
+DIT_L2 = dict(data_shape=(32, 32, 3), patch_size=2, dim=1024, depth=24, heads=16)
 
 
 def _kind(name: str) -> str:
+    if "packed_attn_fwd" in name:
+        return "K2 fused-qkv attention"
+    if "ln_mod_fwd" in name:
+        return "K4f layernorm_modulate"
     if "attn_fwd" in name:
         return "K1 flash_attention"
     if "gn_silu_fwd" in name:
@@ -36,14 +45,17 @@ def _kind(name: str) -> str:
     if "gn_silu_bwd" in name:
         return "K7b groupnorm_silu_bwd"
     low = name.lower()
-    if "conv" in low or "cudnn" in low or "xmma" in low or "gemm" in low or "sm90" in low:
+    # cuBLAS's Hopper matmuls are named nvjet_* on CUDA 12.8
+    if any(key in low for key in ("conv", "cudnn", "xmma", "gemm", "sm90", "nvjet")):
         return "convolution / matmul (cuDNN, cuBLAS)"
-    return "other (elementwise, casts, reductions, copies)"
+    if "copy_kernel" in low:
+        return "casts and copies (weights cast to bf16 at use, layout copies)"
+    return "other (elementwise, reductions, cat)"
 
 
 def count_flops(model: torch.nn.Module, run) -> dict[str, float]:
     """FLOPs of ``run()`` by layer kind, from the shapes the layers see:
-    2 per multiply-add of convolutions and dense layers, 4*B*H*S^2*D for
+    2 per multiply-add of convolutions and dense layers, 4*B*S^2*(H*D) for
     attention's two products."""
     flops: dict[str, float] = defaultdict(float)
 
@@ -57,6 +69,10 @@ def count_flops(model: torch.nn.Module, run) -> dict[str, float]:
         b, c, h, w = inp[0].shape
         flops["attention"] += 4.0 * b * (h * w) ** 2 * c
 
+    def token_attention(mod, inp, out):
+        b, s, f = inp[0].shape
+        flops["attention"] += 4.0 * b * s**2 * f
+
     hooks = []
     for mod in model.modules():
         if isinstance(mod, torch.nn.Conv2d):
@@ -65,6 +81,8 @@ def count_flops(model: torch.nn.Module, run) -> dict[str, float]:
             hooks.append(mod.register_forward_hook(dense))
         elif isinstance(mod, Attention2D):
             hooks.append(mod.register_forward_hook(attention))
+        elif isinstance(mod, TokenAttention):
+            hooks.append(mod.register_forward_hook(token_attention))
     try:
         run()
     finally:
@@ -113,8 +131,33 @@ def summarize(prof, steps: int, wall_ms: float, flops: dict[str, float]) -> dict
     }
 
 
+def fill_ada_out(model: torch.nn.Module, generator: torch.Generator, std: float = 0.02) -> None:
+    """Fill every DiT block's ``ada_out`` (zero at adaLN-Zero init, which makes
+    each block the identity) with normals of ``std`` from ``generator``."""
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            if ".ada_out." in name:
+                param.copy_(torch.randn(param.shape, generator=generator, device=generator.device) * std)
+
+
+def build_model(name: str, device, dtype=torch.bfloat16, seed: int = 0) -> torch.nn.Module:
+    """The full-width sampling model ``name`` ("unet" or "dit") with random
+    weights from ``seed``, in eval mode."""
+    torch.manual_seed(seed)
+    ff = FourierFeatures(6, 8)
+    if name == "unet":
+        return DenoisingVDMUNet(
+            (32, 32, 3), NyquistPositionalEmbedding(32, 100), dim=128, levels=32, pos_emb_mult=4,
+            n_attention_heads=1, fourier_features=ff, dtype=dtype, device=device,
+        ).eval()
+    model = DenoisingDiT(fourier_features=ff, dtype=dtype, device=device, **DIT_L2).eval()
+    fill_ada_out(model, torch.Generator(device=device).manual_seed(seed))
+    return model
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", choices=("unet", "dit"), default="unet")
     parser.add_argument("--batch", type=int, default=64)
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--seed", type=int, default=0)
@@ -123,12 +166,7 @@ def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_sampling needs a CUDA device")
     dev = torch.device("cuda")
-    torch.manual_seed(args.seed)
-    model = DenoisingVDMUNet(
-        (32, 32, 3), NyquistPositionalEmbedding(32, 100), dim=128, levels=32, pos_emb_mult=4,
-        n_attention_heads=1, fourier_features=FourierFeatures(6, 8), dtype=torch.bfloat16,
-        device=dev,
-    ).eval()
+    model = build_model(args.model, dev, seed=args.seed)
     algo = BSI(data_shape=(32, 32, 3), lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=128)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     mu = torch.randn((args.batch, 32, 32, 3), generator=gen, device=dev)
@@ -154,7 +192,7 @@ def main(argv=None) -> dict:
                 step()
             torch.cuda.synchronize()
 
-    result = {"batch": args.batch, **summarize(prof, args.steps, statistics.median(wall), flops)}
+    result = {"model": args.model, "batch": args.batch, **summarize(prof, args.steps, statistics.median(wall), flops)}
     print(json.dumps(result, indent=1))
     if args.out:
         with open(args.out, "w") as f:

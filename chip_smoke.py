@@ -5,14 +5,17 @@
 
 Builds the port's kernels from the sources in this checkout, holds each one
 against its plain PyTorch version at the main paths' shapes, checks the
-full-width CIFAR-10 VDM-UNet on the card against the same weights on the
-CPU (its output and its train-loss gradients), then runs the two main
-paths -- BSI sampling at k=128, batch 64, bf16, and the train step of the
-JAX package's UNet train bench (``scripts/bench_train.py``) at batch 128,
-bf16 -- and checks that each went through its kernels. Prints one line per
-phase, a JSON line with every kernel's numbers, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and
-exits non-zero; without a CUDA device it exits 1 before printing a result.
+full-width CIFAR-10 VDM-UNet and DiT-L/2 on the card against the same
+weights on the CPU (the UNet's output and train-loss gradients, the DiT's
+output and its decodes along a CPU sampling trajectory), then runs the
+three main paths -- UNet BSI sampling at k=128, batch 64, bf16; the train
+step of the JAX package's UNet train bench (``scripts/bench_train.py``) at
+batch 128, bf16; and DiT-L/2 BSI sampling at k=128, batch 64, bf16, as the
+JAX package's ``bench.py`` serves it -- and checks that each went through
+its kernels and through no other. Prints one line per phase, a JSON line
+with every kernel's numbers, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
+without a CUDA device it exits 1 before printing a result.
 """
 
 from __future__ import annotations
@@ -58,6 +61,16 @@ K7B_PER_STEP = 66
 # dz*gamma; dx's subtract, multiply-subtract and scale (4).
 K7B_OPS_PER_ELEM = 24
 
+# DiT-L/2 at 32x32 as bench.py serves it (``profile_sampling.DIT_L2``, the
+# imagenet32 recipe's model): 256 tokens, dim 1024, depth 24, 16 heads of
+# 64, Fourier features 6..8. One forward: K2 once and K4f twice per block
+# (before the attention and before the MLP).
+K2_PER_FORWARD = 24
+K4F_PER_FORWARD = 48
+# K4f's f32 operations per element: the sum, x - mean, its square and sum,
+# the product with rstd, with (scale + 1), and the shift.
+K4F_OPS_PER_ELEM = 7
+
 
 def phase(name: str, **fields) -> None:
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
@@ -81,6 +94,13 @@ def time_ms(fn, *, reps: int = 30, flush=None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(n_bytes: float, ops: float, peak_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over HBM
+    bandwidth and the operations over the peak of their type."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, ops / peak_ops
+    return dict(bound_ms=max(by_bytes, by_ops) * 1e3, bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
 def check_close(name: str, got, want, atol: float, rtol: float = 0.0) -> float:
@@ -133,12 +153,14 @@ def main() -> int:
     from torch.nn import functional as F
 
     from bsi_torch import BSI
-    from bsi_torch.models import DenoisingVDMUNet
+    from bsi_torch.models import DenoisingDiT, DenoisingVDMUNet
     from bsi_torch.nn import FourierFeatures, NyquistPositionalEmbedding
     from bsi_torch.ops import _build
     from bsi_torch.ops import flash_attention as fa
+    from bsi_torch.ops import flash_attention_packed as fap
     from bsi_torch.ops import groupnorm_silu as gn
-    from bsi_torch.profile_sampling import count_flops
+    from bsi_torch.ops import ln_modulate as lm
+    from bsi_torch.profile_sampling import DIT_L2, build_model, count_flops
     from bsi_torch.train import (
         EMAConfig,
         TrainState,
@@ -161,11 +183,38 @@ def main() -> int:
     phase("card", nvidia_smi=repr(smi), torch=torch.__version__, cuda=torch.version.cuda,
           device=repr(torch.cuda.get_device_name(0)), count=torch.cuda.device_count())
 
+    # Every kernel's launch counter, by the name its JSON entry carries.
+    counters = {
+        "flash_attention": fa.flash_attention_cuda,
+        "groupnorm_silu_fwd": gn.groupnorm_silu_cuda,
+        "groupnorm_silu_bwd": gn.groupnorm_silu_bwd_cuda,
+        "flash_attention_fused": fap.flash_attention_fused_cuda,
+        "flash_attention_packed": fap.flash_attention_packed_cuda,
+        "layernorm_modulate_fwd": lm.layernorm_modulate_cuda,
+    }
+
+    def reset_counts():
+        for wrapper in counters.values():
+            wrapper.launches = 0
+
+    def read_counts() -> dict:
+        return {name: wrapper.launches for name, wrapper in counters.items()}
+
+    def expect_counts(what: str, **want) -> dict:
+        """The counts, which must be ``want`` for the kernels named and 0 for
+        every other."""
+        got = read_counts()
+        want = {name: want.get(name, 0) for name in counters}
+        if got != want:
+            raise AssertionError(f"kernel launches in {what}: {got}, want {want}")
+        return got
+
     # --------------------------------------------------------------- build
-    # nvcc builds K1 in a thread while Triton compiles K7 on its first launch.
+    # nvcc builds K1 and K2/K6f, one process each, while Triton compiles K7f,
+    # K7b and K4f on their first launches.
     start = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        nvcc = pool.submit(_build.build, fa.SOURCE)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        nvcc = {src: pool.submit(_build.build, src) for src in (fa.SOURCE, fap.SOURCE)}
         x = torch.randn(2, 64, 64, device=dev)
         gamma, beta = torch.ones(64, device=dev), torch.zeros(64, device=dev)
         gn.groupnorm_silu_cuda(x, gamma, beta, 32)
@@ -174,16 +223,23 @@ def main() -> int:
         gn.groupnorm_silu_bwd_cuda(x, gamma, beta, x, 32)
         torch.cuda.synchronize()
         triton_bwd_s = time.perf_counter() - start - triton_s
-        lib_path, nvcc_s, log = nvcc.result()
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    phase("build", k1_nvcc_s=f"{nvcc_s:.2f}", k7_triton_first_launch_s=f"{triton_s:.2f}",
-          k7b_triton_first_launch_s=f"{triton_bwd_s:.2f}",
-          total_s=f"{time.perf_counter() - start:.2f}", library=lib_path.name)
-    for line in ptxas:
-        phase("build.ptxas", info=repr(line))
+        lm.layernorm_modulate_cuda(torch.randn(2, 8, 1024, device=dev), x[:, 0, :1].expand(2, 1024),
+                                   x[:, 1, :1].expand(2, 1024))
+        torch.cuda.synchronize()
+        triton_k4f_s = time.perf_counter() - start - triton_s - triton_bwd_s
+        built = {src: future.result() for src, future in nvcc.items()}
+    phase("build", k1_nvcc_s=f"{built[fa.SOURCE][1]:.2f}", k2_nvcc_s=f"{built[fap.SOURCE][1]:.2f}",
+          k7_triton_first_launch_s=f"{triton_s:.2f}", k7b_triton_first_launch_s=f"{triton_bwd_s:.2f}",
+          k4f_triton_first_launch_s=f"{triton_k4f_s:.2f}", total_s=f"{time.perf_counter() - start:.2f}",
+          libraries=[path.name for path, _, _ in built.values()])
+    for _, _, log in built.values():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                phase("build.ptxas", info=repr(line.strip()))
     # Triton's compiled kernels carry their register and spill counts (the
     # ptxas report of the CUDA route); older Triton may lack the fields.
-    for name, wrapper in (("k7f", gn.groupnorm_silu_cuda), ("k7b", gn.groupnorm_silu_bwd_cuda)):
+    for name, wrapper in (("k7f", gn.groupnorm_silu_cuda), ("k7b", gn.groupnorm_silu_bwd_cuda),
+                          ("k4f", lm.layernorm_modulate_cuda)):
         compiled = wrapper.compiled
         phase("build.triton", kernel=name, registers=getattr(compiled, "n_regs", "unknown"),
               spills=getattr(compiled, "n_spills", "unknown"),
@@ -223,11 +279,8 @@ def main() -> int:
         ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v), flush=flush),
         plain_ms=time_ms(lambda: fa._fwd_math(q, k, v, fa._scale(q)).to(q.dtype), flush=flush),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v), flush=flush),
+        **bound(4 * b * h * s * d * q.element_size(), 4 * b * h * s * s * d, BF16_TENSOR_FLOPS),
     )
-    k1_flops = 4 * b * h * s * s * d
-    k1_bytes = 4 * b * h * s * d * q.element_size()
-    k1["bound_ms"] = max(k1_flops / BF16_TENSOR_FLOPS, k1_bytes / HBM_BYTES_PER_S) * 1e3
-    k1["bound_by"] = "operations" if k1_flops / BF16_TENSOR_FLOPS > k1_bytes / HBM_BYTES_PER_S else "bytes"
     phase("k1.time", **{key: k1[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
     kernels.append(k1)
 
@@ -251,18 +304,15 @@ def main() -> int:
                 continue
             x_nchw = x.permute(0, 2, 1).contiguous()
             elems = x.numel()
-            k7_bytes = 2 * elems * x.element_size() + 2 * c * x.element_size()
             # per element: x*x, two sums, x - mean, one FMA for the affine,
             # negate, exp, add, divide, the final product: 11 f32 operations
-            k7_ops = 11 * elems
             k7_times[c] = dict(
                 max_abs_err=err,
                 ms=time_ms(lambda: gn.groupnorm_silu_cuda(x, gamma, beta, 32), flush=flush),
                 plain_ms=time_ms(lambda: gn._reference_math(x, gamma, beta, 32), flush=flush),
                 library_ms=time_ms(
                     lambda: F.silu(F.group_norm(x_nchw, 32, gamma, beta, 1e-6)), flush=flush),
-                bound_ms=max(k7_bytes / HBM_BYTES_PER_S, k7_ops / F32_FLOPS) * 1e3,
-                bound_by="bytes" if k7_bytes / HBM_BYTES_PER_S >= k7_ops / F32_FLOPS else "operations",
+                **bound(2 * elems * x.element_size() + 2 * c * x.element_size(), 11 * elems, F32_FLOPS),
             )
             phase("k7.time", shape=(BATCH, 1024, c), **{
                 key: k7_times[c][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
@@ -298,16 +348,14 @@ def main() -> int:
             gamma_lib, beta_lib = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
             out_lib = F.silu(F.group_norm(x_lib, 32, gamma_lib, beta_lib, 1e-6))
             elems = x.numel()
-            k7b_bytes = 3 * elems * x.element_size() + 4 * c * x.element_size()
-            k7b_ops = K7B_OPS_PER_ELEM * elems
             k7b_times[c] = dict(
                 max_abs_err=errs[0],
                 ms=time_ms(lambda: gn.groupnorm_silu_bwd_cuda(x, gamma, beta, g, 32), flush=flush),
                 plain_ms=time_ms(lambda: gn._bwd_math(x, gamma, beta, g, 32), flush=flush),
                 library_ms=time_ms(lambda: torch.autograd.grad(
                     out_lib, (x_lib, gamma_lib, beta_lib), g_lib, retain_graph=True), flush=flush),
-                bound_ms=max(k7b_bytes / HBM_BYTES_PER_S, k7b_ops / F32_FLOPS) * 1e3,
-                bound_by="bytes" if k7b_bytes / HBM_BYTES_PER_S >= k7b_ops / F32_FLOPS else "operations",
+                **bound(3 * elems * x.element_size() + 4 * c * x.element_size(), K7B_OPS_PER_ELEM * elems,
+                        F32_FLOPS),
             )
             phase("k7b.time", shape=(TRAIN_BATCH, 1024, c), **{
                 key: k7b_times[c][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
@@ -317,6 +365,98 @@ def main() -> int:
         replaces="bsi_tpu/ops/groupnorm_silu.py:149", shape=[TRAIN_BATCH, 1024, 256], dtype="bfloat16",
         **k7b_times[256], at_c128=k7b_times[128],
     ))
+
+    # ------------------------------------------------ K2, K6f vs their twin
+    # bf16: the kernel's online softmax rounds unnormalised probabilities to
+    # bf16 where the plain version rounds normalised ones, and the output is
+    # rounded to bf16: 2e-2. f32: exact f32 products, sums in another order.
+    dim, heads = DIT_L2["dim"], DIT_L2["heads"]
+    b, seq, d = BATCH, (DATA_SHAPE[0] // DIT_L2["patch_size"]) ** 2, dim // heads
+    for (cb, cs, ch, cd), dtype, atol in [
+        ((b, seq, heads, d), torch.bfloat16, 2e-2),
+        ((b, seq, heads, d), torch.float32, 1e-5),
+        ((2, 128, 4, 64), torch.float32, 1e-5),
+        ((2, 128, 2, 128), torch.bfloat16, 2e-2),
+        ((2, 128, 2, 128), torch.float32, 1e-5),
+    ]:
+        qkv = randn(cb, cs, 3 * ch * cd, dtype=dtype)
+        err = check_close(f"K2 {(cb, cs, ch, cd)} {dtype}", fap.flash_attention_fused_cuda(qkv, ch),
+                          fap._fused_fwd_math(qkv, ch), atol)
+        phase("k2.check", shape=(cb, cs, 3 * ch * cd), heads=ch, dtype=str(dtype), max_abs_err=f"{err:.3e}",
+              atol=atol)
+        q, k, v = qkv.chunk(3, dim=-1)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        err = check_close(f"K6f {(cb, cs, ch, cd)} {dtype}", fap.flash_attention_packed_cuda(q, k, v, ch),
+                          fap._packed_heads_math(q, k, v, ch), atol)
+        phase("k6f.check", shape=(cb, cs, ch * cd), heads=ch, dtype=str(dtype), max_abs_err=f"{err:.3e}",
+              atol=atol)
+    qkv = randn(b, seq, 3 * heads * d, dtype=torch.bfloat16)
+    # The library's attention on [B, H, S, D] q, k, v made contiguous
+    # beforehand: the split copy K2 does without is not in its time.
+    q4, k4, v4 = (t.contiguous() for t in fap.split_qkv_grouped(qkv, heads))
+    attn_flops = 4 * b * heads * seq * seq * d
+    attn_bytes = 4 * b * seq * heads * d * qkv.element_size()  # q, k, v read, out written
+    library_attn_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), flush=flush)
+    k2 = dict(
+        name="flash_attention_fused", route="cuda", source="bsi_torch/ops/csrc/flash_attention_packed.cu",
+        replaces="bsi_tpu/ops/flash_attention_packed.py:327", shape=list(qkv.shape), heads=heads,
+        dtype="bfloat16",
+        max_abs_err=check_close("K2 main", fap.flash_attention_fused_cuda(qkv, heads),
+                                fap._fused_fwd_math(qkv, heads), 2e-2),
+        ms=time_ms(lambda: fap.flash_attention_fused_cuda(qkv, heads), flush=flush),
+        plain_ms=time_ms(lambda: fap._fused_fwd_math(qkv, heads), flush=flush),
+        library_ms=library_attn_ms, library="scaled_dot_product_attention, split copy not counted",
+        **bound(attn_bytes, attn_flops, BF16_TENSOR_FLOPS),
+    )
+    phase("k2.time", **{key: k2[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    kernels.append(k2)
+    q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))
+    k6f = dict(
+        name="flash_attention_packed", route="cuda", source="bsi_torch/ops/csrc/flash_attention_packed.cu",
+        replaces="bsi_tpu/ops/flash_attention_packed.py:428", shape=list(q.shape), heads=heads,
+        dtype="bfloat16",
+        max_abs_err=check_close("K6f main", fap.flash_attention_packed_cuda(q, k, v, heads),
+                                fap._packed_heads_math(q, k, v, heads), 2e-2),
+        ms=time_ms(lambda: fap.flash_attention_packed_cuda(q, k, v, heads), flush=flush),
+        plain_ms=time_ms(lambda: fap._packed_heads_math(q, k, v, heads), flush=flush),
+        library_ms=library_attn_ms, library="scaled_dot_product_attention, split copy not counted",
+        **bound(attn_bytes, attn_flops, BF16_TENSOR_FLOPS),
+    )
+    phase("k6f.time", **{key: k6f[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    kernels.append(k6f)
+    del qkv, q4, k4, v4
+
+    # ------------------------------------------------------ K4f vs its twin
+    # shift and scale are column slices of one adaLN output [B, 6 D], as the
+    # DiT block passes them. bf16: f32 statistics summed in another order can
+    # move the final rounding by one bf16 ulp (2^-7 relative), beside 2e-2.
+    for dtype, atol, rtol in ((torch.bfloat16, 2e-2, 2**-7), (torch.float32, 1e-5, 0.0)):
+        x = randn(b, seq, dim, dtype=dtype) * 2.0 + 0.5
+        mod = randn(b, 6 * dim, dtype=dtype)
+        shift, scale = mod[:, :dim], mod[:, dim:2 * dim]
+        err = check_close(f"K4f {dtype}", lm.layernorm_modulate_cuda(x, shift, scale),
+                          lm._reference_math(x, shift, scale), atol, rtol)
+        phase("k4f.check", shape=(b, seq, dim), dtype=str(dtype), shift_stride=shift.stride(),
+              max_abs_err=f"{err:.3e}", atol=atol, rtol=rtol)
+    x = randn(b, seq, dim, dtype=torch.bfloat16)
+    mod = randn(b, 6 * dim, dtype=torch.bfloat16)
+    shift, scale = mod[:, :dim], mod[:, dim:2 * dim]
+    k4f = dict(
+        name="layernorm_modulate_fwd", route="triton", source="bsi_torch/ops/ln_modulate.py",
+        replaces="bsi_tpu/ops/ln_modulate.py:95", shape=[b, seq, dim], dtype="bfloat16",
+        max_abs_err=check_close("K4f main", lm.layernorm_modulate_cuda(x, shift, scale),
+                                lm._reference_math(x, shift, scale), 2e-2, 2**-7),
+        ms=time_ms(lambda: lm.layernorm_modulate_cuda(x, shift, scale), flush=flush),
+        plain_ms=time_ms(lambda: lm._reference_math(x, shift, scale), flush=flush),
+        library_ms=time_ms(lambda: shift[:, None, :] + (scale[:, None, :] + 1.0) * F.layer_norm(
+            x, (dim,), eps=1e-6), flush=flush),
+        library="layer_norm, then the modulate expression",
+        **bound(2 * x.numel() * x.element_size() + 2 * b * dim * x.element_size(),
+                K4F_OPS_PER_ELEM * x.numel(), F32_FLOPS),
+    )
+    phase("k4f.time", **{key: k4f[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    kernels.append(k4f)
+    del mod, shift, scale
 
     # --------------------------------------- whole model, card against CPU
     pos_emb = NyquistPositionalEmbedding(32, 100)
@@ -408,19 +548,14 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     secs = []
     for _ in range(3):
-        fa.flash_attention_cuda.launches = 0
-        gn.groupnorm_silu_cuda.launches = 0
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         samples = algo.sample(model, sample_gen, BATCH)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        launches = {"flash_attention": fa.flash_attention_cuda.launches,
-                    "groupnorm_silu_fwd": gn.groupnorm_silu_cuda.launches}
-        want = {"flash_attention": K1_PER_FORWARD * (K_STEPS + 1),
-                "groupnorm_silu_fwd": K7_PER_FORWARD * (K_STEPS + 1)}
-        if launches != want:
-            raise AssertionError(f"kernel launches per sampling run {launches}, want {want}")
+        launches = expect_counts("a UNet sampling run", flash_attention=K1_PER_FORWARD * (K_STEPS + 1),
+                                 groupnorm_silu_fwd=K7_PER_FORWARD * (K_STEPS + 1))
         if samples.shape != (BATCH,) + DATA_SHAPE or not torch.isfinite(samples).all():
             raise AssertionError(f"bad samples: shape {tuple(samples.shape)}, "
                                  f"finite {bool(torch.isfinite(samples).all())}")
@@ -428,8 +563,7 @@ def main() -> int:
     phase("sample", k=K_STEPS, batch=BATCH, dtype="bfloat16", run_s=secs,
           samples_per_s=f"{BATCH / statistics.median(secs):.3f}", peak_mem_gib=f"{peak / 2**30:.3f}",
           launches=launches, finite=True, shape=tuple(samples.shape))
-    for entry in kernels:
-        entry["launches"] = launches.get(entry["name"])
+    path_launches = {"unet_sample": launches}
     del model, samples
 
     # ---------------------------------------------- main path: train step
@@ -451,21 +585,15 @@ def main() -> int:
     state, metrics = train_step(state, batch)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_cuda.launches = 0
-    gn.groupnorm_silu_cuda.launches = 0
-    gn.groupnorm_silu_bwd_cuda.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     for _ in range(TRAIN_STEPS):
         state, metrics = train_step(state, batch)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    train_launches = {"flash_attention": fa.flash_attention_cuda.launches,
-                      "groupnorm_silu_fwd": gn.groupnorm_silu_cuda.launches,
-                      "groupnorm_silu_bwd": gn.groupnorm_silu_bwd_cuda.launches}
-    want = {"flash_attention": K1_PER_FORWARD * TRAIN_STEPS, "groupnorm_silu_fwd": K7_PER_FORWARD * TRAIN_STEPS,
-            "groupnorm_silu_bwd": K7B_PER_STEP * TRAIN_STEPS}
-    if train_launches != want:
-        raise AssertionError(f"kernel launches over {TRAIN_STEPS} train steps {train_launches}, want {want}")
+    train_launches = expect_counts(
+        f"{TRAIN_STEPS} UNet train steps", flash_attention=K1_PER_FORWARD * TRAIN_STEPS,
+        groupnorm_silu_fwd=K7_PER_FORWARD * TRAIN_STEPS, groupnorm_silu_bwd=K7B_PER_STEP * TRAIN_STEPS)
     final_loss = metrics["train/loss"].item()
     grad_norm = metrics["train/grad_norm"].item()
     if not (math.isfinite(final_loss) and final_loss > 0 and math.isfinite(grad_norm)):
@@ -481,11 +609,86 @@ def main() -> int:
           mfu=f"{step_flops / (ms_step / 1e3) / BF16_TENSOR_FLOPS:.4f}",
           peak_mem_gib=f"{peak / 2**30:.3f}", predicted_peak_gib=f"{predicted_gib:.3f}",
           final_loss=f"{final_loss:.6g}", grad_norm=f"{grad_norm:.6g}",
-          launches_per_step={name: n // TRAIN_STEPS for name, n in train_launches.items()})
+          launches_per_step={name: n // TRAIN_STEPS for name, n in train_launches.items() if n})
+    path_launches["unet_train"] = train_launches
+    del train_model, params, tx, state, train_step, batch, metrics
+
+    # ---------------------------------------- DiT-L/2, card against CPU
+    # adaLN-Zero: at init every gate is 0 and every block the identity, so a
+    # check there passes whatever K2 and the MLP compute. The weights get
+    # ada_out filled with normals of std 0.02 first.
+    dit_cpu = build_model("dit", "cpu", dtype=None, seed=SEED)
+    dit_weights = dit_cpu.state_dict()
+    dit_f32 = DenoisingDiT(fourier_features=ff, device=dev, **DIT_L2).eval()
+    dit_f32.load_state_dict(dit_weights)
+    mu = torch.randn((2,) + DATA_SHAPE, generator=cpu_gen)
+    t = torch.rand(2, generator=cpu_gen)
+    reset_counts()
+    with torch.inference_mode():
+        ref = dit_cpu(mu, t)
+        out = dit_f32(mu.to(dev), t.to(dev)).cpu()
+    expect_counts("one f32 DiT forward", flash_attention_fused=K2_PER_FORWARD,
+                  layernorm_modulate_fwd=K4F_PER_FORWARD)
+    scale = ref.abs().max().item()
+    # f32 on both sides, TF32 off: the two differ in the order of sums in 146
+    # matmuls, 24 attentions and 49 norms.
+    dit_tol = 1e-4 * max(1.0, scale)
+    err = check_close("DiT-L/2 f32 card vs CPU", out, ref, dit_tol)
+    phase("dit.model.check", batch=2, dtype="float32", max_abs_err=f"{err:.3e}", atol=f"{dit_tol:.3e}",
+          output_max_abs=f"{scale:.3e}", finite=bool(torch.isfinite(out).all()))
+    # The sampler: the card decodes each state of a k=2 CPU trajectory as the
+    # CPU did (free-running samplers part through the Fourier features).
+    eps = torch.randn((3, 2) + DATA_SHAPE, generator=cpu_gen)
+    t2 = torch.linspace(0.0, 1.0, 3)
+    with torch.inference_mode():
+        _, (mus, x_hats, _) = algo._sample_loop(dit_cpu, eps[0], lambda i: eps[i + 1], t2, with_history=True)
+        decode_err = max(
+            check_close(f"DiT sampler decode step {i}",
+                        algo._predict_x(dit_f32, mus[i].to(dev), t2[i].expand(2).to(dev)).cpu(),
+                        x_hats[i], dit_tol)
+            for i in range(2)
+        )
+    phase("dit.sampler.check", k=2, batch=2, dtype="float32", decode_max_abs_err=f"{decode_err:.3e}",
+          decode_atol=f"{dit_tol:.3e}")
+    del dit_cpu, dit_f32
+
+    # -------------------------------------------- main path: DiT sampling
+    dit = DenoisingDiT(fourier_features=ff, dtype=torch.bfloat16, device=dev, **DIT_L2).eval()
+    dit.load_state_dict(dit_weights)
+    del dit_weights
+    mu64 = torch.randn((BATCH,) + DATA_SHAPE, device=dev)
+    with torch.inference_mode():
+        dit_flops = sum(count_flops(dit, lambda: dit(mu64, torch.full((BATCH,), 0.5, device=dev))).values())
+    sample_gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    algo.sample(dit, sample_gen, BATCH)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(3):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples = algo.sample(dit, sample_gen, BATCH)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches = expect_counts("a DiT sampling run", flash_attention_fused=K2_PER_FORWARD * (K_STEPS + 1),
+                                 layernorm_modulate_fwd=K4F_PER_FORWARD * (K_STEPS + 1))
+        if samples.shape != (BATCH,) + DATA_SHAPE or not torch.isfinite(samples).all():
+            raise AssertionError(f"bad DiT samples: shape {tuple(samples.shape)}, "
+                                 f"finite {bool(torch.isfinite(samples).all())}")
+    peak = torch.cuda.max_memory_allocated()
+    run_s = statistics.median(secs)
+    phase("dit.sample", k=K_STEPS, batch=BATCH, dtype="bfloat16", run_s=secs,
+          samples_per_s=f"{BATCH / run_s:.3f}", peak_mem_gib=f"{peak / 2**30:.3f}",
+          tflop_per_forward=f"{dit_flops / 1e12:.3f}", gflop_per_example=f"{dit_flops / BATCH / 1e9:.1f}",
+          tflop_per_s=f"{dit_flops * (K_STEPS + 1) / run_s / 1e12:.1f}",
+          launches={name: n for name, n in launches.items() if n}, finite=True, shape=tuple(samples.shape))
+    path_launches["dit_sample"] = launches
+
+    # Each kernel's launches on the main path that runs it (K6f: none does).
     for entry in kernels:
-        entry["train_launches"] = train_launches[entry["name"]]
-        if entry["launches"] is None:
-            entry["launches"] = train_launches[entry["name"]]
+        entry["launches_by_path"] = {path: counts[entry["name"]] for path, counts in path_launches.items()}
+        entry["launches"] = max(entry["launches_by_path"].values())
 
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")

@@ -11,7 +11,8 @@ Without a card they skip.
 import pytest
 import torch
 
-from bsi_torch.ops import attention, flash_attention as fa, groupnorm_silu as gn
+from bsi_torch.ops import attention, flash_attention as fa, flash_attention_packed as fap
+from bsi_torch.ops import groupnorm_silu as gn, ln_modulate as lm
 
 pytestmark = pytest.mark.cuda
 
@@ -139,3 +140,141 @@ def test_cuda_groupnorm_silu_backward_launches_k7b_only(cuda, monkeypatch):
     torch.autograd.grad(gn.groupnorm_silu(*leaves, 32), leaves, g)
     assert gn.groupnorm_silu_cuda.launches == fwd + 1
     assert gn.groupnorm_silu_bwd_cuda.launches == bwd + 1
+
+
+# ------------------------------------------------ K2, K6f: packed attention
+
+
+def _packed_atol(dtype):
+    # bf16: the probabilities are rounded to bf16 at other points (online
+    # softmax against the plain version's normalised ones) and the output is
+    # rounded to bf16; f32: exact f32 products summed in another order
+    return 2e-2 if dtype == torch.bfloat16 else 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,heads,d", [(2, 256, 16, 64), (2, 128, 2, 128), (1, 128, 2, 256),
+                                         (3, 200, 4, 64), (2, 96, 3, 64)])
+def test_fused_qkv_kernel_matches_plain(cuda, b, s, heads, d, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    qkv = _randn(gen, b, s, 3 * heads * d, dtype=dtype, device=cuda)
+    before = fap.flash_attention_fused_cuda.launches
+    got = fap.flash_attention_fused(qkv, heads=heads)
+    assert fap.flash_attention_fused_cuda.launches == before + 1
+    want = fap._fused_fwd_math(qkv, heads)
+    assert got.dtype == dtype and got.shape == (b, s, heads * d)
+    assert (got.float() - want.float()).abs().max().item() <= _packed_atol(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,heads,d", [(2, 256, 16, 64), (2, 128, 2, 128), (3, 200, 4, 64)])
+def test_packed_kernel_matches_plain(cuda, b, s, heads, d, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (_randn(gen, b, s, heads * d, dtype=dtype, device=cuda) for _ in range(3))
+    before = fap.flash_attention_packed_cuda.launches
+    got = fap.flash_attention_packed(q, k, v, heads=heads)
+    assert fap.flash_attention_packed_cuda.launches == before + 1
+    want = fap._packed_heads_math(q, k, v, heads)
+    assert (got.float() - want.float()).abs().max().item() <= _packed_atol(dtype)
+
+
+def test_packed_kernels_refuse_unsupported(cuda):
+    with pytest.raises(ValueError):
+        fap.flash_attention_fused_cuda(torch.zeros(1, 128, 3 * 2 * 32, device=cuda), 2)
+    with pytest.raises(ValueError):
+        fap.flash_attention_fused_cuda(torch.zeros(1, 3 * 128, 128, device=cuda).transpose(1, 2), 1)
+    x = torch.zeros(1, 128, 128, device=cuda)
+    with pytest.raises(ValueError):
+        fap.flash_attention_packed_cuda(x, x, x.double(), 2)
+
+
+def test_packed_dispatch_routes_and_raises_on_backward(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    qkv = _randn(gen, 2, 256, 3 * 4 * 64, dtype=torch.bfloat16, device=cuda).requires_grad_()
+    before = fap.flash_attention_fused_cuda.launches
+    out = attention.multi_head_attention_fused_qkv(qkv, heads=4)
+    assert fap.flash_attention_fused_cuda.launches == before + 1
+    with pytest.raises(NotImplementedError, match="K3"):
+        out.sum().backward()
+    with pytest.raises(NotImplementedError, match="K3"):
+        attention.multi_head_attention_fused_qkv(qkv, heads=4, dropout_rate=0.1)
+    q = _randn(gen, 2, 256, 256, dtype=torch.bfloat16, device=cuda).requires_grad_()
+    before = fap.flash_attention_packed_cuda.launches
+    out = attention.multi_head_attention_packed(q, q, q, heads=4)
+    assert fap.flash_attention_packed_cuda.launches == before + 1
+    with pytest.raises(NotImplementedError, match="K6b"):
+        out.sum().backward()
+    # a shape the packed kernels do not take goes to the split path (K1 here)
+    before_k1 = fa.flash_attention_cuda.launches
+    attention.multi_head_attention_fused_qkv(_randn(gen, 2, 640, 3 * 128, dtype=torch.bfloat16, device=cuda),
+                                             heads=1)
+    assert fa.flash_attention_cuda.launches == before_k1 + 1
+
+
+# ------------------------------------------------- K4f: LayerNorm+modulate
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(64, 256, 1024), (3, 16, 384), (2, 5, 100)])
+def test_ln_modulate_kernel_matches_plain(cuda, shape, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    b, s, d = shape
+    x = _randn(gen, *shape, dtype=dtype, device=cuda) * 2.0 + 0.5
+    # shift and scale as column slices of one adaLN output, as the DiT has them
+    mod = _randn(gen, b, 6 * d, dtype=dtype, device=cuda)
+    shift, scale = mod[:, :d], mod[:, d:2 * d] * 0.1
+    assert not shift.is_contiguous()
+    before = lm.layernorm_modulate_cuda.launches
+    got = lm.layernorm_modulate_cuda(x, shift, scale)
+    assert lm.layernorm_modulate_cuda.launches == before + 1
+    want = lm._reference_math(x, shift, scale)
+    assert got.dtype == dtype and got.shape == x.shape
+    # bf16: f32 statistics summed in another order can move the final
+    # rounding by one bf16 ulp (2^-7 relative at most)
+    atol, rtol = (2e-2, 2**-7) if dtype == torch.bfloat16 else (1e-5, 0.0)
+    assert ((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()).all()
+
+
+def test_ln_modulate_dispatch_and_backward(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    x = _randn(gen, 2, 256, 1024, dtype=torch.bfloat16, device=cuda).requires_grad_()
+    shift, scale = (_randn(gen, 2, 1024, dtype=torch.bfloat16, device=cuda) for _ in range(2))
+    before = lm.layernorm_modulate_cuda.launches
+    out = lm.layernorm_modulate(x, shift, scale)
+    assert lm.layernorm_modulate_cuda.launches == before + 1
+    with pytest.raises(NotImplementedError, match="K4b"):
+        out.sum().backward()
+    # a shape the JAX package keeps off its kernel takes the plain path, and
+    # its backward is autograd through it
+    y = _randn(gen, 2, 7, 100, dtype=torch.float32, device=cuda).requires_grad_()
+    out = lm.layernorm_modulate(y, shift[:, :100].float(), scale[:, :100].float())
+    assert lm.layernorm_modulate_cuda.launches == before + 1
+    out.sum().backward()
+    assert torch.isfinite(y.grad).all()
+
+
+def test_tiny_dit_on_card_matches_cpu(cuda):
+    from bsi_torch.models import DenoisingDiT
+    from bsi_torch.nn import FourierFeatures
+
+    torch.manual_seed(0)
+    kw = dict(data_shape=(32, 32, 3), patch_size=2, dim=128, depth=2, heads=2,
+              fourier_features=FourierFeatures(6, 8))
+    cpu = DenoisingDiT(device="cpu", **kw).eval()
+    with torch.no_grad():
+        for i in range(2):  # adaLN-Zero: without this every block is the identity
+            ada = getattr(cpu.dit, f"block_{i}").ada_out
+            ada.weight.normal_(0.0, 0.02)
+            ada.bias.normal_(0.0, 0.02)
+    card = DenoisingDiT(device=cuda, **kw).eval()
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    mu, t = torch.randn(2, 32, 32, 3, generator=gen), torch.rand(2, generator=gen)
+    k2, k4 = fap.flash_attention_fused_cuda.launches, lm.layernorm_modulate_cuda.launches
+    with torch.inference_mode():
+        want = cpu(mu, t)
+        got = card(mu.to(cuda), t.to(cuda)).cpu()
+    assert fap.flash_attention_fused_cuda.launches == k2 + 2
+    assert lm.layernorm_modulate_cuda.launches == k4 + 4
+    # f32 on both sides, TF32 off: sums in another order through two blocks
+    assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
