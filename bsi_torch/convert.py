@@ -76,19 +76,29 @@ def params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
                 name = "weight"
             elif name != "bias":
                 raise ValueError(f"no mapping for flax leaf {prefix}{name} of shape {arr.shape}")
-            state[prefix + name] = torch.tensor(arr)
+            state[prefix + name] = _tensor(arr)
 
     walk(tree, "")
     return state
 
 
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A tensor of ``arr``'s values and dtype; numpy's bfloat16 (ml_dtypes,
+    which JAX's bf16 arrays become) goes through f32, exactly."""
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.tensor(arr)
+
+
 def params_to_jax(state: Mapping[str, torch.Tensor]) -> dict[str, Any]:
     """A flax-shaped tree of numpy arrays (the inner ``params`` dict) from
-    tensors named as the port names its parameters."""
+    tensors named as the port names its parameters (bf16 ones as f32, which
+    holds their values exactly)."""
     tree: dict[str, Any] = {}
     for path, tensor in state.items():
         *parents, name = path.split(".")
-        arr = tensor.detach().cpu().numpy()
+        tensor = tensor.detach().cpu()
+        arr = (tensor.float() if tensor.dtype == torch.bfloat16 else tensor).numpy()
         if name == "weight" and arr.ndim == 2:
             arr, name = arr.T, "kernel"
         elif name == "weight" and arr.ndim == 4:
@@ -113,7 +123,8 @@ def train_state_from_jax(
 ) -> TrainState:
     """The port's :class:`~bsi_torch.train.TrainState` from a JAX ``TrainState``
     whose optimizer is ``make_optimizer``'s chain (clip, then optax's adam or
-    adamw): its step, params, EMA params and Adam moments and count.
+    adamw, or ``scale_by_adam_cast`` with bf16 moments): its step, params,
+    EMA params and Adam moments, each in its own dtype, and count.
 
     ``convert`` maps a parameter-shaped tree to named tensors
     (:func:`params_from_jax` for the flax models). The tensors go to

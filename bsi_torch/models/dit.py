@@ -8,15 +8,20 @@ table built from two 1D Nyquist embeddings.
 
 Submodules carry the flax names (``dit``, ``patch_encoder``, ``block_{i}``,
 ``ada_in``, ``attn``, ``mlp``, ...), so converted weights load by name. The
-JAX package's ``remat``, ``scan_blocks`` and ``token_sharding`` are layout
-and compile knobs of XLA and have no counterpart here: the blocks run as a
-Python loop, and :func:`bsi_torch.convert.params_from_jax` splits a
-scan-layout tree into ``block_{i}``.
+JAX package's ``scan_blocks`` and ``token_sharding`` are layout and compile
+knobs of XLA and have no counterpart here: the blocks run as a Python loop,
+and :func:`bsi_torch.convert.params_from_jax` splits a scan-layout tree into
+``block_{i}``. Its ``remat`` (recompute each block's activations in the
+backward) is left out: it trades time for memory and changes no number, and
+at DiT-L/2's batch 64 the saved activations fit the card without it
+(``torch.utils.checkpoint`` per block would be its counterpart).
 
 On a CUDA tensor each block runs K4f twice (the fused LayerNorm + modulate
 before the attention and before the MLP) and K2 once (the attention, read
-in place from the qkv projection's output). With ``dtype=torch.bfloat16``
-the parameters stay f32 and every layer casts at use, as flax does.
+in place from the qkv projection's output, with the attention dropout
+inside the kernel in ``train()``); their gradients are K4b twice and K3
+once. With ``dtype=torch.bfloat16`` the parameters stay f32 and every layer
+casts at use, as flax does.
 """
 
 from __future__ import annotations

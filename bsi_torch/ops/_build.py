@@ -2,9 +2,10 @@
 
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded through ``ctypes``. The library is built on first use
-into ``_build/`` beside this file, under a name that hashes the source and
-the flags, so an edited source is rebuilt and concurrent builders do not
-clobber each other (each writes a private file and renames it into place).
+into ``_build/`` beside this file, under a name that hashes the source, the
+shared headers of ``csrc/`` and the flags, so an edited source or header is
+rebuilt and concurrent builds do not clobber each other (each writes a
+private file and renames it into place).
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ def _nvcc() -> str:
 def library_path(source: str) -> Path:
     """Where the library of ``csrc/<source>`` is (or will be) built."""
     src = CSRC / source
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{key}.so"
 
 

@@ -12,10 +12,12 @@ and everything else to the same plain math:
   q, k, v (:func:`multi_head_attention_packed`) to K6f
   (:mod:`bsi_torch.ops.flash_attention_packed`).
 
-The backwards of K2 and K6f (K3, K6b) and the kernels' Philox dropout are
-not ported yet: on a CUDA tensor that takes K2 or K6f, a backward or a
-dropout rate above 0 raises. On the plain path dropout draws its keep mask
-with ``torch.rand`` from ``generator`` (the device's default one when None).
+On those shapes the backwards are kernels too (K3, K6b), and dropout runs
+inside the kernels: one int32 seed per (batch, head), drawn with
+``torch.randint`` from ``generator`` (the device's default one when None),
+from which the forward and the backward regenerate the same Philox keep
+mask. On the plain path dropout draws its keep mask with ``torch.rand``
+from ``generator``, as JAX's fallback draws it from its key.
 """
 
 from __future__ import annotations
@@ -26,7 +28,10 @@ from .flash_attention import MAX_FUSED_TRAIN_SEQ, _xla_attention, flash_attentio
 from .flash_attention_packed import (
     _merge_heads,
     _split_heads,
+    draw_seeds,
+    flash_attention_fused_bwd_cuda,
     flash_attention_fused_cuda,
+    flash_attention_packed_bwd_cuda,
     flash_attention_packed_cuda,
     packed_applicable,
     split_qkv_grouped,
@@ -62,33 +67,40 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _xla_attention(q, k, v, dropout_rate=dropout_rate, generator=generator)
 
 
-def _no_dropout_on_kernel(dropout_rate: float, backward: str) -> None:
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            f"attention dropout inside the packed kernels comes with {backward} (Philox masks "
-            "regenerated in the backward), which is not ported yet")
-
-
 class _FusedQKVAttention(torch.autograd.Function):
+    """K2 forward, K3 backward; the seeds (or None at rate 0) are saved so
+    that K3 regenerates K2's keep mask."""
+
     @staticmethod
-    def forward(ctx, qkv, heads):
-        return flash_attention_fused_cuda(qkv, heads)
+    def forward(ctx, qkv, seeds, heads, rate):
+        ctx.heads, ctx.rate = heads, rate
+        ctx.save_for_backward(qkv, seeds)
+        return flash_attention_fused_cuda(qkv, heads, seeds, rate)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "the backward of K2 is K3 (flash_attention_fused_bwd), which is not ported yet")
+        qkv, seeds = ctx.saved_tensors
+        return flash_attention_fused_bwd_cuda(qkv, g.contiguous(), ctx.heads, seeds, ctx.rate), None, None, None
 
 
 class _PackedAttention(torch.autograd.Function):
+    """K6f forward, K6b backward, seeds as :class:`_FusedQKVAttention`."""
+
     @staticmethod
-    def forward(ctx, q, k, v, heads):
-        return flash_attention_packed_cuda(q, k, v, heads)
+    def forward(ctx, q, k, v, seeds, heads, rate):
+        ctx.heads, ctx.rate = heads, rate
+        ctx.save_for_backward(q, k, v, seeds)
+        return flash_attention_packed_cuda(q, k, v, heads, seeds, rate)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "the backward of K6f is K6b (flash_attention_packed_bwd), which is not ported yet")
+        q, k, v, seeds = ctx.saved_tensors
+        dq, dk, dv = flash_attention_packed_bwd_cuda(q, k, v, g.contiguous(), ctx.heads, seeds, ctx.rate)
+        return dq, dk, dv, None, None, None
+
+
+def _seeds(batch: int, heads: int, device, dropout_rate: float, generator):
+    return draw_seeds(batch, heads, device, generator) if dropout_rate > 0.0 else None
 
 
 def multi_head_attention_fused_qkv(qkv: torch.Tensor, *, heads: int, dropout_rate: float = 0.0,
@@ -96,17 +108,18 @@ def multi_head_attention_fused_qkv(qkv: torch.Tensor, *, heads: int, dropout_rat
     """Attention straight off the fused qkv projection output.
 
     ``qkv``: ``[B, S, 3*H*D]`` in the GROUPED layout. A CUDA tensor of a
-    shape the packed kernels take runs K2, which reads q, k and v in place;
-    anything else takes JAX's fallback, the split followed by
-    :func:`multi_head_attention`. Output ``[B, S, H*D]``.
+    shape the packed kernels take runs K2, which reads q, k and v in place,
+    and K3 for its gradient, both with in-kernel dropout; anything else
+    takes JAX's fallback, the split followed by :func:`multi_head_attention`.
+    Output ``[B, S, H*D]``.
     """
     b, s, three_hd = qkv.shape
     if three_hd % (3 * heads):
         raise ValueError(f"fused qkv dim {three_hd} not divisible by 3*heads={3 * heads}")
     hd_total = three_hd // 3
     if qkv.device.type == "cuda" and packed_applicable(hd_total, heads, s):
-        _no_dropout_on_kernel(dropout_rate, "K3")
-        return _FusedQKVAttention.apply(qkv.contiguous(), heads)
+        seeds = _seeds(b, heads, qkv.device, dropout_rate, generator)
+        return _FusedQKVAttention.apply(qkv.contiguous(), seeds, heads, float(dropout_rate))
     q, k, v = split_qkv_grouped(qkv, heads)
     return _merge_heads(multi_head_attention(q, k, v, dropout_rate=dropout_rate, generator=generator))
 
@@ -116,16 +129,18 @@ def multi_head_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
                                 generator: torch.Generator | None = None) -> torch.Tensor:
     """Attention over the packed layout ``[B, S, H*D]`` (head-major columns).
 
-    A CUDA tensor of a shape the packed kernels take runs K6f; anything else
-    takes JAX's fallback, a split into ``[B, H, S, D]`` followed by
-    :func:`multi_head_attention` and a merge.
+    A CUDA tensor of a shape the packed kernels take runs K6f (K6b for its
+    gradient), with in-kernel dropout; anything else takes JAX's fallback,
+    a split into ``[B, H, S, D]`` followed by :func:`multi_head_attention`
+    and a merge.
     """
     b, s, hd_total = q.shape
     if hd_total % heads:
         raise ValueError(f"feature dim {hd_total} not divisible by heads={heads}")
     if q.device.type == "cuda" and packed_applicable(hd_total, heads, s):
-        _no_dropout_on_kernel(dropout_rate, "K6b")
-        return _PackedAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), heads)
+        seeds = _seeds(b, heads, q.device, dropout_rate, generator)
+        return _PackedAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), seeds, heads,
+                                      float(dropout_rate))
     out = multi_head_attention(*(_split_heads(x, heads) for x in (q, k, v)),
                                dropout_rate=dropout_rate, generator=generator)
     return _merge_heads(out)

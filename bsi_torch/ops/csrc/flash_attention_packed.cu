@@ -1,19 +1,26 @@
 // K2 and K6f: attention forward over heads read in place from a packed
-// token-major layout, on Hopper.
+// token-major layout, with optional attention dropout, on Hopper.
 //
 // Replaces the TPU kernels bsi_tpu/ops/flash_attention_packed.py::
 // flash_attention_fused (K2) and ::flash_attention_packed (K6f), the two
-// pallas_calls of `_packed_kernel`. Both compute softmax(q k^T / sqrt(d)) v
-// per head without moving a head into a [B, H, S, D] copy: K2 reads q, k and
-// v straight out of the qkv projection's output [B, S, 3*H*D] in the grouped
-// layout (head h in group g = h / hpg, slot j = h % hpg: q at column
-// g*3*hpg*D + j*D, k hpg*D further, v 2*hpg*D further) and K6f out of three
-// [B, S, H*D] tensors; both write head h to column h*D of [B, S, H*D]. One
-// kernel serves both: the caller passes the three base pointers, the row
-// stride, the column stride between head groups and the heads per group.
-// The TPU kernel masks lanes to split a 128-lane block into two 64-wide
-// heads; here every head is addressed by its own columns and nothing is
-// masked.
+// pallas_calls of `_packed_kernel`. Both compute softmax(q k^T / sqrt(d))
+// [dropout] v per head without moving a head into a [B, H, S, D] copy: K2
+// reads q, k and v straight out of the qkv projection's output
+// [B, S, 3*H*D] in the grouped layout (head h in group g = h / hpg, slot
+// j = h % hpg: q at column g*3*hpg*D + j*D, k hpg*D further, v 2*hpg*D
+// further) and K6f out of three [B, S, H*D] tensors; both write head h to
+// column h*D of [B, S, H*D]. One kernel serves both: the caller passes the
+// three base pointers, the row stride, the column stride between head
+// groups and the heads per group. The TPU kernel masks lanes to split a
+// 128-lane block into two 64-wide heads; here every head is addressed by
+// its own columns and nothing is masked.
+//
+// Dropout, as the TPU kernel's: with a seed per (batch, head) the
+// normalised probabilities are kept where the Philox bits of
+// packed_attention_common.cuh lie below the threshold and scaled by
+// 1 / keep_prob; the softmax's row sum is over the undropped ones. The
+// backward (flash_attention_packed_bwd.cu) regenerates the same mask.
+// Without seeds nothing is drawn and the numbers are those of rate 0.
 //
 // Grid: one block of 4 warps per (64 query rows, batch*head); the query
 // tiles of one head are adjacent in launch order, so its K and V are read
@@ -27,7 +34,8 @@
 // in f32, the probabilities rounded to bf16 for P V (as the TPU kernel casts
 // them to v's dtype), the output divided by the row sum at the end. The
 // accumulator layout of one S = Q K^T product is the A-operand layout of the
-// next P V product, so the probabilities never leave registers.
+// next P V product, so the probabilities never leave registers; one Philox
+// call gives the keep bits of the four elements a lane holds of a tile.
 //
 // f32: exact f32 FMAs on the CUDA cores, no TF32, as the TPU kernel's
 // Precision.HIGHEST; 256 threads, 4 per query row; q is scaled on load.
@@ -35,18 +43,17 @@
 // Bound on an H100 SXM at DiT-L/2 (qkv [64, 256, 3072] bf16 -> [64, 256,
 // 1024]): 134.2 MB of HBM traffic (the qkv buffer read once, the output
 // written once), 40 us at 3.35 TB/s, against 4*B*H*S^2*D = 17.2 GFLOP, 17 us
-// at 989 TFLOP/s dense bf16: the bound is bytes. mma.sync reaches a fraction
-// of the wgmma rate and the K/V loads are not overlapped with compute (no
-// cp.async/TMA pipeline); those are later work.
+// at 989 TFLOP/s dense bf16: the bound is bytes. With dropout, Philox adds
+// B*H*S^2/4 calls of ten rounds (two 32-bit multiply-highs and two
+// multiply-lows each) on the integer units, beside the bound. mma.sync
+// reaches a fraction of the wgmma rate and the K/V loads are not overlapped
+// with compute (no cp.async/TMA pipeline); those are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "packed_attention_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace bsi;
 
 constexpr int BQ = 64;  // query rows per block
 
@@ -66,60 +73,13 @@ struct Bf16Tiles {
   static constexpr int BYTES = V + BK * LD * 2;
 };
 
-// Rows [r0, r0 + ROWS) of one head (D columns at `src`, rows `ld` elements
-// apart) into shared memory, 16 bytes a load, zero past `seq`.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows_bf16(bf16* dst, const bf16* __restrict__ src,
-                                               long long ld, int r0, int seq) {
-  constexpr int VEC = 8;
-  constexpr int PER_ROW = D / VEC;
-  constexpr int LDS = Bf16Tiles<D>::LD;
-  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += BF16_THREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * VEC;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < seq) val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * LDS + c) = val;
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a b for one 16x8x16 bf16 tile, f32 accumulation.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats as bf16 in one register, `lo` in the low half (the lower
-// column of an mma fragment).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 template <int D>
 __global__ void __launch_bounds__(BF16_THREADS)
     packed_attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ o, int seq, int heads,
                          int hpg, long long group_stride, long long in_ld, long long out_ld,
-                         float scale) {
+                         float scale, const int* __restrict__ seeds, uint32_t threshold,
+                         float inv_keep) {
   using T = Bf16Tiles<D>;
   constexpr int BK = T::BK;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -139,8 +99,10 @@ __global__ void __launch_bounds__(BF16_THREADS)
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int quad = lane % 4;  // this lane's column pair in an 8-wide tile
+  const int row = q0 + warp * 16 + lane / 4;
+  const uint32_t seed = seeds != nullptr ? static_cast<uint32_t>(seeds[blockIdx.y]) : 0u;
 
-  load_rows_bf16<D, BQ>(Qs, qh, in_ld, q0, seq);
+  load_rows_bf16<D, BQ, T::LD, BF16_THREADS>(Qs, qh, in_ld, q0, seq);
 
   // Output accumulator: D/8 tiles of 16x8; lane holds rows lane/4 and
   // lane/4 + 8, columns 2*quad and 2*quad + 1 of each.
@@ -154,8 +116,8 @@ __global__ void __launch_bounds__(BF16_THREADS)
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows_bf16<D, BK>(Ks, kh, in_ld, k0, seq);
-    load_rows_bf16<D, BK>(Vs, vh, in_ld, k0, seq);
+    load_rows_bf16<D, BK, T::LD, BF16_THREADS>(Ks, kh, in_ld, k0, seq);
+    load_rows_bf16<D, BK, T::LD, BF16_THREADS>(Vs, vh, in_ld, k0, seq);
     __syncthreads();
 
     // S = Q K^T for the warp's 16 rows x BK keys.
@@ -221,15 +183,23 @@ __global__ void __launch_bounds__(BF16_THREADS)
       acc[dt][2] *= alpha[1];
       acc[dt][3] *= alpha[1];
     }
+    // Dropout after the row sum: the sum is over the undropped probabilities.
+    if (seeds != nullptr) {
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+        bool keep[4];
+        keep_block(keep, seed, row, k0 + nt * 8 + quad * 2, threshold);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!keep[e]) s[nt][e] = 0.f;
+      }
+    }
 
     // O += P V: the S tiles 2j and 2j+1 are the A fragment of key step j.
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j) {
       uint32_t a[4];
-      a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+      acc_to_a(a, s[2 * j], s[2 * j + 1]);
 #pragma unroll
       for (int dt = 0; dt < D / 8; dt += 2) {
         uint32_t vb[4];  // keys j*16.. | j*16+8.., at columns dt*8 and dt*8 + 8
@@ -241,10 +211,9 @@ __global__ void __launch_bounds__(BF16_THREADS)
     }
   }
 
-  // Epilogue: divide by the row sums, write bf16 pairs.
-  const int row = q0 + warp * 16 + lane / 4;
-  const float inv0 = 1.f / l_run[0];
-  const float inv1 = 1.f / l_run[1];
+  // Epilogue: divide by the row sums (and keep_prob), write bf16 pairs.
+  const float inv0 = inv_keep / l_run[0];
+  const float inv1 = inv_keep / l_run[1];
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     const int col = dt * 8 + quad * 2;
@@ -275,21 +244,13 @@ struct F32Tiles {
   static constexpr int BYTES = P + BQ * LDP * 4;
 };
 
-__device__ __forceinline__ void load_rows_f32(float* dst, int lds, const float* __restrict__ src,
-                                              long long ld, int r0, int seq, int d, float mul) {
-  for (int i = threadIdx.x; i < 64 * d; i += F32_THREADS) {
-    const int r = i / d;
-    const int c = i % d;
-    dst[r * lds + c] = (r0 + r < seq) ? src[(long long)(r0 + r) * ld + c] * mul : 0.f;
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(F32_THREADS)
     packed_attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, float* __restrict__ o, int seq, int heads,
                         int hpg, long long group_stride, long long in_ld, long long out_ld,
-                        float scale) {
+                        float scale, const int* __restrict__ seeds, uint32_t threshold,
+                        float inv_keep) {
   using T = F32Tiles<D>;
   constexpr int NC = D / 4;       // output columns per thread
   constexpr int NS = F32_BK / 4;  // scores per thread per tile
@@ -307,9 +268,10 @@ __global__ void __launch_bounds__(F32_THREADS)
   const int q0 = blockIdx.x * BQ;
   const int r = threadIdx.x >> 2;  // query row within the tile
   const int cl = threadIdx.x & 3;  // this thread's columns: cl, cl+4, cl+8, ...
+  const uint32_t seed = seeds != nullptr ? static_cast<uint32_t>(seeds[blockIdx.y]) : 0u;
 
   // q is scaled on load, as the plain version scales q before the product.
-  load_rows_f32(Qs, T::LDQ, q + in_off, in_ld, q0, seq, D, scale);
+  load_rows_f32<F32_THREADS>(Qs, T::LDQ, q + in_off, in_ld, q0, BQ, seq, D, scale);
 
   float acc[NC];
 #pragma unroll
@@ -321,8 +283,8 @@ __global__ void __launch_bounds__(F32_THREADS)
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * F32_BK;
     __syncthreads();
-    load_rows_f32(Ks, T::LDK, k + in_off, in_ld, k0, seq, D, 1.f);
-    load_rows_f32(Vs, T::LDV, v + in_off, in_ld, k0, seq, D, 1.f);
+    load_rows_f32<F32_THREADS>(Ks, T::LDK, k + in_off, in_ld, k0, F32_BK, seq, D, 1.f);
+    load_rows_f32<F32_THREADS>(Vs, T::LDV, v + in_off, in_ld, k0, F32_BK, seq, D, 1.f);
     __syncthreads();
 
     float s[NS];
@@ -350,8 +312,9 @@ __global__ void __launch_bounds__(F32_THREADS)
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
       const float p = expf(s[j] - m_new);
-      Ps[r * T::LDP + cl + 4 * j] = p;
       sum += p;
+      const bool keep = seeds == nullptr || keep_one(seed, q0 + r, k0 + cl + 4 * j, threshold);
+      Ps[r * T::LDP + cl + 4 * j] = keep ? p : 0.f;
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -374,7 +337,7 @@ __global__ void __launch_bounds__(F32_THREADS)
   if (q0 + r < seq) {
     float* dst = oh + (long long)(q0 + r) * out_ld + cl;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dst[4 * c] = acc[c] / l_run;
+    for (int c = 0; c < NC; ++c) dst[4 * c] = (acc[c] * inv_keep) / l_run;
   }
 }
 
@@ -382,26 +345,30 @@ template <typename T, typename Kernel>
 int launch(Kernel kernel, int threads, int smem_bytes, const void* q, const void* k,
            const void* v, void* o, int batch, int seq, int heads, int hpg,
            long long group_stride, long long in_ld, long long out_ld, float scale,
-           cudaStream_t stream) {
+           const int* seeds, uint32_t threshold, float inv_keep, cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((seq + BQ - 1) / BQ, batch * heads);
   kernel<<<grid, threads, smem_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), seq, heads, hpg, group_stride, in_ld, out_ld, scale);
+      static_cast<T*>(o), seq, heads, hpg, group_stride, in_ld, out_ld, scale, seeds, threshold,
+      inv_keep);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int dispatch(int is_bf16, const void* q, const void* k, const void* v, void* o, int batch,
              int seq, int heads, int hpg, long long group_stride, long long in_ld,
-             long long out_ld, float scale, cudaStream_t stream) {
+             long long out_ld, float scale, const int* seeds, uint32_t threshold,
+             float inv_keep, cudaStream_t stream) {
   if (is_bf16)
     return launch<bf16>(packed_attn_fwd_bf16<D>, BF16_THREADS, Bf16Tiles<D>::BYTES, q, k, v, o,
-                        batch, seq, heads, hpg, group_stride, in_ld, out_ld, scale, stream);
+                        batch, seq, heads, hpg, group_stride, in_ld, out_ld, scale, seeds,
+                        threshold, inv_keep, stream);
   return launch<float>(packed_attn_fwd_f32<D>, F32_THREADS, F32Tiles<D>::BYTES, q, k, v, o,
-                       batch, seq, heads, hpg, group_stride, in_ld, out_ld, scale, stream);
+                       batch, seq, heads, hpg, group_stride, in_ld, out_ld, scale, seeds,
+                       threshold, inv_keep, stream);
 }
 
 }  // namespace
@@ -414,22 +381,26 @@ extern "C" {
 // out_ld apart). All bf16 (is_bf16 = 1) or all f32; head_dim 64, 128 or 256;
 // q, k, v, o 16-byte aligned and every stride a multiple of 8 elements.
 // scale is 1/sqrt(head_dim) rounded to f32 by the caller, as the plain
-// version has it. Returns a cudaError_t; 0 means launched.
+// version has it. seeds: int32 [batch * heads] for dropout, or null for
+// none; threshold = round(keep_prob * 2^32) capped at 2^32 - 1, inv_keep =
+// 1 / keep_prob (1 without dropout). Returns a cudaError_t; 0 means launched.
 int bsi_packed_attention_fwd(const void* q, const void* k, const void* v, void* o, int batch,
                              int seq, int heads, int head_dim, int hpg, long long group_stride,
                              long long in_ld, long long out_ld, int is_bf16, float scale,
+                             const void* seeds, unsigned int threshold, float inv_keep,
                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* sd = static_cast<const int*>(seeds);
   switch (head_dim) {
     case 64:
       return dispatch<64>(is_bf16, q, k, v, o, batch, seq, heads, hpg, group_stride, in_ld,
-                          out_ld, scale, st);
+                          out_ld, scale, sd, threshold, inv_keep, st);
     case 128:
       return dispatch<128>(is_bf16, q, k, v, o, batch, seq, heads, hpg, group_stride, in_ld,
-                           out_ld, scale, st);
+                           out_ld, scale, sd, threshold, inv_keep, st);
     case 256:
       return dispatch<256>(is_bf16, q, k, v, o, batch, seq, heads, hpg, group_stride, in_ld,
-                           out_ld, scale, st);
+                           out_ld, scale, sd, threshold, inv_keep, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,21 +1,33 @@
-"""K2 and K6f: attention over heads read in place from the packed layouts,
-a CUDA C++ kernel for Hopper; the grouped qkv layout helpers.
+"""K2, K6f, K3 and K6b: attention over heads read in place from the packed
+layouts, forward and backward, CUDA C++ kernels for Hopper; the grouped qkv
+layout helpers; the dropout mask.
 
 Counterpart of ``bsi_tpu/ops/flash_attention_packed.py``. K2
 (:func:`flash_attention_fused`) reads q, k and v straight out of the qkv
 projection's output ``[B, S, 3*H*D]`` in the GROUPED layout
 (:func:`qkv_heads_per_group`) and writes ``[B, S, H*D]``, with no split or
 merge copy; K6f (:func:`flash_attention_packed`) runs the same kernel over
-three ``[B, S, H*D]`` tensors. One kernel serves both: it takes the layout
-(row stride, column stride between head groups, heads per group) as
-arguments. The source is ``csrc/flash_attention_packed.cu``; its header note
-gives the design and the bound on an H100.
+three ``[B, S, H*D]`` tensors. Their backwards, K3
+(:func:`flash_attention_fused_bwd`, which writes the fused dqkv in the
+grouped layout in place) and K6b (:func:`flash_attention_packed_bwd`), are
+one kernel pair in the same way. The kernels take the layout (row stride,
+column stride between head groups, heads per group) as arguments. Sources:
+``csrc/flash_attention_packed.cu`` (forward) and
+``csrc/flash_attention_packed_bwd.cu`` (backward); their header notes give
+the designs and the bounds on an H100.
 
-``_packed_fwd_math`` is the plain PyTorch version of the kernel's per-head
-math (the TPU kernel's ``_packed_fwd_math``), with optional explicit keep
-masks for attention dropout; ``_fused_fwd_math`` and ``_packed_heads_math``
-are the plain versions of the two entries. Dropout inside the kernels, and
-their backwards (K3, K6b), are not ported yet.
+Attention dropout follows the TPU kernels: one int32 seed per (batch, head)
+(:func:`draw_seeds`), from which every kernel regenerates the same keep mask,
+so the backward needs no mask in memory. The bits come from a counter-based
+Philox4x32-10 instead of the TPU's generator; :func:`_philox_keep_mask` is
+its plain PyTorch twin, bit for bit (``csrc/packed_attention_common.cuh``
+states the mapping from an element to its bits).
+
+``_packed_fwd_math`` and ``_packed_bwd_math`` are the plain PyTorch versions
+of the kernels' per-head math (the TPU kernel's functions of the same
+names), with optional explicit keep masks; ``_fused_fwd_math``,
+``_packed_heads_math``, ``_fused_bwd_math`` and ``_packed_heads_bwd_math``
+are the plain versions of the four entries.
 """
 
 from __future__ import annotations
@@ -30,7 +42,11 @@ from .flash_attention import MAX_FUSED_TRAIN_SEQ
 
 LANE = 128
 SOURCE = "flash_attention_packed.cu"
+BWD_SOURCE = "flash_attention_packed_bwd.cu"
 HEAD_DIMS = (64, 128, 256)
+# The backward's dkv kernel holds two [16, D] f32 accumulators a warp in
+# registers, which at D = 256 do not fit.
+BWD_HEAD_DIMS = (64, 128)
 
 
 def qkv_heads_per_group(head_dim: int, heads: int) -> int:
@@ -71,6 +87,15 @@ def split_qkv_grouped(qkv: torch.Tensor, heads: int):
     return pick(0), pick(1), pick(2)
 
 
+def merge_qkv_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`split_qkv_grouped`: ``[B, H, S, D]`` q, k, v ->
+    the grouped ``[B, S, 3*H*D]`` buffer (a copy)."""
+    b, heads, s, d = q.shape
+    hpg = qkv_heads_per_group(d, heads)
+    group = lambda x: x.permute(0, 2, 1, 3).reshape(b, s, heads // hpg, hpg * d)
+    return torch.stack([group(q), group(k), group(v)], dim=3).reshape(b, s, 3 * heads * d)
+
+
 def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     # [B, S, H*D] -> [B, H, S, D]
     b, s, hd = x.shape
@@ -81,6 +106,83 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     # [B, H, S, D] -> [B, S, H*D]
     b, h, s, d = x.shape
     return x.permute(0, 2, 1, 3).reshape(b, s, h * d)
+
+
+# ------------------------------------------------------------ dropout mask
+
+_U32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """High and low 32 bits of ``m * x`` for 32-bit ``m`` and int64 ``x``
+    holding 32-bit values, in int64 without overflow (x in 16-bit halves)."""
+    a = m * (x & 0xFFFF)
+    b = m * (x >> 16)
+    t = a + ((b & 0xFFFF) << 16)
+    return (b >> 16) + (t >> 32), t & _U32
+
+
+def _philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on int64 tensors holding 32-bit values (broadcasting)."""
+    for round_ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        if round_ < 9:
+            k0 = (k0 + _PHILOX_W[0]) & _U32
+            k1 = (k1 + _PHILOX_W[1]) & _U32
+    return c0, c1, c2, c3
+
+
+def keep_threshold(keep_prob: float) -> int:
+    """The 32-bit threshold below which a draw keeps its element, as the TPU
+    kernels' ``_keep_mask`` has it."""
+    return min(int(round(keep_prob * 4294967296.0)), _U32)
+
+
+def _philox_keep_mask(seeds: torch.Tensor, seq: int, keep_prob: float, *, chunk: int = 64) -> torch.Tensor:
+    """The kernels' keep mask, bool ``[B, H, S, S]`` on ``seeds``' device,
+    from int32 ``seeds [B, H]``: element (b, h, i, j) is kept where word
+    ``2 * ((i >> 3) & 1) + (j & 1)`` of Philox4x32-10 with counter
+    ``(j >> 1, i & ~8, 0, 0)`` and key ``(seeds[b, h], 0)`` lies below
+    :func:`keep_threshold`. Computed ``chunk`` heads at a time, in int64."""
+    dev = seeds.device
+    flat = seeds.reshape(-1).to(torch.int64) & _U32
+    i = torch.arange(seq, device=dev, dtype=torch.int64)
+    c1 = (i & ~8)[None, :, None]
+    c0 = torch.arange((seq + 1) // 2, device=dev, dtype=torch.int64)[None, None, :]
+    upper = ((i >> 3) & 1).bool()[None, :, None]
+    threshold = keep_threshold(keep_prob)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    out = []
+    for start in range(0, flat.numel(), chunk):
+        key = flat[start:start + chunk, None, None]
+        w0, w1, w2, w3 = _philox4x32_10(c0, c1, zero, zero, key, zero)
+        even = torch.where(upper, w2, w0)  # column j even
+        odd = torch.where(upper, w3, w1)
+        bits = torch.stack([even, odd], dim=-1).reshape(key.shape[0], seq, -1)[..., :seq]
+        out.append(bits < threshold)
+    return torch.cat(out).reshape(*seeds.shape, seq, seq)
+
+
+def draw_seeds(batch: int, heads: int, device, generator: torch.Generator | None = None) -> torch.Tensor:
+    """One int32 dropout seed per (batch, head), ``[batch, heads]``, as the
+    JAX package draws them (``randint(0, 2**31 - 1)``), from ``generator``
+    (the device's default one when None)."""
+    return torch.randint(0, 2**31 - 1, (batch, heads), dtype=torch.int32, device=device, generator=generator)
+
+
+def _keeps(seeds, seq: int, rate: float):
+    if rate == 0.0:
+        return None
+    if seeds is None:
+        raise ValueError("attention dropout needs seeds")
+    return _philox_keep_mask(seeds, seq, 1.0 - rate)
+
+
+# -------------------------------------------------------------- plain math
 
 
 def _packed_fwd_math(q, k, v, scale: float, keeps=None, keep_prob: float = 1.0):
@@ -99,6 +201,29 @@ def _packed_fwd_math(q, k, v, scale: float, keeps=None, keep_prob: float = 1.0):
         probs = torch.where(keeps, probs / keep_prob, 0.0)
     acc = torch.promote_types(v.dtype, torch.float32)
     return torch.matmul(probs.to(v.dtype).to(acc), v.to(acc)).float()
+
+
+def _packed_bwd_math(q, k, v, do, scale: float, keeps=None, keep_prob: float = 1.0):
+    """The VJP of :func:`_packed_fwd_math` with respect to q, k and v, as the
+    TPU kernel's ``_packed_bwd_math``: the softmax recomputed from f32
+    logits, the dropped probabilities cast to v's dtype for dV, dS cast to
+    v's dtype for dQ and dK, products accumulated in at least f32. Returns
+    dq, dk, dv in that accumulation dtype."""
+    acc = torch.promote_types(v.dtype, torch.float32)
+    logits = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
+    logits = logits - logits.amax(dim=-1, keepdim=True)
+    unnorm = torch.exp(logits)
+    probs = unnorm / unnorm.sum(dim=-1, keepdim=True)
+    dropped = probs if keeps is None else torch.where(keeps, probs / keep_prob, 0.0)
+    do_acc = do.to(acc)
+    dv = torch.matmul(dropped.to(v.dtype).to(acc).transpose(-1, -2), do_acc)
+    dp = torch.matmul(do_acc, v.to(acc).transpose(-1, -2))
+    if keeps is not None:
+        dp = torch.where(keeps, dp / keep_prob, 0.0)
+    ds = (probs * (dp - (dp * probs).sum(dim=-1, keepdim=True))).to(v.dtype).to(acc)
+    dq = torch.matmul(ds, k.to(acc)) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(acc)) * scale
+    return dq, dk, dv
 
 
 def _scale(head_dim: int) -> float:
@@ -120,10 +245,29 @@ def _packed_heads_math(q, k, v, heads: int, keeps=None, keep_prob: float = 1.0):
     return _merge_heads(out).to(q.dtype)
 
 
-def _check_cuda(name: str, tensors, heads: int, width: int) -> int:
+def _fused_bwd_math(qkv: torch.Tensor, do: torch.Tensor, heads: int, keeps=None, keep_prob: float = 1.0):
+    """Plain version of K3: grouped qkv and dO ``[B, S, H*D]`` -> the fused
+    dqkv ``[B, S, 3*H*D]`` in the grouped layout, in qkv's dtype."""
+    q, k, v = split_qkv_grouped(qkv, heads)
+    grads = _packed_bwd_math(q, k, v, _split_heads(do, heads), _scale(q.shape[-1]), keeps, keep_prob)
+    return merge_qkv_grouped(*grads).to(qkv.dtype)
+
+
+def _packed_heads_bwd_math(q, k, v, do, heads: int, keeps=None, keep_prob: float = 1.0):
+    """Plain version of K6b: q, k, v, dO ``[B, S, H*D]`` -> dq, dk, dv
+    ``[B, S, H*D]`` in q's dtype."""
+    q4, k4, v4, do4 = (_split_heads(x, heads) for x in (q, k, v, do))
+    grads = _packed_bwd_math(q4, k4, v4, do4, _scale(q4.shape[-1]), keeps, keep_prob)
+    return tuple(_merge_heads(g).to(q.dtype) for g in grads)
+
+
+# ----------------------------------------------------------------- kernels
+
+
+def _check_cuda(name: str, tensors, heads: int, width: int, head_dims=HEAD_DIMS) -> int:
     """Raise unless every tensor is a contiguous, 16-byte aligned CUDA
-    ``[B, S, width]`` of one shape and dtype (bf16 or f32) with whole heads
-    of a supported size. Returns the head dim."""
+    ``[B, S, width * H * D]`` of one shape and dtype (bf16 or f32) with D in
+    ``head_dims``. Returns the head dim."""
     first = tensors[0]
     if not all(t.is_cuda and t.device == first.device for t in tensors):
         raise ValueError(f"{name} needs its inputs on one CUDA device")
@@ -135,37 +279,63 @@ def _check_cuda(name: str, tensors, heads: int, width: int) -> int:
     if heads <= 0 or feat % width or (feat // width) % heads:
         raise ValueError(f"{name}: feature dim {feat} does not hold {heads} whole heads")
     head_dim = feat // width // heads
-    if head_dim not in HEAD_DIMS or seq < 1 or b < 1 or b * heads > 65535:
-        raise ValueError(f"{name} takes head_dim in {HEAD_DIMS} and B*H <= 65535, "
+    if head_dim not in head_dims or seq < 1 or b < 1 or b * heads > 65535:
+        raise ValueError(f"{name} takes head_dim in {head_dims} and B*H <= 65535, "
                          f"got {tuple(first.shape)} with {heads} heads")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
         raise ValueError(f"{name} needs contiguous, 16-byte aligned inputs")
     return head_dim
 
 
-def _launch(q_ptr, k_ptr, v_ptr, out, batch, seq, heads, head_dim, hpg, group_stride, in_ld, what):
+def _check_do(name: str, do: torch.Tensor, like: torch.Tensor, width: int) -> None:
+    b, seq, feat = like.shape
+    if (do.device != like.device or do.dtype != like.dtype or do.shape != (b, seq, feat // width)
+            or not do.is_contiguous() or do.data_ptr() % 16):
+        raise ValueError(f"{name}: dO must be a contiguous, aligned {(b, seq, feat // width)} "
+                         f"{like.dtype} on {like.device}, got {tuple(do.shape)} {do.dtype} on {do.device}")
+
+
+def _dropout_args(name: str, seeds, rate: float, batch: int, heads: int, device):
+    """(seeds pointer, threshold, 1 / keep_prob) for the kernels: no seeds
+    and keep_prob 1 at rate 0."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"{name}: dropout rate {rate} not in [0, 1)")
+    if rate == 0.0:
+        return None, _U32, 1.0
+    if (seeds is None or seeds.dtype != torch.int32 or seeds.shape != (batch, heads)
+            or seeds.device != device or not seeds.is_contiguous()):
+        raise ValueError(f"{name}: dropout needs contiguous int32 seeds of shape {(batch, heads)} on {device}")
+    keep = 1.0 - rate
+    return seeds.data_ptr(), keep_threshold(keep), 1.0 / keep
+
+
+def _launch(q_ptr, k_ptr, v_ptr, out, batch, seq, heads, head_dim, hpg, group_stride, in_ld, seeds,
+            rate, what):
+    seed_ptr, threshold, inv_keep = _dropout_args(what, seeds, rate, batch, heads, out.device)
     lib = _lib()
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         code = lib.bsi_packed_attention_fwd(
             q_ptr, k_ptr, v_ptr, out.data_ptr(), batch, seq, heads, head_dim, hpg,
             group_stride, in_ld, out.shape[-1], int(out.dtype == torch.bfloat16),
-            _scale(head_dim), stream,
+            _scale(head_dim), seed_ptr, threshold, inv_keep, stream,
         )
     _build.check(lib, code, what)
 
 
-def flash_attention_fused_cuda(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+def flash_attention_fused_cuda(qkv: torch.Tensor, heads: int, seeds: torch.Tensor | None = None,
+                               rate: float = 0.0) -> torch.Tensor:
     """Launch K2 on a contiguous CUDA grouped qkv buffer ``[B, S, 3*H*D]``
-    (bf16 or f32, D in ``HEAD_DIMS``, any S). Returns ``[B, S, H*D]`` in
-    qkv's dtype. Raises on anything else."""
+    (bf16 or f32, D in ``HEAD_DIMS``, any S), with dropout at ``rate`` from
+    int32 ``seeds [B, H]``. Returns ``[B, S, H*D]`` in qkv's dtype. Raises
+    on anything else."""
     head_dim = _check_cuda("flash_attention_fused_cuda", (qkv,), heads, 3)
     b, seq, three_hd = qkv.shape
     hpg = qkv_heads_per_group(head_dim, heads)
     out = torch.empty(b, seq, three_hd // 3, dtype=qkv.dtype, device=qkv.device)
     base, step = qkv.data_ptr(), hpg * head_dim * qkv.element_size()
     _launch(base, base + step, base + 2 * step, out, b, seq, heads, head_dim, hpg,
-            3 * hpg * head_dim, three_hd, "flash_attention_fused kernel")
+            3 * hpg * head_dim, three_hd, seeds, rate, "flash_attention_fused kernel")
     flash_attention_fused_cuda.launches += 1
     return out
 
@@ -173,14 +343,16 @@ def flash_attention_fused_cuda(qkv: torch.Tensor, heads: int) -> torch.Tensor:
 flash_attention_fused_cuda.launches = 0
 
 
-def flash_attention_packed_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
+def flash_attention_packed_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                                seeds: torch.Tensor | None = None, rate: float = 0.0) -> torch.Tensor:
     """Launch K6f on contiguous CUDA ``[B, S, H*D]`` q, k, v (bf16 or f32, D
-    in ``HEAD_DIMS``, any S). Returns ``[B, S, H*D]``. Raises on anything else."""
+    in ``HEAD_DIMS``, any S), dropout as K2's. Returns ``[B, S, H*D]``.
+    Raises on anything else."""
     head_dim = _check_cuda("flash_attention_packed_cuda", (q, k, v), heads, 1)
     b, seq, hd = q.shape
     out = torch.empty_like(q)
     _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out, b, seq, heads, head_dim, 1,
-            head_dim, hd, "flash_attention_packed kernel")
+            head_dim, hd, seeds, rate, "flash_attention_packed kernel")
     flash_attention_packed_cuda.launches += 1
     return out
 
@@ -188,33 +360,134 @@ def flash_attention_packed_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
 flash_attention_packed_cuda.launches = 0
 
 
+def _launch_bwd(ptrs, grads, do, batch, seq, heads, head_dim, hpg, group_stride, in_ld, seeds, rate,
+                what):
+    seed_ptr, threshold, inv_keep = _dropout_args(what, seeds, rate, batch, heads, do.device)
+    stats = torch.empty(3 * batch * heads * seq, dtype=torch.float32, device=do.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(do.device):
+        stream = torch.cuda.current_stream(do.device).cuda_stream
+        code = lib.bsi_packed_attention_bwd(
+            *ptrs, do.data_ptr(), *grads, stats.data_ptr(), batch, seq, heads, head_dim, hpg,
+            group_stride, in_ld, do.shape[-1], int(do.dtype == torch.bfloat16), _scale(head_dim),
+            seed_ptr, threshold, inv_keep, stream,
+        )
+    _build.check(lib, code, what)
+
+
+def flash_attention_fused_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, heads: int,
+                                   seeds: torch.Tensor | None = None, rate: float = 0.0) -> torch.Tensor:
+    """Launch K3: the grouped qkv buffer ``[B, S, 3*H*D]`` and the output
+    gradient dO ``[B, S, H*D]`` (contiguous CUDA, bf16 or f32, D in
+    ``BWD_HEAD_DIMS``, any S), with the forward's ``seeds`` and ``rate``.
+    Returns the fused dqkv ``[B, S, 3*H*D]`` in the grouped layout, written
+    by the kernel in place. Raises on anything else."""
+    name = "flash_attention_fused_bwd_cuda"
+    head_dim = _check_cuda(name, (qkv,), heads, 3, BWD_HEAD_DIMS)
+    _check_do(name, do, qkv, 3)
+    b, seq, three_hd = qkv.shape
+    hpg = qkv_heads_per_group(head_dim, heads)
+    dqkv = torch.empty_like(qkv)
+    step = hpg * head_dim * qkv.element_size()
+    offsets = lambda t: (t.data_ptr(), t.data_ptr() + step, t.data_ptr() + 2 * step)
+    _launch_bwd(offsets(qkv), offsets(dqkv), do, b, seq, heads, head_dim, hpg, 3 * hpg * head_dim,
+                three_hd, seeds, rate, "flash_attention_fused_bwd kernel")
+    flash_attention_fused_bwd_cuda.launches += 1
+    return dqkv
+
+
+flash_attention_fused_bwd_cuda.launches = 0
+
+
+def flash_attention_packed_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                                    heads: int, seeds: torch.Tensor | None = None, rate: float = 0.0):
+    """Launch K6b on contiguous CUDA ``[B, S, H*D]`` q, k, v and dO (bf16 or
+    f32, D in ``BWD_HEAD_DIMS``, any S), dropout as K3's. Returns dq, dk,
+    dv ``[B, S, H*D]``. Raises on anything else."""
+    head_dim = _check_cuda("flash_attention_packed_bwd_cuda", (q, k, v, do), heads, 1, BWD_HEAD_DIMS)
+    b, seq, hd = q.shape
+    grads = tuple(torch.empty_like(q) for _ in range(3))
+    _launch_bwd((q.data_ptr(), k.data_ptr(), v.data_ptr()), tuple(g.data_ptr() for g in grads), do,
+                b, seq, heads, head_dim, 1, head_dim, hd, seeds, rate, "flash_attention_packed_bwd kernel")
+    flash_attention_packed_bwd_cuda.launches += 1
+    return grads
+
+
+flash_attention_packed_bwd_cuda.launches = 0
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     fn = lib.bsi_packed_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
 
-def flash_attention_fused(qkv: torch.Tensor, *, heads: int) -> torch.Tensor:
-    """No-dropout attention straight off a grouped qkv buffer ``[B, S, 3*H*D]``
-    -> ``[B, S, H*D]``. A CUDA tensor runs K2 (or raises where K2 cannot take
-    it); a CPU tensor runs the plain version. Forward only."""
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load(BWD_SOURCE)
+    fn = lib.bsi_packed_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+# ------------------------------------------------------------------ entries
+
+
+def _no_path(name: str, device) -> ValueError:
+    return ValueError(f"{name} has no path for device {device}")
+
+
+def flash_attention_fused(qkv: torch.Tensor, *, heads: int, seeds: torch.Tensor | None = None,
+                          rate: float = 0.0) -> torch.Tensor:
+    """Attention straight off a grouped qkv buffer ``[B, S, 3*H*D]`` ->
+    ``[B, S, H*D]``, dropout at ``rate`` from ``seeds [B, H]``. A CUDA
+    tensor runs K2 (or raises where K2 cannot take it); a CPU tensor runs the
+    plain version with :func:`_philox_keep_mask`'s mask."""
     if qkv.device.type == "cpu":
-        return _fused_fwd_math(qkv, heads)
+        return _fused_fwd_math(qkv, heads, _keeps(seeds, qkv.shape[1], rate), 1.0 - rate)
     if qkv.device.type == "cuda":
-        return flash_attention_fused_cuda(qkv, heads)
-    raise ValueError(f"flash_attention_fused has no path for device {qkv.device}")
+        return flash_attention_fused_cuda(qkv, heads, seeds, rate)
+    raise _no_path("flash_attention_fused", qkv.device)
 
 
-def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, heads: int) -> torch.Tensor:
-    """No-dropout attention over packed ``[B, S, H*D]`` q, k, v. A CUDA tensor
-    runs K6f (or raises where K6f cannot take it); a CPU tensor runs the
-    plain version. Forward only."""
+def flash_attention_fused_bwd(qkv: torch.Tensor, do: torch.Tensor, *, heads: int,
+                              seeds: torch.Tensor | None = None, rate: float = 0.0) -> torch.Tensor:
+    """The fused dqkv ``[B, S, 3*H*D]`` of :func:`flash_attention_fused` for
+    the output gradient ``do``. A CUDA tensor runs K3; a CPU tensor the plain
+    version."""
+    if qkv.device.type == "cpu":
+        return _fused_bwd_math(qkv, do, heads, _keeps(seeds, qkv.shape[1], rate), 1.0 - rate)
+    if qkv.device.type == "cuda":
+        return flash_attention_fused_bwd_cuda(qkv, do, heads, seeds, rate)
+    raise _no_path("flash_attention_fused_bwd", qkv.device)
+
+
+def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, heads: int,
+                           seeds: torch.Tensor | None = None, rate: float = 0.0) -> torch.Tensor:
+    """Attention over packed ``[B, S, H*D]`` q, k, v, dropout as
+    :func:`flash_attention_fused`'s. A CUDA tensor runs K6f (or raises where
+    K6f cannot take it); a CPU tensor runs the plain version."""
     if q.device.type == "cpu":
-        return _packed_heads_math(q, k, v, heads)
+        return _packed_heads_math(q, k, v, heads, _keeps(seeds, q.shape[1], rate), 1.0 - rate)
     if q.device.type == "cuda":
-        return flash_attention_packed_cuda(q, k, v, heads)
-    raise ValueError(f"flash_attention_packed has no path for device {q.device}")
+        return flash_attention_packed_cuda(q, k, v, heads, seeds, rate)
+    raise _no_path("flash_attention_packed", q.device)
+
+
+def flash_attention_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
+                               heads: int, seeds: torch.Tensor | None = None, rate: float = 0.0):
+    """dq, dk, dv of :func:`flash_attention_packed` for the output gradient
+    ``do``. A CUDA tensor runs K6b; a CPU tensor the plain version."""
+    if q.device.type == "cpu":
+        return _packed_heads_bwd_math(q, k, v, do, heads, _keeps(seeds, q.shape[1], rate), 1.0 - rate)
+    if q.device.type == "cuda":
+        return flash_attention_packed_bwd_cuda(q, k, v, do, heads, seeds, rate)
+    raise _no_path("flash_attention_packed_bwd", q.device)

@@ -36,8 +36,12 @@ DIT_L2 = dict(data_shape=(32, 32, 3), patch_size=2, dim=1024, depth=24, heads=16
 def _kind(name: str) -> str:
     if "packed_attn_fwd" in name:
         return "K2 fused-qkv attention"
+    if "packed_attn_bwd" in name:
+        return "K3 fused-qkv attention backward"
     if "ln_mod_fwd" in name:
         return "K4f layernorm_modulate"
+    if "ln_mod_bwd" in name:
+        return "K4b layernorm_modulate backward"
     if "attn_fwd" in name:
         return "K1 flash_attention"
     if "gn_silu_fwd" in name:
@@ -48,6 +52,8 @@ def _kind(name: str) -> str:
     # cuBLAS's Hopper matmuls are named nvjet_* on CUDA 12.8
     if any(key in low for key in ("conv", "cudnn", "xmma", "gemm", "sm90", "nvjet")):
         return "convolution / matmul (cuDNN, cuBLAS)"
+    if "foreach" in low or "multi_tensor" in low:
+        return "optimizer, EMA and clipping (foreach kernels)"
     if "copy_kernel" in low:
         return "casts and copies (weights cast to bf16 at use, layout copies)"
     return "other (elementwise, reductions, cat)"

@@ -1,17 +1,27 @@
-"""Where the time of one UNet train step goes on the card.
+"""Where the time of one train step goes on the card.
 
-    python -m bsi_torch.profile_train [--batch 128] [--steps 3] [--out FILE]
+    python -m bsi_torch.profile_train [--model unet|dit] [--batch N] [--steps 3] [--out FILE]
 
-Builds the JAX package's UNet train bench (``scripts/bench_train.py``): the
-full-width CIFAR-10 VDM-UNet, bf16 compute on f32 parameters, dropout 0.1,
-BSI with EDM preconditioning, AdamW 2e-4 with warmup 100 and a cosine to 1e6
-steps, clip 1.0, EMA after step 1000, random weights and synthetic 8-bit
-images from a seed. Times ``--steps`` train steps with host clocks around
-synchronised steps, then profiles as many under ``torch.profiler``, and
-prints what ``profile_sampling`` prints for a sampling step: wall and
-device-busy ms per step, the device's idle share, device ms by kernel kind
-and the top kernels, and the FLOPs (three times the forward's, counted from
-the layer shapes). ``--out`` also writes the numbers as JSON. Needs a CUDA
+Builds the JAX package's train bench (``scripts/bench_train.py::build``) for
+``--model``, with random weights and synthetic 8-bit images from a seed:
+
+- ``unet``: the full-width CIFAR-10 VDM-UNet, batch 128, dropout 0.1, AdamW
+  2e-4;
+- ``dit``: DiT-L/2 (the imagenet32 recipe's model: 32x32, patch 2, dim 1024,
+  depth 24, 16 heads, Fourier features 6..8), batch 64, dropout 0.05, AdamW
+  5e-4 with bf16 Adam moments (``bench.py``'s ``dit-train`` row), each
+  block's ``ada_out`` filled with normals of std 0.02 so the blocks are not
+  the identity;
+
+both bf16 compute on f32 parameters, BSI with EDM preconditioning (lambda_0
+1e-2, alpha_M 1e6, alpha_R 2e6, k=50), warmup 100 and a cosine to 1e6
+steps, clip 1.0, EMA after step 1000. Times ``--steps`` train steps with
+host clocks around synchronised steps, then profiles as many under
+``torch.profiler``, and prints what ``profile_sampling`` prints for a
+sampling step: wall and device-busy ms per step, the device's idle share,
+device ms by kernel kind (K2, K3, K4f and K4b by name for the DiT) and the
+top kernels, and the FLOPs (three times the forward's, counted from the
+layer shapes). ``--out`` also writes the numbers as JSON. Needs a CUDA
 device.
 """
 
@@ -25,9 +35,9 @@ import time
 import torch
 
 from bsi_torch import BSI
-from bsi_torch.models import DenoisingVDMUNet
+from bsi_torch.models import DenoisingDiT, DenoisingVDMUNet
 from bsi_torch.nn import FourierFeatures, NyquistPositionalEmbedding
-from bsi_torch.profile_sampling import count_flops, summarize
+from bsi_torch.profile_sampling import DIT_L2, count_flops, fill_ada_out, summarize
 from bsi_torch.train import (
     EMAConfig,
     TrainState,
@@ -38,9 +48,33 @@ from bsi_torch.train import (
 )
 
 
+def build(name: str, device, seed: int = 0):
+    """The train bench of ``name`` ("unet" or "dit"): ``(model, algorithm,
+    optimizer, EMA config, default batch)``, the model in train mode with
+    random weights from ``seed``."""
+    torch.manual_seed(seed)
+    ff = FourierFeatures(6, 8)
+    if name == "unet":
+        model = DenoisingVDMUNet(
+            (32, 32, 3), NyquistPositionalEmbedding(32, 100), dim=128, levels=32, pos_emb_mult=4,
+            n_attention_heads=1, dropout=0.1, fourier_features=ff, dtype=torch.bfloat16, device=device,
+        )
+        lr, cast, batch = 2e-4, {}, 128
+    elif name == "dit":
+        model = DenoisingDiT(fourier_features=ff, dropout=0.05, dtype=torch.bfloat16, device=device, **DIT_L2)
+        fill_ada_out(model, torch.Generator(device=device).manual_seed(seed))
+        lr, cast, batch = 5e-4, dict(mu_dtype="bfloat16", nu_dtype="bfloat16"), 64
+    else:
+        raise ValueError(f"unknown model {name!r}")
+    algo = BSI(data_shape=(32, 32, 3), lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=50, preconditioning="edm")
+    tx = make_optimizer(warmup_cosine_schedule(lr, warmup_steps=100, max_steps=10**6), **cast)
+    return model.train(), algo, tx, EMAConfig(update_after_step=1000), batch
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--batch", type=int, default=128)
+    parser.add_argument("--model", choices=("unet", "dit"), default="unet")
+    parser.add_argument("--batch", type=int, default=None)
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", default=None)
@@ -48,27 +82,21 @@ def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
     dev = torch.device("cuda")
-    torch.manual_seed(args.seed)
-    model = DenoisingVDMUNet(
-        (32, 32, 3), NyquistPositionalEmbedding(32, 100), dim=128, levels=32, pos_emb_mult=4,
-        n_attention_heads=1, dropout=0.1, fourier_features=FourierFeatures(6, 8),
-        dtype=torch.bfloat16, device=dev,
-    )
-    algo = BSI(data_shape=(32, 32, 3), lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=50)
+    model, algo, tx, ema, batch_size = build(args.model, dev, args.seed)
+    batch_size = args.batch or batch_size
     params = dict(model.named_parameters())
-    tx = make_optimizer(warmup_cosine_schedule(2e-4, warmup_steps=100, max_steps=10**6))
     state = TrainState.create(params=params, opt_state=tx.init(params),
                               generator=torch.Generator(device=dev).manual_seed(args.seed + 1))
-    train_step = make_train_step(algo, module_apply(model), tx, EMAConfig(update_after_step=1000))
+    train_step = make_train_step(algo, module_apply(model), tx, ema)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    batch = torch.randint(0, 256, (args.batch, 32, 32, 3), generator=gen, device=dev) / 255.0 * 2.0 - 1.0
+    batch = torch.randint(0, 256, (batch_size, 32, 32, 3), generator=gen, device=dev) / 255.0 * 2.0 - 1.0
 
     def step():
         nonlocal state
         state, _ = train_step(state, batch)
 
     mu = torch.zeros_like(batch)
-    t = torch.full((args.batch,), 0.5, device=dev)
+    t = torch.full((batch_size,), 0.5, device=dev)
     with torch.no_grad():
         flops = {f"{kind} (x3: forward + backward)": 3.0 * f
                  for kind, f in count_flops(model, lambda: model(mu, t)).items()}
@@ -86,7 +114,7 @@ def main(argv=None) -> dict:
         for _ in range(args.steps):
             step()
         torch.cuda.synchronize()
-    result = {"batch": args.batch, "wall_ms_per_step_runs": wall,
+    result = {"model": args.model, "batch": batch_size, "wall_ms_per_step_runs": wall,
               **summarize(prof, args.steps, statistics.median(wall), flops)}
     print(json.dumps(result, indent=1))
     if args.out:

@@ -15,8 +15,13 @@ parameter list:
 
 A schedule is a plain function of the update count. The count lives on the
 host, so the learning rate and the bias corrections are host numbers and no
-update waits on the device. The JAX package's ``mu_dtype``/``nu_dtype``
-moment storage is not ported yet.
+update waits on the device.
+
+``mu_dtype``/``nu_dtype`` store the moments in another dtype (bf16 for the
+DiT), as the JAX package's ``scale_by_adam_cast``: the new moments are
+computed in the gradient's dtype from the upcast stored ones, the update is
+taken from those unrounded moments, and only the stored copies are rounded.
+(An in-place update of bf16 moments would round them before the update.)
 """
 
 from __future__ import annotations
@@ -89,6 +94,22 @@ class AdamState:
     nu: dict[str, torch.Tensor]
 
 
+def _dtype(name) -> Optional[torch.dtype]:
+    """A torch dtype from its name ("bfloat16") or itself; None stays None."""
+    if name is None or isinstance(name, torch.dtype):
+        return name
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dtype
+
+
+def _working(stored: list[torch.Tensor], like: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The moments in the gradients' dtypes: the stored tensors themselves
+    where the dtypes agree (updated in place), upcast copies elsewhere."""
+    return [s if s.dtype == g.dtype else s.to(g.dtype) for s, g in zip(stored, like)]
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """``sqrt(sum of squares)`` over all tensors, a 0-d tensor on their device."""
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
@@ -105,15 +126,18 @@ class Optimizer:
     eps: float
     weight_decay: float
     gradient_clip: Optional[float]
+    mu_dtype: Optional[torch.dtype] = None
+    nu_dtype: Optional[torch.dtype] = None
 
     def lr(self, count: int) -> float:
         """The learning rate of the update at ``count`` previous updates."""
         return float(self.schedule(count)) if callable(self.schedule) else self.schedule
 
     def init(self, params: dict[str, torch.Tensor]) -> AdamState:
-        zeros = lambda: {name: torch.zeros_like(p, memory_format=torch.preserve_format).detach()
-                         for name, p in params.items()}
-        return AdamState(count=0, mu=zeros(), nu=zeros())
+        zeros = lambda dtype: {name: torch.zeros_like(p, dtype=dtype or p.dtype,
+                                                      memory_format=torch.preserve_format).detach()
+                               for name, p in params.items()}
+        return AdamState(count=0, mu=zeros(self.mu_dtype), nu=zeros(self.nu_dtype))
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], state: AdamState, params: dict[str, torch.Tensor],
@@ -133,18 +157,24 @@ class Optimizer:
         state.count += 1
         c1 = 1 - self.b1 ** state.count
         c2 = 1 - self.b2 ** state.count
-        torch._foreach_mul_(mu, self.b1)
-        torch._foreach_add_(mu, g, alpha=1 - self.b1)
-        torch._foreach_mul_(nu, self.b2)
-        torch._foreach_addcmul_(nu, g, g, value=1 - self.b2)
-        denom = torch._foreach_div(nu, c2)
+        mu_w, nu_w = _working(mu, g), _working(nu, g)
+        torch._foreach_mul_(mu_w, self.b1)
+        torch._foreach_add_(mu_w, g, alpha=1 - self.b1)
+        torch._foreach_mul_(nu_w, self.b2)
+        torch._foreach_addcmul_(nu_w, g, g, value=1 - self.b2)
+        denom = torch._foreach_div(nu_w, c2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        step = torch._foreach_div(mu, c1)
+        step = torch._foreach_div(mu_w, c1)
         torch._foreach_div_(step, denom)
         if self.decoupled:
             torch._foreach_add_(step, p, alpha=self.weight_decay)
         torch._foreach_add_(p, step, alpha=-lr)
+        # round into the storage dtype only now, after the update used them
+        for stored, work in ((mu, mu_w), (nu, nu_w)):
+            cast = [(s, w) for s, w in zip(stored, work) if s is not w]
+            if cast:
+                torch._foreach_copy_([s for s, _ in cast], [w for _, w in cast])
 
 
 def make_optimizer(
@@ -155,10 +185,17 @@ def make_optimizer(
     weight_decay: float = 0.01,
     eps: float = 1e-8,
     gradient_clip: Optional[float] = 1.0,
+    mu_dtype=None,
+    nu_dtype=None,
 ) -> Optimizer:
-    """AdamW/Adam with optional global-norm gradient clipping, as optax chains them."""
+    """AdamW/Adam with optional global-norm gradient clipping, as optax chains
+    them. ``mu_dtype``/``nu_dtype`` (a name such as ``"bfloat16"`` or a torch
+    dtype) store the first/second moment in that dtype, as the JAX package's
+    ``make_optimizer`` does through ``scale_by_adam_cast``; None keeps each
+    parameter's dtype."""
     if name not in ("adam", "adamw"):
         raise ValueError(f"Unknown optimizer {name!r}")
     b1, b2 = betas
     return Optimizer(schedule=schedule, decoupled=name == "adamw", b1=b1, b2=b2, eps=eps,
-                     weight_decay=weight_decay, gradient_clip=gradient_clip)
+                     weight_decay=weight_decay, gradient_clip=gradient_clip, mu_dtype=_dtype(mu_dtype),
+                     nu_dtype=_dtype(nu_dtype))

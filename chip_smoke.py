@@ -7,12 +7,14 @@ Builds the port's kernels from the sources in this checkout, holds each one
 against its plain PyTorch version at the main paths' shapes, checks the
 full-width CIFAR-10 VDM-UNet and DiT-L/2 on the card against the same
 weights on the CPU (the UNet's output and train-loss gradients, the DiT's
-output and its decodes along a CPU sampling trajectory), then runs the
-three main paths -- UNet BSI sampling at k=128, batch 64, bf16; the train
-step of the JAX package's UNet train bench (``scripts/bench_train.py``) at
-batch 128, bf16; and DiT-L/2 BSI sampling at k=128, batch 64, bf16, as the
-JAX package's ``bench.py`` serves it -- and checks that each went through
-its kernels and through no other. Prints one line per phase, a JSON line
+output, its decodes along a CPU sampling trajectory and its train-loss
+gradients), then runs the four main paths -- UNet BSI sampling at k=128,
+batch 64, bf16; the train step of the JAX package's UNet train bench
+(``scripts/bench_train.py``) at batch 128, bf16; DiT-L/2 BSI sampling at
+k=128, batch 64, bf16, as the JAX package's ``bench.py`` serves it; and the
+DiT-L/2 train step of ``bench.py``'s ``dit-train`` row at batch 64, bf16,
+dropout 0.05, bf16 Adam moments -- and checks that each went through its
+kernels and through no other. Prints one line per phase, a JSON line
 with every kernel's numbers, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits 1 before printing a result.
@@ -70,6 +72,18 @@ K4F_PER_FORWARD = 48
 # K4f's f32 operations per element: the sum, x - mean, its square and sum,
 # the product with rstd, with (scale + 1), and the shift.
 K4F_OPS_PER_ELEM = 7
+# K4b's: the statistics (sum, x - mean, square, sum), the product with rstd,
+# g's sum (dshift), g * n and its sum (dscale), dn = g * (1 + scale), its sum,
+# dn * n and its sum, and dx's subtract, multiply-subtract and scale.
+K4B_OPS_PER_ELEM = 15
+# The DiT train step (bench.py's dit-train row): batch 64, dropout 0.05 on the
+# attention probabilities and before each MLP; 1 warm-up step, then
+# TRAIN_STEPS timed ones. Per step: K2 and K3 once per block, K4f and K4b
+# twice.
+DIT_TRAIN_BATCH = 64
+DIT_DROPOUT = 0.05
+K3_PER_STEP = 24
+K4B_PER_STEP = 48
 
 
 def phase(name: str, **fields) -> None:
@@ -113,21 +127,36 @@ def check_close(name: str, got, want, atol: float, rtol: float = 0.0) -> float:
     return diff.max().item()
 
 
-def check_bwd(name: str, got, want, dtype) -> list[float]:
-    """K7b's outputs against the plain VJP: dx within 1e-5 (f32) or 2e-2
-    plus one bf16 ulp (bf16, as K7f); dgamma and dbeta, sums over every row
-    of every image, within 1e-4 of their largest element (f32 sums in
-    another order), plus one ulp in bf16, where they are rounded to bf16."""
+def check_bwd(name: str, got, want, dtype, parts=("dx", "dgamma", "dbeta")) -> list[float]:
+    """A norm's backward (K7b, K4b) against the plain VJP: dx within 1e-5
+    (f32) or 2e-2 plus one bf16 ulp (bf16, as the forwards); the per-channel
+    gradients (dgamma and dbeta, dshift and dscale), sums over the rows of an
+    image, within 1e-4 of their largest element (f32 sums in another order),
+    plus one ulp in bf16, where they are rounded to bf16."""
     import torch
 
     ulp = 2**-7 if dtype == torch.bfloat16 else 0.0
     errs = []
-    for part, a, b in zip(("dx", "dgamma", "dbeta"), got, want):
+    for part, a, b in zip(parts, got, want):
         if a.dtype != b.dtype or a.shape != b.shape:
             raise AssertionError(f"{name} {part}: {a.dtype} {tuple(a.shape)} vs {b.dtype} {tuple(b.shape)}")
         atol = (2e-2 if dtype == torch.bfloat16 else 1e-5) if part == "dx" else 1e-4 * b.abs().max().item()
         errs.append(check_close(f"{name} {part}", a, b, atol, ulp))
     return errs
+
+
+def check_attn_bwd(name: str, got, want, dtype) -> float:
+    """An attention gradient (K3, K6b) against the plain backward: bf16
+    within 2e-2 of its largest element (P and dS rounded to bf16 at other
+    points than the plain version's, the outputs rounded to bf16), f32
+    within 1e-5 of it (exact f32 products summed in another order). Returns
+    the max abs error."""
+    import torch
+
+    tol = (2e-2 if dtype == torch.bfloat16 else 1e-5) * want.float().abs().max().item()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+    return check_close(name, got, want, tol)
 
 
 def predicted_train_peak_gib(batch: int, pixels: int, dim: int, levels: int) -> float:
@@ -161,6 +190,7 @@ def main() -> int:
     from bsi_torch.ops import groupnorm_silu as gn
     from bsi_torch.ops import ln_modulate as lm
     from bsi_torch.profile_sampling import DIT_L2, build_model, count_flops
+    from bsi_torch.profile_train import build as build_train
     from bsi_torch.train import (
         EMAConfig,
         TrainState,
@@ -191,6 +221,9 @@ def main() -> int:
         "flash_attention_fused": fap.flash_attention_fused_cuda,
         "flash_attention_packed": fap.flash_attention_packed_cuda,
         "layernorm_modulate_fwd": lm.layernorm_modulate_cuda,
+        "flash_attention_fused_bwd": fap.flash_attention_fused_bwd_cuda,
+        "flash_attention_packed_bwd": fap.flash_attention_packed_bwd_cuda,
+        "layernorm_modulate_bwd": lm.layernorm_modulate_bwd_cuda,
     }
 
     def reset_counts():
@@ -210,11 +243,11 @@ def main() -> int:
         return got
 
     # --------------------------------------------------------------- build
-    # nvcc builds K1 and K2/K6f, one process each, while Triton compiles K7f,
-    # K7b and K4f on their first launches.
+    # nvcc builds K1, K2/K6f and K3/K6b, one process each, while Triton
+    # compiles K7f, K7b, K4f and K4b on their first launches.
     start = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        nvcc = {src: pool.submit(_build.build, src) for src in (fa.SOURCE, fap.SOURCE)}
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        nvcc = {src: pool.submit(_build.build, src) for src in (fa.SOURCE, fap.SOURCE, fap.BWD_SOURCE)}
         x = torch.randn(2, 64, 64, device=dev)
         gamma, beta = torch.ones(64, device=dev), torch.zeros(64, device=dev)
         gn.groupnorm_silu_cuda(x, gamma, beta, 32)
@@ -223,15 +256,19 @@ def main() -> int:
         gn.groupnorm_silu_bwd_cuda(x, gamma, beta, x, 32)
         torch.cuda.synchronize()
         triton_bwd_s = time.perf_counter() - start - triton_s
-        lm.layernorm_modulate_cuda(torch.randn(2, 8, 1024, device=dev), x[:, 0, :1].expand(2, 1024),
-                                   x[:, 1, :1].expand(2, 1024))
+        x4 = torch.randn(2, 8, 1024, device=dev)
+        lm.layernorm_modulate_cuda(x4, x[:, 0, :1].expand(2, 1024), x[:, 1, :1].expand(2, 1024))
         torch.cuda.synchronize()
         triton_k4f_s = time.perf_counter() - start - triton_s - triton_bwd_s
+        lm.layernorm_modulate_bwd_cuda(x4, x[:, 1, :1].expand(2, 1024), x4)
+        torch.cuda.synchronize()
+        triton_k4b_s = time.perf_counter() - start - triton_s - triton_bwd_s - triton_k4f_s
         built = {src: future.result() for src, future in nvcc.items()}
     phase("build", k1_nvcc_s=f"{built[fa.SOURCE][1]:.2f}", k2_nvcc_s=f"{built[fap.SOURCE][1]:.2f}",
+          k3_nvcc_s=f"{built[fap.BWD_SOURCE][1]:.2f}",
           k7_triton_first_launch_s=f"{triton_s:.2f}", k7b_triton_first_launch_s=f"{triton_bwd_s:.2f}",
-          k4f_triton_first_launch_s=f"{triton_k4f_s:.2f}", total_s=f"{time.perf_counter() - start:.2f}",
-          libraries=[path.name for path, _, _ in built.values()])
+          k4f_triton_first_launch_s=f"{triton_k4f_s:.2f}", k4b_triton_first_launch_s=f"{triton_k4b_s:.2f}",
+          total_s=f"{time.perf_counter() - start:.2f}", libraries=[path.name for path, _, _ in built.values()])
     for _, _, log in built.values():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -239,7 +276,7 @@ def main() -> int:
     # Triton's compiled kernels carry their register and spill counts (the
     # ptxas report of the CUDA route); older Triton may lack the fields.
     for name, wrapper in (("k7f", gn.groupnorm_silu_cuda), ("k7b", gn.groupnorm_silu_bwd_cuda),
-                          ("k4f", lm.layernorm_modulate_cuda)):
+                          ("k4f", lm.layernorm_modulate_cuda), ("k4b", lm.layernorm_modulate_bwd_cuda)):
         compiled = wrapper.compiled
         phase("build.triton", kernel=name, registers=getattr(compiled, "n_regs", "unknown"),
               spills=getattr(compiled, "n_spills", "unknown"),
@@ -424,7 +461,120 @@ def main() -> int:
     )
     phase("k6f.time", **{key: k6f[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
     kernels.append(k6f)
-    del qkv, q4, k4, v4
+
+    # ------------------------------------ K2 with dropout, K3, K6b vs twins
+    # The mask first: the plain twin's kept fraction over the B*H*S^2 draws
+    # against keep_prob.
+    keep_prob = 1.0 - DIT_DROPOUT
+    seeds = fap.draw_seeds(b, heads, dev, gen)
+    keeps = fap._philox_keep_mask(seeds, seq, keep_prob)
+    kept = keeps.double().mean().item()
+    sigma = math.sqrt(keep_prob * (1.0 - keep_prob) / keeps.numel())
+    if not abs(kept - keep_prob) <= 6 * sigma:
+        raise AssertionError(f"kept fraction {kept} is not within 6 sigma ({6 * sigma:.3e}) of {keep_prob}")
+    # f32 at 1e-5 also shows that K2's in-kernel masks agree with the twin's:
+    # one differing keep bit moves an output by about p * v / keep_prob, ~4e-3.
+    for dtype, atol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        qkv = randn(b, seq, 3 * heads * d, dtype=dtype)
+        err = check_close(f"K2 dropout {dtype}", fap.flash_attention_fused_cuda(qkv, heads, seeds, DIT_DROPOUT),
+                          fap._fused_fwd_math(qkv, heads, keeps, keep_prob), atol)
+        q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))
+        err6 = check_close(f"K6f dropout {dtype}", fap.flash_attention_packed_cuda(q, k, v, heads, seeds, DIT_DROPOUT),
+                           fap._packed_heads_math(q, k, v, heads, keeps, keep_prob), atol)
+        phase("k2.dropout", shape=tuple(qkv.shape), heads=heads, dtype=str(dtype), rate=DIT_DROPOUT,
+              max_abs_err=f"{err:.3e}", k6f_max_abs_err=f"{err6:.3e}", atol=atol, draws=keeps.numel(),
+              kept_fraction=f"{kept:.7f}", six_sigma=f"{6 * sigma:.2e}")
+    # K3 and K6b at rate 0 and 0.05 against the plain backward with the same
+    # mask; K3's dqkv must be K6b's dq|dk|dv interleaved, bit for bit.
+    split = lambda t: fap._split_heads(t, heads)
+    for rate in (0.0, DIT_DROPOUT):
+        sd, kp = (seeds, keeps) if rate else (None, None)
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv = randn(b, seq, 3 * heads * d, dtype=dtype)
+            g_out = randn(b, seq, heads * d, dtype=dtype)
+            dqkv = fap.flash_attention_fused_bwd_cuda(qkv, g_out, heads, sd, rate)
+            err3 = check_attn_bwd(f"K3 rate {rate} {dtype}", dqkv,
+                                  fap._fused_bwd_math(qkv, g_out, heads, kp, 1.0 - rate), dtype)
+            q, k, v = (fap._merge_heads(t).contiguous() for t in fap.split_qkv_grouped(qkv, heads))
+            grads = fap.flash_attention_packed_bwd_cuda(q, k, v, g_out, heads, sd, rate)
+            want = fap._packed_heads_bwd_math(q, k, v, g_out, heads, kp, 1.0 - rate)
+            err6 = max(check_attn_bwd(f"K6b {part} rate {rate} {dtype}", a, w, dtype)
+                       for part, a, w in zip("qkv", grads, want))
+            if not torch.equal(dqkv, fap.merge_qkv_grouped(*map(split, grads))):
+                raise AssertionError(f"K3 at rate {rate} {dtype} is not K6b's gradients interleaved")
+            tol = "2e-2 of the largest element" if dtype == torch.bfloat16 else "1e-5 of the largest element"
+            phase("k3.check", shape=tuple(qkv.shape), heads=heads, dtype=str(dtype), rate=rate,
+                  max_abs_err=f"{err3:.3e}", tol=repr(tol))
+            phase("k6b.check", shape=tuple(q.shape), heads=heads, dtype=str(dtype), rate=rate,
+                  max_abs_err=f"{err6:.3e}", tol=repr(tol), k3_is_k6b_interleaved_bit_for_bit=True)
+            del dqkv, grads, want
+    # Times at the train step's shapes, bf16, rate 0.05 (the train step's);
+    # the plain versions draw their mask with the Philox twin inside the time.
+    qkv = randn(b, seq, 3 * heads * d, dtype=torch.bfloat16)
+    g_out = randn(b, seq, heads * d, dtype=torch.bfloat16)
+    q4, k4, v4 = (t.contiguous() for t in fap.split_qkv_grouped(qkv, heads))
+    plain_keeps = lambda: fap._philox_keep_mask(seeds, seq, keep_prob)
+    k2["at_rate_0_05"] = dict(
+        max_abs_err=check_close("K2 dropout main", fap.flash_attention_fused_cuda(qkv, heads, seeds, DIT_DROPOUT),
+                                fap._fused_fwd_math(qkv, heads, keeps, keep_prob), 2e-2),
+        ms=time_ms(lambda: fap.flash_attention_fused_cuda(qkv, heads, seeds, DIT_DROPOUT), flush=flush),
+        plain_ms=time_ms(lambda: fap._fused_fwd_math(qkv, heads, plain_keeps(), keep_prob), reps=5, flush=flush),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, dropout_p=DIT_DROPOUT), flush=flush),
+        library="scaled_dot_product_attention with dropout_p 0.05, split copy not counted",
+        **bound(attn_bytes + seeds.numel() * 4, attn_flops, BF16_TENSOR_FLOPS),
+    )
+    # Philox4x32-10 calls worked out from the shape (one per 4 keep bits; the
+    # backward regenerates the mask for its three products), printed beside
+    # the bound and not added to it.
+    philox_fwd = b * heads * seq * seq // 4
+    phase("k2.time", rate=DIT_DROPOUT, philox_calls_from_shape=philox_fwd, **{
+        key: k2["at_rate_0_05"][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    # The library's backward: SDPA's alone on [B, H, S, D], graph kept.
+    leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+    out_lib = F.scaled_dot_product_attention(*leaves, dropout_p=DIT_DROPOUT)
+    g4 = split(g_out).contiguous()
+    library_bwd_ms = time_ms(lambda: torch.autograd.grad(out_lib, leaves, g4, retain_graph=True), flush=flush)
+    # bytes: q, k, v and dO read once, dq, dk, dv written once; products
+    # 10*B*H*S^2*D (Q K^T, dO V^T, dV, dQ, dK)
+    bwd_bytes = 7 * b * seq * heads * d * qkv.element_size() + seeds.numel() * 4
+    bwd_flops = 10 * b * heads * seq * seq * d
+    k3 = dict(
+        name="flash_attention_fused_bwd", route="cuda", source="bsi_torch/ops/csrc/flash_attention_packed_bwd.cu",
+        replaces="bsi_tpu/ops/flash_attention_packed.py:377", shape=list(qkv.shape), heads=heads,
+        dtype="bfloat16", rate=DIT_DROPOUT,
+        max_abs_err=check_attn_bwd("K3 main", fap.flash_attention_fused_bwd_cuda(qkv, g_out, heads, seeds, DIT_DROPOUT),
+                                   fap._fused_bwd_math(qkv, g_out, heads, keeps, keep_prob), torch.bfloat16),
+        ms=time_ms(lambda: fap.flash_attention_fused_bwd_cuda(qkv, g_out, heads, seeds, DIT_DROPOUT), flush=flush),
+        plain_ms=time_ms(lambda: fap._fused_bwd_math(qkv, g_out, heads, plain_keeps(), keep_prob), reps=5,
+                         flush=flush),
+        library_ms=library_bwd_ms,
+        library="scaled_dot_product_attention backward alone, dropout_p 0.05, [B, H, S, D]",
+        at_rate_0=dict(ms=time_ms(lambda: fap.flash_attention_fused_bwd_cuda(qkv, g_out, heads), flush=flush)),
+        **bound(bwd_bytes, bwd_flops, BF16_TENSOR_FLOPS),
+    )
+    phase("k3.time", **{key: k3[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+          ms_at_rate_0=k3["at_rate_0"]["ms"], philox_calls_from_shape=3 * philox_fwd)
+    kernels.append(k3)
+    q, k, v = (fap._merge_heads(t).contiguous() for t in (q4, k4, v4))
+    k6b = dict(
+        name="flash_attention_packed_bwd", route="cuda", source="bsi_torch/ops/csrc/flash_attention_packed_bwd.cu",
+        replaces="bsi_tpu/ops/flash_attention_packed.py:462", shape=list(q.shape), heads=heads,
+        dtype="bfloat16", rate=DIT_DROPOUT,
+        max_abs_err=max(check_attn_bwd("K6b main", a, w, torch.bfloat16) for a, w in zip(
+            fap.flash_attention_packed_bwd_cuda(q, k, v, g_out, heads, seeds, DIT_DROPOUT),
+            fap._packed_heads_bwd_math(q, k, v, g_out, heads, keeps, keep_prob))),
+        ms=time_ms(lambda: fap.flash_attention_packed_bwd_cuda(q, k, v, g_out, heads, seeds, DIT_DROPOUT),
+                   flush=flush),
+        plain_ms=time_ms(lambda: fap._packed_heads_bwd_math(q, k, v, g_out, heads, plain_keeps(), keep_prob),
+                         reps=5, flush=flush),
+        library_ms=library_bwd_ms,
+        library="scaled_dot_product_attention backward alone, dropout_p 0.05, [B, H, S, D]",
+        **bound(bwd_bytes, bwd_flops, BF16_TENSOR_FLOPS),
+    )
+    phase("k6b.time", **{key: k6b[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+          philox_calls_from_shape=3 * philox_fwd)
+    kernels.append(k6b)
+    del qkv, q4, k4, v4, g_out, g4, leaves, out_lib, keeps, seeds
 
     # ------------------------------------------------------ K4f vs its twin
     # shift and scale are column slices of one adaLN output [B, 6 D], as the
@@ -456,7 +606,45 @@ def main() -> int:
     )
     phase("k4f.time", **{key: k4f[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
     kernels.append(k4f)
-    del mod, shift, scale
+
+    # ------------------------------------------------------ K4b vs its twin
+    # scale is a column slice of the adaLN output, as the DiT block passes it.
+    for dtype in (torch.bfloat16, torch.float32):
+        x = randn(b, seq, dim, dtype=dtype) * 2.0 + 0.5
+        g_out = randn(b, seq, dim, dtype=dtype)
+        mod = randn(b, 6 * dim, dtype=dtype)
+        scale = mod[:, dim:2 * dim]
+        got = lm.layernorm_modulate_bwd_cuda(x, scale, g_out)
+        want = lm._bwd_math(x, scale, g_out)
+        torch.cuda.synchronize()
+        errs = check_bwd(f"K4b {dtype}", got, want, dtype, parts=("dx", "dshift", "dscale"))
+        phase("k4b.check", shape=(b, seq, dim), dtype=str(dtype), scale_stride=scale.stride(),
+              max_abs_err_dx=f"{errs[0]:.3e}", max_abs_err_dshift=f"{errs[1]:.3e}",
+              max_abs_err_dscale=f"{errs[2]:.3e}")
+    x = randn(b, seq, dim, dtype=torch.bfloat16)
+    g_out = randn(b, seq, dim, dtype=torch.bfloat16)
+    mod = randn(b, 6 * dim, dtype=torch.bfloat16)
+    shift, scale = mod[:, :dim], mod[:, dim:2 * dim]
+    # the library's backward: autograd through layer_norm and the modulate,
+    # graph kept, only the backward timed
+    x_lib, shift_lib, scale_lib = (t.detach().clone().requires_grad_() for t in (x, shift, scale))
+    out_lib = shift_lib[:, None, :] + (scale_lib[:, None, :] + 1.0) * F.layer_norm(x_lib, (dim,), eps=1e-6)
+    k4b = dict(
+        name="layernorm_modulate_bwd", route="triton", source="bsi_torch/ops/ln_modulate.py",
+        replaces="bsi_tpu/ops/ln_modulate.py:110", shape=[b, seq, dim], dtype="bfloat16",
+        max_abs_err=check_bwd("K4b main", lm.layernorm_modulate_bwd_cuda(x, scale, g_out),
+                              lm._bwd_math(x, scale, g_out), torch.bfloat16, parts=("dx", "dshift", "dscale"))[0],
+        ms=time_ms(lambda: lm.layernorm_modulate_bwd_cuda(x, scale, g_out), flush=flush),
+        plain_ms=time_ms(lambda: lm._bwd_math(x, scale, g_out), flush=flush),
+        library_ms=time_ms(lambda: torch.autograd.grad(out_lib, (x_lib, shift_lib, scale_lib), g_out,
+                                                       retain_graph=True), flush=flush),
+        library="autograd through layer_norm and the modulate expression",
+        **bound(3 * x.numel() * x.element_size() + 3 * b * dim * x.element_size(),
+                K4B_OPS_PER_ELEM * x.numel(), F32_FLOPS),
+    )
+    phase("k4b.time", **{key: k4b[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    kernels.append(k4b)
+    del mod, shift, scale, g_out, x_lib, shift_lib, scale_lib, out_lib
 
     # --------------------------------------- whole model, card against CPU
     pos_emb = NyquistPositionalEmbedding(32, 100)
@@ -650,7 +838,37 @@ def main() -> int:
         )
     phase("dit.sampler.check", k=2, batch=2, dtype="float32", decode_max_abs_err=f"{decode_err:.3e}",
           decode_atol=f"{dit_tol:.3e}")
-    del dit_cpu, dit_f32
+    # The train-loss gradient at batch 2, f32, dropout off (the card's keep
+    # masks and the CPU's cannot match), the same weights and draws on both
+    # sides, through K2, K3, K4f and K4b on the card. Each leaf within 1e-3
+    # of its norm, as [train.check].
+    x_small = torch.rand((2,) + DATA_SHAPE, generator=cpu_gen) * 2.0 - 1.0
+    t_small, eps_small = algo_train.train_noise(cpu_gen, x_small)
+    reset_counts()
+    grads = []
+    for model_g, device in ((dit_cpu, "cpu"), (dit_f32, dev)):
+        named = dict(model_g.named_parameters())
+        loss = algo_train._train_loss_on(
+            model_g, x_small.to(device), t_small.to(device), eps_small.to(device)).mean()
+        grads.append(dict(zip(named, (gr.cpu() for gr in torch.autograd.grad(loss, list(named.values()))))))
+    expect_counts("one f32 DiT-L/2 train-loss gradient", flash_attention_fused=K2_PER_FORWARD,
+                  layernorm_modulate_fwd=K4F_PER_FORWARD, flash_attention_fused_bwd=K3_PER_STEP,
+                  layernorm_modulate_bwd=K4B_PER_STEP)
+    worst, worst_name = 0.0, None
+    for name, want_g in grads[0].items():
+        rel = ((grads[1][name] - want_g).norm() / want_g.norm()).item()
+        if not rel <= 1e-3:
+            raise AssertionError(f"DiT train gradient {name}: card vs CPU {rel:.3e} of its norm, limit 1e-3")
+        if rel > worst:
+            worst, worst_name = rel, name
+    qkv_grad = grads[0]["dit.block_0.attn.to_qkv.weight"].abs().max().item()
+    phase("dit.train.check", batch=2, dtype="float32", dropout=None, leaves=len(grads[0]),
+          worst_rel_err=f"{worst:.3e}", worst_leaf=worst_name, tol="1e-3 of each leaf's norm",
+          block0_qkv_grad_max=f"{qkv_grad:.3e}",
+          finite=all(bool(torch.isfinite(gr).all()) for gr in grads[1].values()))
+    if not qkv_grad > 0:
+        raise AssertionError("the attention's gradient is zero: adaLN-Zero hides the backward")
+    del dit_cpu, dit_f32, grads, named, loss, model_g  # named holds the f32 DiT's parameters
 
     # -------------------------------------------- main path: DiT sampling
     dit = DenoisingDiT(fourier_features=ff, dtype=torch.bfloat16, device=dev, **DIT_L2).eval()
@@ -684,8 +902,58 @@ def main() -> int:
           tflop_per_s=f"{dit_flops * (K_STEPS + 1) / run_s / 1e12:.1f}",
           launches={name: n for name, n in launches.items() if n}, finite=True, shape=tuple(samples.shape))
     path_launches["dit_sample"] = launches
+    del dit, samples
 
-    # Each kernel's launches on the main path that runs it (K6f: none does).
+    # -------------------------------------------- main path: DiT training
+    # bench.py's dit-train row (scripts/bench_train.py::build): DiT-L/2, batch
+    # 64, bf16 compute on f32 parameters, dropout 0.05, AdamW 5e-4 with bf16
+    # moments, warmup 100, cosine to 1e6, clip 1.0, EMA after 1000; ada_out
+    # filled. No remat: the activations fit the card without it.
+    dit_train, algo_dit, tx_dit, ema_dit, _ = build_train("dit", dev, SEED)
+    params = dict(dit_train.named_parameters())
+    state = TrainState.create(params=params, opt_state=tx_dit.init(params),
+                              generator=torch.Generator(device=dev).manual_seed(SEED + 5))
+    train_step = make_train_step(algo_dit, module_apply(dit_train), tx_dit, ema_dit)
+    data_gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    batch = torch.randint(0, 256, (DIT_TRAIN_BATCH,) + DATA_SHAPE, generator=data_gen,
+                          device=dev) / 255.0 * 2.0 - 1.0
+    with torch.no_grad():
+        forward_flops = sum(count_flops(dit_train, lambda: dit_train(
+            batch, torch.full((DIT_TRAIN_BATCH,), 0.5, device=dev))).values())
+    state, metrics = train_step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, metrics = train_step(state, batch)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = expect_counts(
+        f"{TRAIN_STEPS} DiT-L/2 train steps", flash_attention_fused=K2_PER_FORWARD * TRAIN_STEPS,
+        flash_attention_fused_bwd=K3_PER_STEP * TRAIN_STEPS, layernorm_modulate_fwd=K4F_PER_FORWARD * TRAIN_STEPS,
+        layernorm_modulate_bwd=K4B_PER_STEP * TRAIN_STEPS)
+    final_loss = metrics["train/loss"].item()
+    grad_norm = metrics["train/grad_norm"].item()
+    if not (math.isfinite(final_loss) and final_loss > 0 and math.isfinite(grad_norm)):
+        raise AssertionError(f"bad DiT train metrics: loss {final_loss}, grad norm {grad_norm}")
+    moments = {m.dtype for m in (*state.opt_state.mu.values(), *state.opt_state.nu.values())}
+    if moments != {torch.bfloat16}:
+        raise AssertionError(f"Adam moments stored as {moments}, want bf16")
+    peak = torch.cuda.max_memory_allocated()
+    ms_step = train_s / TRAIN_STEPS * 1e3
+    step_flops = 3 * forward_flops
+    phase("dit.train", batch=DIT_TRAIN_BATCH, dtype="bfloat16", dropout=DIT_DROPOUT, moments="bfloat16",
+          steps=TRAIN_STEPS, step=state.step, ms_per_step=f"{ms_step:.3f}",
+          examples_per_s=f"{DIT_TRAIN_BATCH * TRAIN_STEPS / train_s:.3f}",
+          tflop_per_step=f"{step_flops / 1e12:.3f}",
+          mfu=f"{step_flops / (ms_step / 1e3) / BF16_TENSOR_FLOPS:.4f}",
+          peak_mem_gib=f"{peak / 2**30:.3f}", final_loss=f"{final_loss:.6g}", grad_norm=f"{grad_norm:.6g}",
+          launches_per_step={name: n // TRAIN_STEPS for name, n in train_launches.items() if n})
+    path_launches["dit_train"] = train_launches
+    del dit_train, params, tx_dit, state, train_step, batch, metrics
+
+    # Each kernel's launches on the main path that runs it (K6f, K6b: none does).
     for entry in kernels:
         entry["launches_by_path"] = {path: counts[entry["name"]] for path, counts in path_launches.items()}
         entry["launches"] = max(entry["launches_by_path"].values())

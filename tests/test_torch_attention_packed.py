@@ -1,5 +1,6 @@
-"""K2's and K6f's plain versions, the packed attention dispatch, and the
-DiT's token attention and MLP, against the JAX package on the CPU."""
+"""K2's, K6f's, K3's and K6b's plain versions, the Philox keep mask, the
+packed attention dispatch, and the DiT's token attention and MLP, against
+the JAX package on the CPU."""
 
 import importlib
 
@@ -67,6 +68,127 @@ def test_twin_with_keep_masks_matches_jax_packed_math(d):
     npt.assert_allclose(got.permute(1, 0, 2).reshape(seq, 128).numpy(), want, atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("heads,d", SHAPES)
+def test_fused_bwd_twin_matches_pallas_kernel_in_interpret_mode(heads, d):
+    # K3's plain version against the TPU kernel run in interpret mode, f32,
+    # rate 0: the same math, sums in another order: 1e-5
+    qkv = _normal((2, 128, 3 * heads * d), 80 + heads, np.float32)
+    do = _normal((2, 128, heads * d), 81 + heads, np.float32)
+    want = np.asarray(jax_fap.flash_attention_fused_bwd(
+        jnp.asarray(qkv), jnp.asarray(do), jnp.zeros(2 * heads, jnp.int32), heads=heads, rate=0.0,
+        interpret=True))
+    got = fap.flash_attention_fused_bwd(torch.from_numpy(qkv), torch.from_numpy(do), heads=heads)
+    assert got.dtype == torch.float32 and got.shape == qkv.shape
+    npt.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("heads,d", SHAPES)
+def test_packed_bwd_twin_matches_pallas_kernel_in_interpret_mode(heads, d):
+    q, k, v, do = (_normal((2, 128, heads * d), 90 + i, np.float32) for i in range(4))
+    want = jax_fap.flash_attention_packed_bwd(
+        *map(jnp.asarray, (q, k, v, do)), jnp.zeros(2 * heads, jnp.int32), heads=heads, rate=0.0,
+        interpret=True)
+    got = fap.flash_attention_packed_bwd(*map(torch.from_numpy, (q, k, v, do)), heads=heads)
+    for ours, ref in zip(got, want):
+        npt.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_bwd_twin_with_keep_masks_matches_jax_packed_math(d):
+    # The TPU kernel's backward math on one [S, 128] lane block with injected
+    # keep masks (interpret mode takes rate 0 only). f64 inputs, f32 logits
+    # on both sides: 1e-6 against gradients of order one.
+    seq, keep_prob = 64, 0.8
+    n_sub = 128 // d
+    q, k, v, do = (_normal((seq, 128), 100 + i) for i in range(4))
+    keeps = np.random.default_rng(104).uniform(size=(n_sub, seq, seq)) < keep_prob
+    masks = jax_fap._subhead_masks(d, jnp.float32)
+    want = jax_fap._packed_bwd_math(*map(jnp.asarray, (q, k, v, do)), masks,
+                                    [jnp.asarray(m) for m in keeps], 1.0 / np.sqrt(d), keep_prob)
+    heads = lambda x: torch.from_numpy(x).reshape(seq, n_sub, d).permute(1, 0, 2)
+    got = fap._packed_bwd_math(heads(q), heads(k), heads(v), heads(do), 1.0 / np.sqrt(d),
+                               torch.from_numpy(keeps), keep_prob)
+    for ours, ref in zip(got, want):
+        npt.assert_allclose(ours.permute(1, 0, 2).reshape(seq, 128).numpy(), np.asarray(ref), atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------- the keep mask
+
+
+def test_philox_matches_random123_known_answers():
+    # Philox4x32-10 known-answer vectors (Salmon et al., the Random123 suite)
+    t = lambda *v: [torch.tensor(x, dtype=torch.int64) for x in v]
+    cases = [
+        ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+        ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+        ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+         (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+    ]
+    for ctr, key, want in cases:
+        assert tuple(int(w) for w in fap._philox4x32_10(*t(*ctr), *t(*key))) == want
+
+
+def test_keep_mask_takes_the_stated_philox_word_of_each_element():
+    seeds = torch.tensor([[7, 2**31 - 2]], dtype=torch.int32)
+    seq, keep_prob = 40, 0.6
+    mask = fap._philox_keep_mask(seeds, seq, keep_prob)
+    threshold = fap.keep_threshold(keep_prob)
+    t = lambda x: torch.tensor(x, dtype=torch.int64)
+    for h, seed in enumerate((7, 2**31 - 2)):
+        for i, j in [(0, 0), (3, 5), (8, 1), (15, 38), (17, 39), (39, 22)]:
+            words = fap._philox4x32_10(t(j >> 1), t(i & ~8), t(0), t(0), t(seed), t(0))
+            bits = int(words[2 * ((i >> 3) & 1) + (j & 1)])
+            assert bool(mask[0, h, i, j]) == (bits < threshold), (h, i, j)
+
+
+def test_keep_mask_shape_seeds_and_rate():
+    b, heads, seq, keep_prob = 2, 3, 128, 0.95
+    seeds = fap.draw_seeds(b, heads, "cpu", torch.Generator().manual_seed(0))
+    assert seeds.dtype == torch.int32 and seeds.shape == (b, heads)
+    assert (seeds >= 0).all()
+    mask = fap._philox_keep_mask(seeds, seq, keep_prob)
+    assert mask.dtype == torch.bool and mask.shape == (b, heads, seq, seq)
+    # the same seeds give the same mask, whatever the chunking
+    assert torch.equal(mask, fap._philox_keep_mask(seeds.clone(), seq, keep_prob, chunk=1))
+    # different (batch, head) seeds give different masks
+    flat = mask.reshape(b * heads, -1)
+    assert all(not torch.equal(flat[m], flat[n]) for m in range(b * heads) for n in range(m))
+    # the kept fraction within 6 sigma of keep_prob over B*H*S^2 draws
+    n = mask.numel()
+    sigma = np.sqrt(keep_prob * (1 - keep_prob) / n)
+    assert abs(mask.double().mean().item() - keep_prob) <= 6 * sigma
+    assert fap.keep_threshold(1.0) == 2**32 - 1 and fap.keep_threshold(0.5) == 2**31
+
+
+def test_cpu_entries_with_seeds_drop_by_the_philox_mask():
+    b, s, heads, d, rate = 2, 32, 2, 8, 0.3
+    qkv = torch.from_numpy(_normal((b, s, 3 * heads * d), 110))
+    do = torch.from_numpy(_normal((b, s, heads * d), 111))
+    seeds = fap.draw_seeds(b, heads, "cpu", torch.Generator().manual_seed(1))
+    keeps = fap._philox_keep_mask(seeds, s, 1 - rate)
+    got = fap.flash_attention_fused(qkv, heads=heads, seeds=seeds, rate=rate)
+    assert torch.equal(got, fap._fused_fwd_math(qkv, heads, keeps, 1 - rate))
+    assert not torch.equal(got, fap.flash_attention_fused(qkv, heads=heads))
+    dqkv = fap.flash_attention_fused_bwd(qkv, do, heads=heads, seeds=seeds, rate=rate)
+    # the fused gradient is autograd's through the plain forward with that mask
+    leaf = qkv.clone().requires_grad_()
+    (want,) = torch.autograd.grad(fap._fused_fwd_math(leaf, heads, keeps, 1 - rate), leaf, do)
+    npt.assert_allclose(dqkv.numpy(), want.numpy(), atol=1e-6, rtol=0)
+    # K6b's twin is K3's, split
+    q, k, v = (fap._merge_heads(t) for t in fap.split_qkv_grouped(qkv, heads))
+    grads = fap.flash_attention_packed_bwd(q, k, v, do, heads=heads, seeds=seeds, rate=rate)
+    split = lambda t: fap._split_heads(t, heads)
+    assert torch.equal(fap.merge_qkv_grouped(*map(split, grads)), dqkv)
+    with pytest.raises(ValueError, match="seeds"):
+        fap.flash_attention_fused(qkv, heads=heads, rate=rate)
+
+
+def test_merge_qkv_grouped_inverts_the_split():
+    for heads, d in [(4, 64), (2, 128), (3, 64)]:
+        qkv = torch.from_numpy(_normal((2, 8, 3 * heads * d), heads))
+        assert torch.equal(fap.merge_qkv_grouped(*fap.split_qkv_grouped(qkv, heads)), qkv)
+
+
 def test_packed_applicable_matches_jax():
     for hd_total in (64, 128, 192, 256, 384, 512, 1024, 1000):
         for heads in (1, 2, 3, 4, 8, 16):
@@ -126,6 +248,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     y = torch.zeros(1, 128, 128)
     with pytest.raises(ValueError, match="CUDA"):
         fap.flash_attention_packed_cuda(y, y, y, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        fap.flash_attention_fused_bwd_cuda(x, y, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        fap.flash_attention_packed_bwd_cuda(y, y, y, y, 2)
 
 
 @pytest.mark.parametrize("heads", [2, 1])

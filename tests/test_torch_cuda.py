@@ -188,27 +188,118 @@ def test_packed_kernels_refuse_unsupported(cuda):
         fap.flash_attention_packed_cuda(x, x, x.double(), 2)
 
 
-def test_packed_dispatch_routes_and_raises_on_backward(cuda):
+def test_packed_dispatch_routes_forward_and_backward_to_kernels(cuda):
     gen = torch.Generator(device=cuda).manual_seed(12)
     qkv = _randn(gen, 2, 256, 3 * 4 * 64, dtype=torch.bfloat16, device=cuda).requires_grad_()
-    before = fap.flash_attention_fused_cuda.launches
-    out = attention.multi_head_attention_fused_qkv(qkv, heads=4)
-    assert fap.flash_attention_fused_cuda.launches == before + 1
-    with pytest.raises(NotImplementedError, match="K3"):
-        out.sum().backward()
-    with pytest.raises(NotImplementedError, match="K3"):
-        attention.multi_head_attention_fused_qkv(qkv, heads=4, dropout_rate=0.1)
+    k2, k3 = fap.flash_attention_fused_cuda.launches, fap.flash_attention_fused_bwd_cuda.launches
+    out = attention.multi_head_attention_fused_qkv(qkv, heads=4, dropout_rate=0.1, generator=gen)
+    out.sum().backward()
+    assert fap.flash_attention_fused_cuda.launches == k2 + 1
+    assert fap.flash_attention_fused_bwd_cuda.launches == k3 + 1
+    assert qkv.grad.shape == qkv.shape and torch.isfinite(qkv.grad.float()).all()
     q = _randn(gen, 2, 256, 256, dtype=torch.bfloat16, device=cuda).requires_grad_()
-    before = fap.flash_attention_packed_cuda.launches
-    out = attention.multi_head_attention_packed(q, q, q, heads=4)
-    assert fap.flash_attention_packed_cuda.launches == before + 1
-    with pytest.raises(NotImplementedError, match="K6b"):
-        out.sum().backward()
+    k6f, k6b = fap.flash_attention_packed_cuda.launches, fap.flash_attention_packed_bwd_cuda.launches
+    attention.multi_head_attention_packed(q, q, q, heads=4).sum().backward()
+    assert fap.flash_attention_packed_cuda.launches == k6f + 1
+    assert fap.flash_attention_packed_bwd_cuda.launches == k6b + 1
     # a shape the packed kernels do not take goes to the split path (K1 here)
     before_k1 = fa.flash_attention_cuda.launches
     attention.multi_head_attention_fused_qkv(_randn(gen, 2, 640, 3 * 128, dtype=torch.bfloat16, device=cuda),
                                              heads=1)
     assert fa.flash_attention_cuda.launches == before_k1 + 1
+
+
+# ------------------------------------- dropout masks, K2 with dropout, K3, K6b
+
+RATE = 0.05
+
+
+def _seeds(gen, b, heads, device):
+    return fap.draw_seeds(b, heads, device, gen)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,heads,d", [(2, 256, 16, 64), (2, 128, 2, 128), (1, 128, 2, 256), (3, 200, 4, 64)])
+def test_fused_qkv_kernel_with_dropout_matches_plain(cuda, b, s, heads, d, dtype):
+    # f32 at 1e-5 shows that the masks agree: one differing keep bit moves an
+    # output by about p * v / keep_prob, far above it
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    qkv = _randn(gen, b, s, 3 * heads * d, dtype=dtype, device=cuda)
+    seeds = _seeds(gen, b, heads, cuda)
+    got = fap.flash_attention_fused_cuda(qkv, heads, seeds, RATE)
+    keeps = fap._philox_keep_mask(seeds, s, 1.0 - RATE)
+    want = fap._fused_fwd_math(qkv, heads, keeps, 1.0 - RATE)
+    assert (got.float() - want.float()).abs().max().item() <= _packed_atol(dtype)
+    q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))
+    got = fap.flash_attention_packed_cuda(q, k, v, heads, seeds, RATE)
+    want = fap._packed_heads_math(q, k, v, heads, keeps, 1.0 - RATE)
+    assert (got.float() - want.float()).abs().max().item() <= _packed_atol(dtype)
+
+
+def _bwd_close(got, want, dtype):
+    """bf16: within 2e-2 of the largest element (P and dS rounded to bf16 at
+    other points than the plain version's, and the outputs to bf16); f32:
+    within 1e-5 of it (exact f32 products summed in another order)."""
+    tol = (2e-2 if dtype == torch.bfloat16 else 1e-5) * want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert err <= tol, (err, tol)
+
+
+def _interleave(dq, dk, dv, heads):
+    split = lambda t: fap._split_heads(t, heads)
+    return fap.merge_qkv_grouped(split(dq), split(dk), split(dv))
+
+
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,heads,d", [(2, 256, 16, 64), (2, 128, 2, 128), (3, 200, 4, 64), (1, 96, 1, 128)])
+def test_fused_qkv_bwd_kernel_matches_plain(cuda, b, s, heads, d, dtype, rate):
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    qkv = _randn(gen, b, s, 3 * heads * d, dtype=dtype, device=cuda)
+    do = _randn(gen, b, s, heads * d, dtype=dtype, device=cuda)
+    seeds = _seeds(gen, b, heads, cuda) if rate else None
+    keeps = fap._philox_keep_mask(seeds, s, 1.0 - rate) if rate else None
+    before = fap.flash_attention_fused_bwd_cuda.launches
+    got = fap.flash_attention_fused_bwd(qkv, do, heads=heads, seeds=seeds, rate=rate)
+    assert fap.flash_attention_fused_bwd_cuda.launches == before + 1
+    _bwd_close(got, fap._fused_bwd_math(qkv, do, heads, keeps, 1.0 - rate), dtype)
+    # K6b on the same q, k, v: the same numbers, K3's dqkv its interleave bit for bit
+    q, k, v = (t.contiguous() for t in fap.split_qkv_grouped(qkv, heads))
+    q, k, v = (fap._merge_heads(t).contiguous() for t in (q, k, v))
+    grads = fap.flash_attention_packed_bwd(q, k, v, do, heads=heads, seeds=seeds, rate=rate)
+    for g, w in zip(grads, fap._packed_heads_bwd_math(q, k, v, do, heads, keeps, 1.0 - rate)):
+        _bwd_close(g, w, dtype)
+    assert torch.equal(got, _interleave(*grads, heads))
+
+
+def test_bwd_kernels_refuse_unsupported(cuda):
+    qkv = torch.zeros(1, 128, 3 * 2 * 256, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fap.flash_attention_fused_bwd_cuda(qkv, torch.zeros(1, 128, 512, device=cuda), 2)
+    qkv = torch.zeros(1, 128, 3 * 2 * 64, device=cuda)
+    with pytest.raises(ValueError, match="dO"):
+        fap.flash_attention_fused_bwd_cuda(qkv, torch.zeros(1, 128, 64, device=cuda), 2)
+    with pytest.raises(ValueError, match="seeds"):
+        fap.flash_attention_fused_bwd_cuda(qkv, torch.zeros(1, 128, 128, device=cuda), 2, None, 0.1)
+
+
+def test_packed_attention_gradient_matches_plain_autograd(cuda):
+    # the autograd path end to end, dropout on: K2 + K3 against autograd
+    # through the plain forward with the same seeds' mask, f32
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    b, s, heads, d = 2, 256, 4, 64
+    qkv = _randn(gen, b, s, 3 * heads * d, dtype=torch.float32, device=cuda).requires_grad_()
+    g = _randn(gen, b, s, heads * d, dtype=torch.float32, device=cuda)
+    state = torch.cuda.get_rng_state(cuda)
+    out = attention.multi_head_attention_fused_qkv(qkv, heads=heads, dropout_rate=RATE)
+    (grad,) = torch.autograd.grad(out, qkv, g)
+    torch.cuda.set_rng_state(state, cuda)
+    seeds = fap.draw_seeds(b, heads, cuda)
+    leaf = qkv.detach().clone().requires_grad_()
+    keeps = fap._philox_keep_mask(seeds, s, 1.0 - RATE)
+    (want,) = torch.autograd.grad(fap._fused_fwd_math(leaf, heads, keeps, 1.0 - RATE), leaf, g)
+    assert (grad - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
 # ------------------------------------------------- K4f: LayerNorm+modulate
@@ -235,21 +326,41 @@ def test_ln_modulate_kernel_matches_plain(cuda, shape, dtype):
     assert ((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(64, 256, 1024), (3, 16, 384), (2, 5, 100), (2, 300, 256)])
+def test_ln_modulate_bwd_kernel_matches_plain(cuda, shape, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    b, s, d = shape
+    x = _randn(gen, *shape, dtype=dtype, device=cuda) * 2.0 + 0.5
+    g = _randn(gen, *shape, dtype=dtype, device=cuda)
+    scale = _randn(gen, b, 6 * d, dtype=dtype, device=cuda)[:, d:2 * d] * 0.1
+    before = lm.layernorm_modulate_bwd_cuda.launches
+    got = lm.layernorm_modulate_bwd_cuda(x, scale, g)
+    assert lm.layernorm_modulate_bwd_cuda.launches == before + 1
+    assert_bwd_close(got, lm._bwd_math(x, scale, g), dtype)
+
+
 def test_ln_modulate_dispatch_and_backward(cuda):
     gen = torch.Generator(device=cuda).manual_seed(14)
     x = _randn(gen, 2, 256, 1024, dtype=torch.bfloat16, device=cuda).requires_grad_()
-    shift, scale = (_randn(gen, 2, 1024, dtype=torch.bfloat16, device=cuda) for _ in range(2))
-    before = lm.layernorm_modulate_cuda.launches
+    mod = _randn(gen, 2, 6 * 1024, dtype=torch.bfloat16, device=cuda).requires_grad_()
+    shift, scale = mod[:, :1024], mod[:, 1024:2048]
+    fwd, bwd = lm.layernorm_modulate_cuda.launches, lm.layernorm_modulate_bwd_cuda.launches
     out = lm.layernorm_modulate(x, shift, scale)
-    assert lm.layernorm_modulate_cuda.launches == before + 1
-    with pytest.raises(NotImplementedError, match="K4b"):
-        out.sum().backward()
+    g = _randn(gen, 2, 256, 1024, dtype=torch.bfloat16, device=cuda)
+    dx, dmod = torch.autograd.grad(out, (x, mod), g)
+    assert lm.layernorm_modulate_cuda.launches == fwd + 1
+    assert lm.layernorm_modulate_bwd_cuda.launches == bwd + 1
+    want = lm._bwd_math(x.detach(), scale.detach(), g)
+    assert torch.equal(dx, want[0]) or (dx.float() - want[0].float()).abs().max().item() <= 2e-2
+    assert dmod.dtype == torch.bfloat16 and (dmod[:, 2048:] == 0).all()
     # a shape the JAX package keeps off its kernel takes the plain path, and
     # its backward is autograd through it
     y = _randn(gen, 2, 7, 100, dtype=torch.float32, device=cuda).requires_grad_()
-    out = lm.layernorm_modulate(y, shift[:, :100].float(), scale[:, :100].float())
-    assert lm.layernorm_modulate_cuda.launches == before + 1
+    out = lm.layernorm_modulate(y, shift[:, :100].float().detach(), scale[:, :100].float().detach())
+    assert lm.layernorm_modulate_cuda.launches == fwd + 1
     out.sum().backward()
+    assert lm.layernorm_modulate_bwd_cuda.launches == bwd + 1
     assert torch.isfinite(y.grad).all()
 
 
@@ -278,3 +389,37 @@ def test_tiny_dit_on_card_matches_cpu(cuda):
     assert lm.layernorm_modulate_cuda.launches == k4 + 4
     # f32 on both sides, TF32 off: sums in another order through two blocks
     assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+def test_tiny_dit_train_gradients_on_card_match_cpu(cuda):
+    # f32, dropout off (the card's masks and the CPU's cannot match), ada_out
+    # filled: the train-loss gradient through K2, K3, K4f and K4b against the
+    # plain path on the CPU, each leaf within 1e-4 of its norm
+    from bsi_torch.core import BSI
+    from bsi_torch.models import DenoisingDiT
+    from bsi_torch.nn import FourierFeatures
+
+    torch.manual_seed(0)
+    kw = dict(data_shape=(32, 32, 3), patch_size=2, dim=128, depth=2, heads=2,
+              fourier_features=FourierFeatures(6, 8))
+    cpu = DenoisingDiT(device="cpu", **kw)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if ".ada_out." in name:
+                p.normal_(0.0, 0.02)
+    card = DenoisingDiT(device=cuda, **kw)
+    card.load_state_dict(cpu.state_dict())
+    algo = BSI(data_shape=(32, 32, 3), lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=50, preconditioning="edm")
+    gen = torch.Generator().manual_seed(2)
+    x = torch.rand(2, 32, 32, 3, generator=gen) * 2 - 1
+    t, eps = algo.train_noise(gen, x)
+    counts = (fap.flash_attention_fused_bwd_cuda.launches, lm.layernorm_modulate_bwd_cuda.launches)
+    grads = []
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        named = dict(model.named_parameters())
+        loss = algo._train_loss_on(model, x.to(dev), t.to(dev), eps.to(dev)).mean()
+        grads.append([g.cpu() for g in torch.autograd.grad(loss, list(named.values()))])
+    assert fap.flash_attention_fused_bwd_cuda.launches == counts[0] + 2
+    assert lm.layernorm_modulate_bwd_cuda.launches == counts[1] + 4
+    for (name, _), want, got in zip(cpu.named_parameters(), *grads):
+        assert (got - want).norm() <= 1e-4 * want.norm() + 1e-12, name

@@ -1,5 +1,5 @@
-"""K4f's plain version, the LayerNorm+modulate dispatch and the flax
-LayerNorm, against the JAX package on the CPU."""
+"""K4f's and K4b's plain versions, the LayerNorm+modulate dispatch and the
+flax LayerNorm, against the JAX package on the CPU."""
 
 import flax.linen as flax_nn
 import jax
@@ -56,6 +56,39 @@ def test_cpu_entry_value_and_gradient_match_jax_f64():
         npt.assert_allclose(ours.numpy(), np.asarray(want), atol=1e-10, rtol=0)
 
 
+@pytest.mark.parametrize("shape", [(4, 16, 128), (8, 8, 256)])
+def test_bwd_plain_matches_pallas_kernel_in_interpret_mode(shape):
+    # K4b's plain version against the TPU kernel in interpret mode, f32 on
+    # both sides, the sums in another order: 1e-5
+    x, _, scale = _inputs(shape, 5, np.float32)
+    g = np.random.default_rng(6).normal(size=shape).astype(np.float32)
+    want = jax_lm._bwd_pallas(*map(jnp.asarray, (x, scale, g)), interpret=True)
+    got = lm._bwd_math(*map(torch.from_numpy, (x, scale, g)))
+    for ours, ref in zip(got, want):
+        assert ours.dtype == torch.float32
+        npt.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+
+
+def test_bwd_plain_matches_jax_fallback_vjp_f64():
+    x, shift, scale = _inputs((3, 8, 128), 7)
+    g = np.random.default_rng(8).normal(size=x.shape)
+    _, vjp = jax.vjp(jax_lm.layernorm_modulate, *map(jnp.asarray, (x, shift, scale)))
+    got = lm._bwd_math(*map(torch.from_numpy, (x, scale, g)))
+    for ours, ref in zip(got, vjp(jnp.asarray(g))):
+        assert ours.dtype == torch.float64
+        npt.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-10, rtol=0)
+
+
+def test_bwd_plain_casts_as_the_tpu_kernel():
+    # dx in x's dtype, dshift and dscale in scale's
+    x, _, scale = _inputs((2, 8, 128), 9, np.float32)
+    g = np.random.default_rng(10).normal(size=x.shape).astype(np.float32)
+    xt, gt = torch.from_numpy(x).bfloat16(), torch.from_numpy(g).bfloat16()
+    dx, dshift, dscale = lm._bwd_math(xt, torch.from_numpy(scale).bfloat16(), gt)
+    assert dx.dtype == dshift.dtype == dscale.dtype == torch.bfloat16
+    assert dshift.shape == dscale.shape == (2, 128)
+
+
 def test_kernel_route_follows_the_jax_rule():
     assert lm._shape_applicable(256, 1024)  # DiT-L/2
     assert not lm._shape_applicable(256, 1000)  # lanes
@@ -68,6 +101,8 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     x = torch.zeros(1, 8, 128)
     with pytest.raises(ValueError, match="CUDA"):
         lm.layernorm_modulate_cuda(x, x[:, 0], x[:, 0])
+    with pytest.raises(ValueError, match="CUDA"):
+        lm.layernorm_modulate_bwd_cuda(x, x[:, 0], x)
 
 
 @pytest.mark.parametrize("dtype", [None, jnp.bfloat16])
