@@ -129,7 +129,9 @@ def train_state_from_jax(
     ``convert`` maps a parameter-shaped tree to named tensors
     (:func:`params_from_jax` for the flax models). The tensors go to
     ``device``, the card when ``None``. ``generator`` becomes the state's
-    generator; the JAX key does not carry over.
+    generator (its draws cannot be JAX's); the JAX key's words become the
+    state's ``dropout_seed``, so a run resumed from the same JAX state
+    replays the same masks.
     """
     device = resolve_device(device)
     adam = _find_adam_state(state.opt_state)
@@ -139,7 +141,17 @@ def train_state_from_jax(
     params = {k: v.requires_grad_() for k, v in tensors(state.params).items()}
     opt_state = AdamState(count=int(adam.count), mu=tensors(adam.mu), nu=tensors(adam.nu))
     return TrainState(step=int(state.step), params=params, ema_params=tensors(state.ema_params),
-                      opt_state=opt_state, generator=generator)
+                      opt_state=opt_state, generator=generator, dropout_seed=_key_seed(state.rng))
+
+
+def _key_seed(rng: Any) -> int:
+    """The words of a JAX PRNG key as one integer, without JAX: a typed key
+    array holds them in ``_base_array``, a raw ``uint32`` key is them."""
+    words = np.asarray(getattr(rng, "_base_array", rng)).astype(np.uint64).reshape(-1)
+    seed = 0
+    for word in words:
+        seed = (seed << 32) | int(word)
+    return seed
 
 
 def _find_adam_state(opt_state: Any):

@@ -7,8 +7,9 @@ JAX threads a key, and JAX's ``lax.scan`` over the schedule is a Python loop
 (eager PyTorch launches each step's kernels directly).
 
 Each random function is split into a part that draws and a part that takes
-the draws (``train_loss`` over ``_train_loss_on``, ``_sample_loop``), so the
-tests can feed JAX's own draws to the port. The ELBO is not ported yet.
+the draws (``train_loss`` over ``_train_loss_on``, ``elbo`` over
+``_elbo_on``, each loss part over its ``_..._on``, ``_sample_loop``), so
+the tests can feed JAX's own draws to the port.
 """
 
 from __future__ import annotations
@@ -19,9 +20,9 @@ from typing import Callable, Optional
 
 import torch
 
-from .common import ModelFn, broadcast_right, protect_const, resolve_device, sample_lds_t
+from .common import ModelFn, broadcast_right, mc_var, protect_const, resolve_device, sample_lds_t
 from .discretization import Discretization
-from .distributions import LogUniform
+from .distributions import LogUniform, discretized_normal_log_prob, normal_log_prob
 
 # Noise of one sampling step: step index -> standard normal of the sample shape.
 StepNoise = Callable[[int], torch.Tensor]
@@ -74,6 +75,122 @@ class BSI:
     def default_schedule(self, dtype=torch.float32, device=None) -> torch.Tensor:
         return torch.linspace(0.0, 1.0, self.k + 1, dtype=dtype, device=device)
 
+    # ------------------------------------------------------------------ ELBO
+
+    def elbo(self, model_fn: ModelFn, generator: torch.Generator, x: torch.Tensor,
+             n_recon_samples: int = 1, n_measure_samples: int = 1, *, estimate_var: bool = False):
+        """Monte Carlo estimate of the infinite-step ELBO.
+
+        Returns ``(elbo, bits_per_dim, extra)``, each per batch element;
+        ``extra`` carries the per-sample loss parts ``l_recon`` and
+        ``l_measure`` (and the estimator variance of the bpd, ``bpd_var``,
+        when ``estimate_var`` is set). ``generator`` lives on x's device.
+        """
+        draws = self.elbo_noise(generator, x, n_recon_samples, n_measure_samples)
+        return self._elbo_on(model_fn, x, *draws, estimate_var=estimate_var)
+
+    def elbo_noise(self, generator: torch.Generator, x: torch.Tensor, n_recon_samples: int = 1,
+                   n_measure_samples: int = 1):
+        """The draws of one ``elbo``: the reconstruction's standard normal
+        ``(n_recon, batch, *data)``, then the measurement's time quantiles
+        ``(n_measure, batch)`` and standard normal ``(n_measure, batch, *data)``."""
+        return (self._eps(generator, x, n_recon_samples),
+                *self._inf_measurement_noise(generator, x, n_measure_samples))
+
+    def _elbo_on(self, model_fn: ModelFn, x: torch.Tensor, recon_eps: torch.Tensor, t: torch.Tensor,
+                 measure_eps: torch.Tensor, *, estimate_var: bool = False):
+        """``elbo`` on given draws (:meth:`elbo_noise`'s)."""
+        l_recon = self._reconstruction_loss_on(model_fn, x, recon_eps)
+        l_measure = self._inf_measurement_loss_on(model_fn, x, t, measure_eps)
+        return self._assemble_elbo(l_recon, l_measure, recon_eps.shape[0], t.shape[0], estimate_var)
+
+    def finite_elbo(self, model_fn: ModelFn, generator: torch.Generator, x: torch.Tensor,
+                    n_recon_samples: int = 1, n_measure_samples: int = 1, *,
+                    t: Optional[torch.Tensor] = None, estimate_var: bool = False):
+        """Monte Carlo estimate of the finite-step ELBO for a step schedule
+        ``t`` (the default schedule when None); returns as :meth:`elbo`."""
+        l_recon = self.reconstruction_loss(model_fn, generator, x, n_recon_samples)
+        l_measure = self.finite_measurement_loss(model_fn, generator, x, n_measure_samples, t=t)
+        return self._assemble_elbo(l_recon, l_measure, n_recon_samples, n_measure_samples, estimate_var)
+
+    def _assemble_elbo(self, l_recon, l_measure, n_recon: int, n_measure: int, estimate_var: bool):
+        elbo = -(l_recon.mean(dim=0) + l_measure.mean(dim=0))
+        conversion_factor = -1.0 / (math.log(2.0) * self.n_dim)
+        bpd = conversion_factor * elbo
+        extra = {"l_recon": l_recon, "l_measure": l_measure}
+        if estimate_var:
+            if n_recon < 2 or n_measure < 2:
+                raise ValueError("Need at least two samples of each to estimate variance")
+            extra["bpd_var"] = conversion_factor**2 * (mc_var(l_recon, n_recon) + mc_var(l_measure, n_measure))
+        return elbo, bpd, extra
+
+    # ------------------------------------------------------------ loss parts
+
+    def reconstruction_loss(self, model_fn: ModelFn, generator: torch.Generator, x: torch.Tensor,
+                            n_samples: int = 1) -> torch.Tensor:
+        """Sampled negative reconstruction log-likelihood, ``(n_samples, batch)``.
+
+        The belief is pushed to full precision ``lambda_0 + alpha_M``, decoded
+        at t=1, and the data scored under a Normal(x_hat, 1/sqrt(alpha_R)),
+        discretized into bins when a discretization is configured.
+        """
+        return self._reconstruction_loss_on(model_fn, x, self._eps(generator, x, n_samples))
+
+    def _reconstruction_loss_on(self, model_fn: ModelFn, x: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+        n, batch = eps.shape[:2]
+        lambda_M = torch.full((n, batch), self.lambda_0 + self.alpha_M, dtype=x.dtype, device=x.device)
+        mu = self._q_mu_lambda(x, lambda_M, eps)
+        x_hat = self._predict_x_flat(model_fn, mu, protect_const(torch.ones_like(lambda_M)))
+        scale = torch.tensor(1.0 / math.sqrt(self.alpha_R), dtype=x.dtype, device=x.device)
+        if self.discretization is None:
+            log_p = normal_log_prob(x[None], x_hat, scale)
+        else:
+            log_p = discretized_normal_log_prob(x[None], x_hat, scale, self.discretization)
+        return -log_p.reshape(n, batch, -1).sum(-1)
+
+    def inf_measurement_loss(self, model_fn: ModelFn, generator: torch.Generator, x: torch.Tensor,
+                             n_samples: int = 1) -> torch.Tensor:
+        """Sampled measurement loss of the infinite-step ELBO, ``(n_samples,
+        batch)``, importance-sampled over ``lambda ~ p(lambda)``."""
+        return self._inf_measurement_loss_on(model_fn, x, *self._inf_measurement_noise(generator, x, n_samples))
+
+    def _inf_measurement_noise(self, generator: torch.Generator, x: torch.Tensor, n_samples: int):
+        t = self._quantiles(generator, x, n_samples)
+        return t, self._eps(generator, x, n_samples)
+
+    def _inf_measurement_loss_on(self, model_fn: ModelFn, x: torch.Tensor, t: torch.Tensor,
+                                 eps: torch.Tensor) -> torch.Tensor:
+        """The model sees ``p_lambda.cdf(p_lambda.icdf(t))``, as in ``train_loss``."""
+        n, batch = t.shape
+        lambda_ = self.p_lambda.icdf(t)
+        mu = self._q_mu_lambda(x, lambda_, eps)
+        x_hat = self._predict_x_flat(model_fn, mu, self.p_lambda.cdf(lambda_))
+        decoding_error = ((x[None] - x_hat) ** 2).reshape(n, batch, -1).sum(-1)
+        return 0.5 * self.p_lambda.reciprocal_pdf(lambda_) * decoding_error
+
+    def finite_measurement_loss(self, model_fn: ModelFn, generator: torch.Generator, x: torch.Tensor,
+                                n_samples: int = 1, *, t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Sampled measurement loss of the finite-step ELBO, ``(n_samples,
+        batch)``: a uniformly drawn step ``i`` of the schedule ``t`` per
+        sample."""
+        k = self.k if t is None else t.shape[0] - 1
+        self._check_generator(generator, x)
+        i = torch.randint(0, k, (n_samples, x.shape[0]), generator=generator, device=x.device)
+        return self._finite_measurement_loss_on(model_fn, x, i, self._eps(generator, x, n_samples), t=t)
+
+    def _finite_measurement_loss_on(self, model_fn: ModelFn, x: torch.Tensor, i: torch.Tensor,
+                                    eps: torch.Tensor, *, t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if t is None:
+            t = self.default_schedule(x.dtype, x.device)
+        t = t.to(device=x.device, dtype=x.dtype)
+        lambda_ = self.p_lambda.icdf(t)
+        alpha = torch.diff(lambda_)
+        n, batch = i.shape
+        mu = self._q_mu_lambda(x, lambda_[i], eps)
+        x_hat = self._predict_x_flat(model_fn, mu, t[i])
+        decoding_error = ((x[None] - x_hat) ** 2).reshape(n, batch, -1).sum(-1)
+        return (0.5 * alpha.shape[0]) * alpha[i] * decoding_error
+
     # ---------------------------------------------------------------- training
 
     def train_loss(self, model_fn: ModelFn, generator: torch.Generator, x: torch.Tensor) -> torch.Tensor:
@@ -89,12 +206,7 @@ class BSI:
     def train_noise(self, generator: torch.Generator, x: torch.Tensor):
         """The draws of one ``train_loss``: the time quantiles ``t`` [batch]
         and the standard normal ``eps`` of x's shape."""
-        if generator.device.type != x.device.type:
-            raise ValueError(f"generator lives on {generator.device}, x on {x.device}")
-        t = sample_lds_t(generator, 1, x.shape[0], low_discrepancy=self.low_discrepancy_sampling,
-                         dtype=x.dtype)[0]
-        eps = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
-        return t, eps
+        return self._quantiles(generator, x, 1)[0], self._eps(generator, x, 1)[0]
 
     def _train_loss_on(self, model_fn: ModelFn, x: torch.Tensor, t: torch.Tensor,
                        eps: torch.Tensor) -> torch.Tensor:
@@ -106,6 +218,21 @@ class BSI:
         x_hat = self._predict_x(model_fn, mu, self.p_lambda.cdf(lambda_))
         decoding_error = ((x - x_hat) ** 2).reshape(x.shape[0], -1).mean(-1)
         return self.p_lambda.reciprocal_pdf(lambda_) * decoding_error
+
+    def _check_generator(self, generator: torch.Generator, x: torch.Tensor) -> None:
+        if generator.device.type != x.device.type:
+            raise ValueError(f"generator lives on {generator.device}, x on {x.device}")
+
+    def _quantiles(self, generator: torch.Generator, x: torch.Tensor, n_samples: int) -> torch.Tensor:
+        """Time quantiles ``(n_samples, batch)`` in x's dtype."""
+        self._check_generator(generator, x)
+        return sample_lds_t(generator, n_samples, x.shape[0], low_discrepancy=self.low_discrepancy_sampling,
+                            dtype=x.dtype)
+
+    def _eps(self, generator: torch.Generator, x: torch.Tensor, n_samples: int) -> torch.Tensor:
+        """Standard normal of shape ``(n_samples, *x.shape)`` in x's dtype."""
+        self._check_generator(generator, x)
+        return torch.randn((n_samples,) + tuple(x.shape), generator=generator, dtype=x.dtype, device=x.device)
 
     def _sample_lambda(self, generator: torch.Generator, n_samples: int, batch_size: int,
                        dtype) -> torch.Tensor:
@@ -231,6 +358,12 @@ class BSI:
         return mu, ((mus, x_hats, ys) if with_history else None)
 
     # --------------------------------------------------------------- internals
+
+    def _predict_x_flat(self, model_fn: ModelFn, mu: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """``_predict_x`` over a ``(n_samples, batch, *data)`` tensor via one flat model call."""
+        n, b = mu.shape[:2]
+        out = self._predict_x(model_fn, mu.reshape((n * b,) + mu.shape[2:]), t.reshape(-1))
+        return out.reshape((n, b) + out.shape[1:])
 
     def _predict_x(self, model_fn: ModelFn, mu: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """Decode the belief mean into a data estimate, with optional preconditioning."""

@@ -5,26 +5,28 @@ Pallas kernels on a TPU for lane-aligned shapes and to plain XLA math
 elsewhere; the port routes CUDA tensors of the same shapes to its kernels
 and everything else to the same plain math:
 
-- ``[B, H, S, D]`` q, k, v (:func:`multi_head_attention`) to K1
-  (:func:`bsi_torch.ops.flash_attention.flash_attention`);
+- ``[B, H, S, D]`` q, k, v (:func:`multi_head_attention`) to
+  :func:`bsi_torch.ops.flash_attention.fused_attention`, the counterpart of
+  JAX's ``_fused_sdpa_fn``: K5f forward and K5b backward up to
+  ``MAX_FUSED_TRAIN_SEQ`` (and at any S with dropout), K1 forward and the
+  plain VJP backward above it;
 - the grouped qkv buffer ``[B, S, 3*H*D]``
   (:func:`multi_head_attention_fused_qkv`) to K2, and packed ``[B, S, H*D]``
   q, k, v (:func:`multi_head_attention_packed`) to K6f
-  (:mod:`bsi_torch.ops.flash_attention_packed`).
+  (:mod:`bsi_torch.ops.flash_attention_packed`), with K3 and K6b backward.
 
-On those shapes the backwards are kernels too (K3, K6b), and dropout runs
-inside the kernels: one int32 seed per (batch, head), drawn with
-``torch.randint`` from ``generator`` (the device's default one when None),
-from which the forward and the backward regenerate the same Philox keep
-mask. On the plain path dropout draws its keep mask with ``torch.rand``
-from ``generator``, as JAX's fallback draws it from its key.
+Dropout runs inside the kernels: one int32 seed per (batch, head), drawn
+with ``torch.randint`` from ``generator`` (the device's default one when
+None), from which the forward and the backward regenerate the same Philox
+keep mask. On the plain path dropout draws its keep mask with
+``torch.rand`` from ``generator``, as JAX's fallback draws it from its key.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .flash_attention import MAX_FUSED_TRAIN_SEQ, _xla_attention, flash_attention
+from .flash_attention import MAX_FUSED_TRAIN_SEQ, _xla_attention, fused_attention
 from .flash_attention_packed import (
     _merge_heads,
     _split_heads,
@@ -50,20 +52,17 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          dropout_rate: float = 0.0, generator: torch.Generator | None = None) -> torch.Tensor:
     """Scaled dot-product attention over ``[batch, heads, seq, head_dim]``.
 
-    Routes to K1 where the JAX package would route to its Pallas kernel,
-    otherwise to the plain path. With dropout, the JAX package's kernel for
-    sequences up to 512 (K5f) is not ported: a CUDA tensor of such a shape
-    raises; longer or unaligned ones take the plain path, as in JAX.
-    Differentiable.
+    Routes to :func:`~bsi_torch.ops.flash_attention.fused_attention` where
+    the JAX package routes to ``_fused_sdpa_fn``: a CUDA tensor of a shape
+    the kernels take, without dropout at any S and with dropout up to
+    ``MAX_FUSED_TRAIN_SEQ``; everything else takes the plain path, as in
+    JAX. Differentiable.
     """
-    if dropout_rate == 0.0:
-        if _kernel_applicable(q):
-            return flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
-        return _xla_attention(q, k, v)
-    if _kernel_applicable(q) and q.shape[-2] <= MAX_FUSED_TRAIN_SEQ:
-        raise NotImplementedError(
-            "attention dropout on CUDA tensors of this shape needs K5f "
-            "(flash_attention_dropout), which is not ported yet")
+    if _kernel_applicable(q) and (dropout_rate == 0.0 or q.shape[-2] <= MAX_FUSED_TRAIN_SEQ):
+        b, h = q.shape[:2]
+        seeds = _seeds(b, h, q.device, dropout_rate, generator)
+        return fused_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               None if seeds is None else seeds.reshape(-1), dropout_rate)
     return _xla_attention(q, k, v, dropout_rate=dropout_rate, generator=generator)
 
 

@@ -1,0 +1,78 @@
+// K5f: the whole-sequence attention forward over [B*H, S, D], with optional
+// attention dropout, on Hopper.
+//
+// Replaces the TPU kernel bsi_tpu/ops/flash_attention.py::
+// flash_attention_dropout (the pallas_call of `_attn_dropout_kernel`), which
+// the JAX package runs for every attention of S <= 512 (and for any S with
+// dropout) that its dispatch sends to a kernel: softmax(q k^T / sqrt(d))
+// [dropout] v for each (batch, head) slice of contiguous [B, H, S, D] q, k
+// and v, the keep mask drawn per slice from int32 seeds [B*H], no mask in
+// memory. The TPU kernel holds a whole [S, S] slice in VMEM and loops over
+// groups of slices; here [B*H, S, D] is K6f's packed layout with one head
+// per batch row (heads = 1, every row stride D), so K5f runs the device
+// code of K2 and K6f (packed_attention_fwd.cuh, whose note gives the bf16
+// and f32 designs) under its own entry and names. The keep mask of element
+// (i, j) of slice bh is the Philox bits of packed_attention_common.cuh
+// keyed by seeds[bh], so the backward (K5b, flash_attention_bwd.cu) and the
+// plain version (flash_attention_packed.py::_philox_keep_mask) regenerate
+// it.
+//
+// Grid: one block of 4 warps (bf16; 8 for f32) per (64 query rows, slice).
+// At the 16x16 UNet's sampling shape, [64, 1, 256, 128], that is 256 blocks
+// over 132 SMs; tiling the whole-sequence TPU grid by slice alone would give
+// 64 blocks and leave half the card idle.
+//
+// Bound on an H100 SXM at [64, 1, 256, 128] bf16: 16.8 MB of HBM traffic (q,
+// k, v read once, o written once), 5.0 us at 3.35 TB/s, against
+// 4*B*H*S^2*D = 2.15 GFLOP, 2.2 us at 989 TFLOP/s dense bf16: the bound is
+// bytes. In f32 (the eval model's) the same 2.15 GFLOP on the CUDA cores at
+// 67 TFLOP/s, 32 us, bound the time: operations. At these sizes one launch
+// (a few us) is as long as the bound. mma.sync, no cp.async/TMA pipeline.
+
+#include "packed_attention_fwd.cuh"
+
+namespace {
+
+using namespace bsi;
+
+template <int D>
+__global__ void __launch_bounds__(fwd::BF16_THREADS) bh_attn_fwd_bf16(const fwd::Args a) {
+  fwd::bf16_body<D>(a);
+}
+
+template <int D>
+__global__ void __launch_bounds__(fwd::F32_THREADS) bh_attn_fwd_f32(const fwd::Args a) {
+  fwd::f32_body<D>(a);
+}
+
+struct Kernels {
+  template <int D>
+  static auto bf16() { return bh_attn_fwd_bf16<D>; }
+  template <int D>
+  static auto f32() { return bh_attn_fwd_f32<D>; }
+};
+
+}  // namespace
+
+extern "C" {
+
+// q, k, v, o: contiguous [bh, seq, head_dim], 16-byte aligned, all bf16
+// (is_bf16 = 1) or all f32; head_dim 64, 128 or 256; any seq. scale is
+// 1/sqrt(head_dim) rounded to f32 by the caller. seeds: int32 [bh] for
+// dropout, or null for none; threshold = round(keep_prob * 2^32) capped at
+// 2^32 - 1, inv_keep = 1 / keep_prob (1 without dropout). Returns a
+// cudaError_t; 0 means launched.
+int bsi_flash_attention_dropout_fwd(const void* q, const void* k, const void* v, void* o, int bh,
+                                    int seq, int head_dim, int is_bf16, float scale,
+                                    const void* seeds, unsigned int threshold, float inv_keep,
+                                    void* stream) {
+  const fwd::Args a{q, k, v, o, seq, 1, 1, head_dim, head_dim, head_dim, scale,
+                    static_cast<const int*>(seeds), threshold, inv_keep};
+  return fwd::dispatch<Kernels>(head_dim, is_bf16, bh, a, static_cast<cudaStream_t>(stream));
+}
+
+const char* bsi_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

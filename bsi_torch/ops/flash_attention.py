@@ -1,17 +1,30 @@
-"""K1: fused no-dropout attention forward, a CUDA C++ kernel for Hopper.
+"""K1, K5f and K5b: attention over ``[batch, heads, seq, head_dim]``, CUDA C++
+kernels for Hopper, and the autograd function that dispatches between them.
 
-Counterpart of ``bsi_tpu/ops/flash_attention.py::flash_attention`` (the
-``pallas_call`` of ``_attn_kernel``). The kernel source is
-``csrc/flash_attention.cu``; its header note gives the design and the bound
-on an H100. ``_fwd_math`` is its plain PyTorch version: the CPU path and the
-reference on the card.
+Counterpart of ``bsi_tpu/ops/flash_attention.py``:
 
-The backward follows the JAX package's rule (``ops/attention.py``'s
-``fused_bwd``): above ``MAX_FUSED_TRAIN_SEQ`` it is the VJP of the plain
-attention ``_xla_attention``, the function JAX differentiates there (the
-scale and ``q * scale`` rounded to the input dtype, P V in the input dtype).
-At or below it JAX has a fused backward kernel (K5b, not yet ported); until
-it is, the port differentiates ``_fwd_math`` there.
+- K1 (:func:`flash_attention_cuda`, the ``pallas_call`` of ``_attn_kernel``):
+  the no-dropout forward, source ``csrc/flash_attention.cu``;
+- K5f (:func:`flash_attention_dropout_cuda`, ``_attn_dropout_kernel``): the
+  whole-sequence forward with optional dropout from one int32 seed per
+  (batch, head), source ``csrc/flash_attention_dropout.cu``;
+- K5b (:func:`flash_attention_bwd_cuda`, ``_attn_bwd_kernel``): its backward,
+  which regenerates K5f's keep mask from the same seeds, source
+  ``csrc/flash_attention_bwd.cu``.
+
+The sources' header notes give the designs and the bounds on an H100.
+``_fwd_math`` and ``_bwd_math`` are the plain PyTorch versions of the TPU
+kernels' functions of the same names, with an explicit keep mask: the CPU
+path and the reference on the card. The keep mask of K5f and K5b is
+:func:`bsi_torch.ops.dropout_mask._philox_keep_mask` of the seeds, flat
+``[B*H]`` as the JAX package's are: the bits K2 and K3 draw.
+
+:class:`_FusedAttention` is the counterpart of the JAX package's
+``_fused_sdpa_fn(rate)``: its forward is K5f when ``rate > 0`` or ``S <=
+MAX_FUSED_TRAIN_SEQ``, else K1; its backward is the VJP of the plain
+attention ``_xla_attention`` when ``rate == 0`` and ``S >
+MAX_FUSED_TRAIN_SEQ``, else K5b. On a CPU tensor each kernel's place is
+taken by its plain version.
 """
 
 from __future__ import annotations
@@ -22,11 +35,15 @@ import functools
 import torch
 
 from . import _build
+from .dropout_mask import _keeps, kernel_dropout_args
 
 SOURCE = "flash_attention.cu"
+DROPOUT_SOURCE = "flash_attention_dropout.cu"
+BWD_SOURCE = "flash_attention_bwd.cu"
 HEAD_DIMS = (64, 128, 256)
-# Longest sequence the JAX package's fused backward kernel takes; longer ones
-# take the VJP of the plain attention.
+# Longest sequence the JAX package's whole-sequence kernels (K5f, K5b) take
+# without dropout; longer ones run K1 forward and the VJP of the plain
+# attention backward.
 MAX_FUSED_TRAIN_SEQ = 512
 
 
@@ -53,34 +70,78 @@ def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, dropout
     return torch.matmul(probs, v)
 
 
-def _fwd_math(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """softmax(q k^T * scale) v over ``[..., S, D]``: f32 max-subtracted softmax,
-    probabilities cast to v's dtype, P V accumulated in f32. Returns f32."""
+def _softmax(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) over ``[..., S, D]``: f32 logits from q scaled
+    in f32, max-subtracted."""
     logits = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
     logits = logits - logits.amax(dim=-1, keepdim=True)
     unnorm = torch.exp(logits)
-    probs = unnorm / unnorm.sum(dim=-1, keepdim=True)
+    return unnorm / unnorm.sum(dim=-1, keepdim=True)
+
+
+def _fwd_math(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, keep=None,
+              keep_prob: float = 1.0) -> torch.Tensor:
+    """softmax(q k^T * scale) [dropout] v over ``[..., S, D]``, as the TPU
+    kernels' ``_fwd_math``: f32 max-subtracted softmax, the probabilities
+    (zeroed where the bool ``keep [..., S, S]`` is False and scaled by
+    ``1 / keep_prob``, when given) cast to v's dtype, P V accumulated in f32.
+    Returns f32."""
+    probs = _softmax(q, k, scale)
+    if keep is not None:
+        probs = torch.where(keep, probs / keep_prob, 0.0)
     return torch.matmul(probs.to(v.dtype).float(), v.float())
+
+
+def _bwd_math(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, scale: float,
+              keep=None, keep_prob: float = 1.0):
+    """The VJP of :func:`_fwd_math` with respect to q, k and v, recomputing
+    the softmax, as the TPU kernels' ``_bwd_math``: with P the softmax and Pd
+    its dropped, rescaled version, dV = Pd^T dO with Pd cast to the input
+    dtype; dP = keep * (dO V^T) / keep_prob; dS = P (dP - rowsum(dP P)) cast
+    to the input dtype; dQ = dS K * scale, dK = dS^T Q * scale. Products in
+    f32. Returns f32 dq, dk, dv."""
+    probs = _softmax(q, k, scale)
+    dropped = probs if keep is None else torch.where(keep, probs / keep_prob, 0.0)
+    do32 = do.float()
+    dv = torch.matmul(dropped.to(v.dtype).float().transpose(-1, -2), do32)
+    dp = torch.matmul(do32, v.float().transpose(-1, -2))
+    if keep is not None:
+        dp = torch.where(keep, dp / keep_prob, 0.0)
+    ds = (probs * (dp - (dp * probs).sum(dim=-1, keepdim=True))).to(v.dtype).float()
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return dq, dk, dv
 
 
 def _scale(q: torch.Tensor) -> float:
     return 1.0 / (q.shape[-1] ** 0.5)
 
 
+# ----------------------------------------------------------------- kernels
+
+
+def _check_cuda(name: str, tensors) -> tuple[int, int, int, int]:
+    """Raise unless every tensor is a contiguous CUDA ``[B, H, S, D]`` of one
+    shape and dtype (bf16 or f32) with D in ``HEAD_DIMS``. Returns the shape."""
+    first = tensors[0]
+    if not all(t.is_cuda and t.device == first.device for t in tensors):
+        raise ValueError(f"{name} needs its inputs on one CUDA device")
+    if first.dtype not in (torch.bfloat16, torch.float32) or any(t.dtype != first.dtype for t in tensors):
+        raise ValueError(f"{name} takes bf16 or f32, got {[t.dtype for t in tensors]}")
+    if first.ndim != 4 or any(t.shape != first.shape for t in tensors):
+        raise ValueError(f"{name} takes [B, H, S, D] inputs of one shape, got {[tuple(t.shape) for t in tensors]}")
+    b, h, seq, d = first.shape
+    if d not in HEAD_DIMS or seq < 1 or b * h < 1:
+        raise ValueError(f"{name} takes head_dim in {HEAD_DIMS}, got shape {tuple(first.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous inputs")
+    return b, h, seq, d
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Launch K1 on contiguous CUDA tensors ``[B, H, S, D]`` (bf16 or f32,
     D in ``HEAD_DIMS``, any S). Raises on anything else."""
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention_cuda needs q, k, v on one CUDA device")
-    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention_cuda takes bf16 or f32, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must share one [B, H, S, D] shape, got {q.shape}, {k.shape}, {v.shape}")
-    b, h, seq, d = q.shape
-    if d not in HEAD_DIMS or seq < 1 or b * h < 1:
-        raise ValueError(f"flash_attention_cuda takes head_dim in {HEAD_DIMS}, got shape {tuple(q.shape)}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention_cuda needs contiguous q, k, v")
+    b, h, seq, d = _check_cuda("flash_attention_cuda", (q, k, v))
     lib = _lib()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -97,6 +158,58 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
 flash_attention_cuda.launches = 0
 
 
+def flash_attention_dropout_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 seeds: torch.Tensor | None = None, rate: float = 0.0) -> torch.Tensor:
+    """Launch K5f on contiguous CUDA ``[B, H, S, D]`` q, k, v (bf16 or f32, D
+    in ``HEAD_DIMS``, any S), with dropout at ``rate`` from int32 ``seeds
+    [B*H]`` (ignored at rate 0). Returns ``[B, H, S, D]`` in q's dtype.
+    Raises on anything else."""
+    name = "flash_attention_dropout_cuda"
+    b, h, seq, d = _check_cuda(name, (q, k, v))
+    seed_ptr, threshold, inv_keep = kernel_dropout_args(name, seeds, rate, (b * h,), q.device)
+    lib = _dropout_lib()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.bsi_flash_attention_dropout_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, seq, d,
+            int(q.dtype == torch.bfloat16), _scale(q), seed_ptr, threshold, inv_keep, stream,
+        )
+    _build.check(lib, code, "flash_attention_dropout kernel")
+    flash_attention_dropout_cuda.launches += 1
+    return out
+
+
+flash_attention_dropout_cuda.launches = 0
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                             seeds: torch.Tensor | None = None, rate: float = 0.0):
+    """Launch K5b: the gradients dq, dk, dv ``[B, H, S, D]`` of K5f for the
+    output gradient ``do``, on contiguous CUDA tensors of one shape (bf16 or
+    f32, D in ``HEAD_DIMS``, any S), with K5f's ``seeds`` and ``rate``.
+    Raises on anything else."""
+    name = "flash_attention_bwd_cuda"
+    b, h, seq, d = _check_cuda(name, (q, k, v, do))
+    seed_ptr, threshold, inv_keep = kernel_dropout_args(name, seeds, rate, (b * h,), q.device)
+    lib = _bwd_lib()
+    grads = tuple(torch.empty_like(q) for _ in range(3))
+    stats = torch.empty(3 * b * h * seq, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.bsi_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *(g.data_ptr() for g in grads),
+            stats.data_ptr(), b * h, seq, d, int(q.dtype == torch.bfloat16), _scale(q), seed_ptr,
+            threshold, inv_keep, stream,
+        )
+    _build.check(lib, code, "flash_attention_bwd kernel")
+    flash_attention_bwd_cuda.launches += 1
+    return grads
+
+
+flash_attention_bwd_cuda.launches = 0
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
@@ -106,36 +219,104 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _forward(q, k, v):
+@functools.cache
+def _dropout_lib() -> ctypes.CDLL:
+    lib = _build.load(DROPOUT_SOURCE)
+    fn = lib.bsi_flash_attention_dropout_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load(BWD_SOURCE)
+    fn = lib.bsi_flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+# ----------------------------------------------------------------- entries
+
+
+def _no_path(name: str, device) -> ValueError:
+    return ValueError(f"{name} has no path for device {device}")
+
+
+def _keep(q: torch.Tensor, seeds, rate: float):
+    """The keep mask ``[B, H, S, S]`` of K5f's dropout from the flat seeds
+    ``[B*H]``, or None at rate 0."""
+    b, h, seq, _ = q.shape
+    return _keeps(None if seeds is None else seeds.reshape(b, h), seq, rate)
+
+
+def flash_attention_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            seeds: torch.Tensor | None = None, *, rate: float = 0.0) -> torch.Tensor:
+    """Whole-sequence attention over ``[B, H, S, D]`` with dropout at ``rate``
+    from int32 ``seeds [B*H]``. A CUDA tensor runs K5f (or raises where K5f
+    cannot take it); a CPU tensor runs the plain version with
+    ``_philox_keep_mask``'s mask."""
+    if q.device.type == "cpu":
+        return _fwd_math(q, k, v, _scale(q), _keep(q, seeds, rate), 1.0 - rate).to(q.dtype)
+    if q.device.type == "cuda":
+        return flash_attention_dropout_cuda(q, k, v, seeds, rate)
+    raise _no_path("flash_attention_dropout", q.device)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                        seeds: torch.Tensor | None = None, *, rate: float = 0.0):
+    """dq, dk, dv of :func:`flash_attention_dropout` for the output gradient
+    ``do``, in q's dtype. A CUDA tensor runs K5b; a CPU tensor the plain
+    version."""
+    if q.device.type == "cpu":
+        grads = _bwd_math(q, k, v, do, _scale(q), _keep(q, seeds, rate), 1.0 - rate)
+        return tuple(g.to(q.dtype) for g in grads)
+    if q.device.type == "cuda":
+        return flash_attention_bwd_cuda(q, k, v, do, seeds, rate)
+    raise _no_path("flash_attention_bwd", q.device)
+
+
+def _k1(q, k, v):
     if q.device.type == "cpu":
         return _fwd_math(q, k, v, _scale(q)).to(q.dtype)
     if q.device.type == "cuda":
         return flash_attention_cuda(q, k, v)
-    raise ValueError(f"flash_attention has no path for device {q.device}")
+    raise _no_path("flash_attention", q.device)
 
 
-class _FlashAttention(torch.autograd.Function):
+class _FusedAttention(torch.autograd.Function):
+    """The JAX package's ``_fused_sdpa_fn(rate)``: K5f or K1 forward, K5b or
+    the VJP of ``_xla_attention`` backward, by rate and S. ``seeds`` (int32
+    ``[B*H]``, or None at rate 0) are saved so that K5b regenerates K5f's
+    keep mask."""
+
     @staticmethod
-    def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v)
+    def forward(ctx, q, k, v, seeds, rate):
+        ctx.rate = rate
+        ctx.save_for_backward(q, k, v, seeds)
+        if rate > 0.0 or q.shape[-2] <= MAX_FUSED_TRAIN_SEQ:
+            return flash_attention_dropout(q, k, v, seeds, rate=rate)
+        return _k1(q, k, v)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-            if q.shape[-2] > MAX_FUSED_TRAIN_SEQ:
-                out = _xla_attention(*leaves)
-            else:
-                out = _fwd_math(*leaves, _scale(q)).to(q.dtype)
-            return torch.autograd.grad(out, leaves, g)
+        q, k, v, seeds = ctx.saved_tensors
+        if ctx.rate == 0.0 and q.shape[-2] > MAX_FUSED_TRAIN_SEQ:
+            with torch.enable_grad():
+                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                grads = torch.autograd.grad(_xla_attention(*leaves), leaves, g)
+        else:
+            grads = flash_attention_bwd(q, k, v, g.contiguous(), seeds, rate=ctx.rate)
+        return (*grads, None, None)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Fused no-dropout self-attention over ``[batch, heads, seq, head_dim]``.
-
-    A CUDA tensor runs K1 (or raises where K1 cannot take it); a CPU tensor
-    runs the plain version. Differentiable.
-    """
-    return _FlashAttention.apply(q, k, v)
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seeds: torch.Tensor | None = None,
+                    rate: float = 0.0) -> torch.Tensor:
+    """Differentiable fused attention over contiguous ``[B, H, S, D]``, with
+    dropout at ``rate`` from int32 ``seeds [B*H]``: :class:`_FusedAttention`.
+    A CUDA tensor runs the kernels (or raises where they cannot take it); a
+    CPU tensor runs their plain versions."""
+    return _FusedAttention.apply(q, k, v, seeds, float(rate))

@@ -18,10 +18,7 @@ the designs and the bounds on an H100.
 
 Attention dropout follows the TPU kernels: one int32 seed per (batch, head)
 (:func:`draw_seeds`), from which every kernel regenerates the same keep mask,
-so the backward needs no mask in memory. The bits come from a counter-based
-Philox4x32-10 instead of the TPU's generator; :func:`_philox_keep_mask` is
-its plain PyTorch twin, bit for bit (``csrc/packed_attention_common.cuh``
-states the mapping from an element to its bits).
+so the backward needs no mask in memory (:mod:`bsi_torch.ops.dropout_mask`).
 
 ``_packed_fwd_math`` and ``_packed_bwd_math`` are the plain PyTorch versions
 of the kernels' per-head math (the TPU kernel's functions of the same
@@ -38,15 +35,20 @@ import functools
 import torch
 
 from . import _build
-from .flash_attention import MAX_FUSED_TRAIN_SEQ
+from .dropout_mask import (  # noqa: F401 (_philox4x32_10, keep_threshold: re-exported)
+    _keeps,
+    _philox4x32_10,
+    _philox_keep_mask,
+    draw_seeds,
+    keep_threshold,
+    kernel_dropout_args,
+)
+from .flash_attention import MAX_FUSED_TRAIN_SEQ, _no_path
 
 LANE = 128
 SOURCE = "flash_attention_packed.cu"
 BWD_SOURCE = "flash_attention_packed_bwd.cu"
 HEAD_DIMS = (64, 128, 256)
-# The backward's dkv kernel holds two [16, D] f32 accumulators a warp in
-# registers, which at D = 256 do not fit.
-BWD_HEAD_DIMS = (64, 128)
 
 
 def qkv_heads_per_group(head_dim: int, heads: int) -> int:
@@ -106,80 +108,6 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     # [B, H, S, D] -> [B, S, H*D]
     b, h, s, d = x.shape
     return x.permute(0, 2, 1, 3).reshape(b, s, h * d)
-
-
-# ------------------------------------------------------------ dropout mask
-
-_U32 = 0xFFFFFFFF
-_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
-_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-
-
-def _mulhilo(m: int, x: torch.Tensor):
-    """High and low 32 bits of ``m * x`` for 32-bit ``m`` and int64 ``x``
-    holding 32-bit values, in int64 without overflow (x in 16-bit halves)."""
-    a = m * (x & 0xFFFF)
-    b = m * (x >> 16)
-    t = a + ((b & 0xFFFF) << 16)
-    return (b >> 16) + (t >> 32), t & _U32
-
-
-def _philox4x32_10(c0, c1, c2, c3, k0, k1):
-    """Philox4x32-10 on int64 tensors holding 32-bit values (broadcasting)."""
-    for round_ in range(10):
-        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
-        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-        if round_ < 9:
-            k0 = (k0 + _PHILOX_W[0]) & _U32
-            k1 = (k1 + _PHILOX_W[1]) & _U32
-    return c0, c1, c2, c3
-
-
-def keep_threshold(keep_prob: float) -> int:
-    """The 32-bit threshold below which a draw keeps its element, as the TPU
-    kernels' ``_keep_mask`` has it."""
-    return min(int(round(keep_prob * 4294967296.0)), _U32)
-
-
-def _philox_keep_mask(seeds: torch.Tensor, seq: int, keep_prob: float, *, chunk: int = 64) -> torch.Tensor:
-    """The kernels' keep mask, bool ``[B, H, S, S]`` on ``seeds``' device,
-    from int32 ``seeds [B, H]``: element (b, h, i, j) is kept where word
-    ``2 * ((i >> 3) & 1) + (j & 1)`` of Philox4x32-10 with counter
-    ``(j >> 1, i & ~8, 0, 0)`` and key ``(seeds[b, h], 0)`` lies below
-    :func:`keep_threshold`. Computed ``chunk`` heads at a time, in int64."""
-    dev = seeds.device
-    flat = seeds.reshape(-1).to(torch.int64) & _U32
-    i = torch.arange(seq, device=dev, dtype=torch.int64)
-    c1 = (i & ~8)[None, :, None]
-    c0 = torch.arange((seq + 1) // 2, device=dev, dtype=torch.int64)[None, None, :]
-    upper = ((i >> 3) & 1).bool()[None, :, None]
-    threshold = keep_threshold(keep_prob)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    out = []
-    for start in range(0, flat.numel(), chunk):
-        key = flat[start:start + chunk, None, None]
-        w0, w1, w2, w3 = _philox4x32_10(c0, c1, zero, zero, key, zero)
-        even = torch.where(upper, w2, w0)  # column j even
-        odd = torch.where(upper, w3, w1)
-        bits = torch.stack([even, odd], dim=-1).reshape(key.shape[0], seq, -1)[..., :seq]
-        out.append(bits < threshold)
-    return torch.cat(out).reshape(*seeds.shape, seq, seq)
-
-
-def draw_seeds(batch: int, heads: int, device, generator: torch.Generator | None = None) -> torch.Tensor:
-    """One int32 dropout seed per (batch, head), ``[batch, heads]``, as the
-    JAX package draws them (``randint(0, 2**31 - 1)``), from ``generator``
-    (the device's default one when None)."""
-    return torch.randint(0, 2**31 - 1, (batch, heads), dtype=torch.int32, device=device, generator=generator)
-
-
-def _keeps(seeds, seq: int, rate: float):
-    if rate == 0.0:
-        return None
-    if seeds is None:
-        raise ValueError("attention dropout needs seeds")
-    return _philox_keep_mask(seeds, seq, 1.0 - rate)
 
 
 # -------------------------------------------------------------- plain math
@@ -264,10 +192,10 @@ def _packed_heads_bwd_math(q, k, v, do, heads: int, keeps=None, keep_prob: float
 # ----------------------------------------------------------------- kernels
 
 
-def _check_cuda(name: str, tensors, heads: int, width: int, head_dims=HEAD_DIMS) -> int:
+def _check_cuda(name: str, tensors, heads: int, width: int) -> int:
     """Raise unless every tensor is a contiguous, 16-byte aligned CUDA
     ``[B, S, width * H * D]`` of one shape and dtype (bf16 or f32) with D in
-    ``head_dims``. Returns the head dim."""
+    ``HEAD_DIMS``. Returns the head dim."""
     first = tensors[0]
     if not all(t.is_cuda and t.device == first.device for t in tensors):
         raise ValueError(f"{name} needs its inputs on one CUDA device")
@@ -279,8 +207,8 @@ def _check_cuda(name: str, tensors, heads: int, width: int, head_dims=HEAD_DIMS)
     if heads <= 0 or feat % width or (feat // width) % heads:
         raise ValueError(f"{name}: feature dim {feat} does not hold {heads} whole heads")
     head_dim = feat // width // heads
-    if head_dim not in head_dims or seq < 1 or b < 1 or b * heads > 65535:
-        raise ValueError(f"{name} takes head_dim in {head_dims} and B*H <= 65535, "
+    if head_dim not in HEAD_DIMS or seq < 1 or b < 1 or b * heads > 65535:
+        raise ValueError(f"{name} takes head_dim in {HEAD_DIMS} and B*H <= 65535, "
                          f"got {tuple(first.shape)} with {heads} heads")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
         raise ValueError(f"{name} needs contiguous, 16-byte aligned inputs")
@@ -295,23 +223,9 @@ def _check_do(name: str, do: torch.Tensor, like: torch.Tensor, width: int) -> No
                          f"{like.dtype} on {like.device}, got {tuple(do.shape)} {do.dtype} on {do.device}")
 
 
-def _dropout_args(name: str, seeds, rate: float, batch: int, heads: int, device):
-    """(seeds pointer, threshold, 1 / keep_prob) for the kernels: no seeds
-    and keep_prob 1 at rate 0."""
-    if not 0.0 <= rate < 1.0:
-        raise ValueError(f"{name}: dropout rate {rate} not in [0, 1)")
-    if rate == 0.0:
-        return None, _U32, 1.0
-    if (seeds is None or seeds.dtype != torch.int32 or seeds.shape != (batch, heads)
-            or seeds.device != device or not seeds.is_contiguous()):
-        raise ValueError(f"{name}: dropout needs contiguous int32 seeds of shape {(batch, heads)} on {device}")
-    keep = 1.0 - rate
-    return seeds.data_ptr(), keep_threshold(keep), 1.0 / keep
-
-
 def _launch(q_ptr, k_ptr, v_ptr, out, batch, seq, heads, head_dim, hpg, group_stride, in_ld, seeds,
             rate, what):
-    seed_ptr, threshold, inv_keep = _dropout_args(what, seeds, rate, batch, heads, out.device)
+    seed_ptr, threshold, inv_keep = kernel_dropout_args(what, seeds, rate, (batch, heads), out.device)
     lib = _lib()
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
@@ -362,7 +276,7 @@ flash_attention_packed_cuda.launches = 0
 
 def _launch_bwd(ptrs, grads, do, batch, seq, heads, head_dim, hpg, group_stride, in_ld, seeds, rate,
                 what):
-    seed_ptr, threshold, inv_keep = _dropout_args(what, seeds, rate, batch, heads, do.device)
+    seed_ptr, threshold, inv_keep = kernel_dropout_args(what, seeds, rate, (batch, heads), do.device)
     stats = torch.empty(3 * batch * heads * seq, dtype=torch.float32, device=do.device)
     lib = _bwd_lib()
     with torch.cuda.device(do.device):
@@ -379,11 +293,11 @@ def flash_attention_fused_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, heads: i
                                    seeds: torch.Tensor | None = None, rate: float = 0.0) -> torch.Tensor:
     """Launch K3: the grouped qkv buffer ``[B, S, 3*H*D]`` and the output
     gradient dO ``[B, S, H*D]`` (contiguous CUDA, bf16 or f32, D in
-    ``BWD_HEAD_DIMS``, any S), with the forward's ``seeds`` and ``rate``.
+    ``HEAD_DIMS``, any S), with the forward's ``seeds`` and ``rate``.
     Returns the fused dqkv ``[B, S, 3*H*D]`` in the grouped layout, written
     by the kernel in place. Raises on anything else."""
     name = "flash_attention_fused_bwd_cuda"
-    head_dim = _check_cuda(name, (qkv,), heads, 3, BWD_HEAD_DIMS)
+    head_dim = _check_cuda(name, (qkv,), heads, 3)
     _check_do(name, do, qkv, 3)
     b, seq, three_hd = qkv.shape
     hpg = qkv_heads_per_group(head_dim, heads)
@@ -402,9 +316,9 @@ flash_attention_fused_bwd_cuda.launches = 0
 def flash_attention_packed_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
                                     heads: int, seeds: torch.Tensor | None = None, rate: float = 0.0):
     """Launch K6b on contiguous CUDA ``[B, S, H*D]`` q, k, v and dO (bf16 or
-    f32, D in ``BWD_HEAD_DIMS``, any S), dropout as K3's. Returns dq, dk,
+    f32, D in ``HEAD_DIMS``, any S), dropout as K3's. Returns dq, dk,
     dv ``[B, S, H*D]``. Raises on anything else."""
-    head_dim = _check_cuda("flash_attention_packed_bwd_cuda", (q, k, v, do), heads, 1, BWD_HEAD_DIMS)
+    head_dim = _check_cuda("flash_attention_packed_bwd_cuda", (q, k, v, do), heads, 1)
     b, seq, hd = q.shape
     grads = tuple(torch.empty_like(q) for _ in range(3))
     _launch_bwd((q.data_ptr(), k.data_ptr(), v.data_ptr()), tuple(g.data_ptr() for g in grads), do,
@@ -439,10 +353,6 @@ def _bwd_lib() -> ctypes.CDLL:
 
 
 # ------------------------------------------------------------------ entries
-
-
-def _no_path(name: str, device) -> ValueError:
-    return ValueError(f"{name} has no path for device {device}")
 
 
 def flash_attention_fused(qkv: torch.Tensor, *, heads: int, seeds: torch.Tensor | None = None,

@@ -1,11 +1,13 @@
 """Where the time of one BSI sampling step goes on the card.
 
-    python -m bsi_torch.profile_sampling [--model unet|dit] [--batch 64] [--steps 3] [--out FILE]
+    python -m bsi_torch.profile_sampling [--model unet|dit] [--image-size 32|16] [--batch 64] [--steps 3] [--out FILE]
 
 Builds the full-width model (bf16, random weights from a seed): the
 CIFAR-10 VDM-UNet, or with ``--model dit`` DiT-L/2 at 32x32 (patch 2, dim
 1024, depth 24, 16 heads, Fourier features 6..8, ``ada_out`` filled with
-normals of std 0.02 so the blocks are not the identity), times ``--steps``
+normals of std 0.02 so the blocks are not the identity), on
+``--image-size`` square images (16 runs the UNet's attention over 256
+pixels, through K5f instead of K1), times ``--steps``
 preconditioned decodes as the k=128 sampler runs them, once with host clocks
 around synchronised steps and once under ``torch.profiler``, and prints:
 wall ms per step, device-busy ms per step (kernel time summed), the device's
@@ -34,6 +36,10 @@ DIT_L2 = dict(data_shape=(32, 32, 3), patch_size=2, dim=1024, depth=24, heads=16
 
 
 def _kind(name: str) -> str:
+    if "bh_attn_fwd" in name:
+        return "K5f flash_attention_dropout"
+    if "bh_attn_bwd" in name:
+        return "K5b flash_attention_bwd"
     if "packed_attn_fwd" in name:
         return "K2 fused-qkv attention"
     if "packed_attn_bwd" in name:
@@ -146,17 +152,19 @@ def fill_ada_out(model: torch.nn.Module, generator: torch.Generator, std: float 
                 param.copy_(torch.randn(param.shape, generator=generator, device=generator.device) * std)
 
 
-def build_model(name: str, device, dtype=torch.bfloat16, seed: int = 0) -> torch.nn.Module:
-    """The full-width sampling model ``name`` ("unet" or "dit") with random
-    weights from ``seed``, in eval mode."""
+def build_model(name: str, device, dtype=torch.bfloat16, seed: int = 0, image_size: int = 32) -> torch.nn.Module:
+    """The full-width sampling model ``name`` ("unet" or "dit") on
+    ``image_size`` square RGB images, with random weights from ``seed``, in
+    eval mode."""
     torch.manual_seed(seed)
     ff = FourierFeatures(6, 8)
+    shape = (image_size, image_size, 3)
     if name == "unet":
         return DenoisingVDMUNet(
-            (32, 32, 3), NyquistPositionalEmbedding(32, 100), dim=128, levels=32, pos_emb_mult=4,
+            shape, NyquistPositionalEmbedding(32, 100), dim=128, levels=32, pos_emb_mult=4,
             n_attention_heads=1, fourier_features=ff, dtype=dtype, device=device,
         ).eval()
-    model = DenoisingDiT(fourier_features=ff, dtype=dtype, device=device, **DIT_L2).eval()
+    model = DenoisingDiT(fourier_features=ff, dtype=dtype, device=device, **{**DIT_L2, "data_shape": shape}).eval()
     fill_ada_out(model, torch.Generator(device=device).manual_seed(seed))
     return model
 
@@ -164,6 +172,7 @@ def build_model(name: str, device, dtype=torch.bfloat16, seed: int = 0) -> torch
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--model", choices=("unet", "dit"), default="unet")
+    parser.add_argument("--image-size", type=int, choices=(32, 16), default=32)
     parser.add_argument("--batch", type=int, default=64)
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--seed", type=int, default=0)
@@ -172,10 +181,11 @@ def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_sampling needs a CUDA device")
     dev = torch.device("cuda")
-    model = build_model(args.model, dev, seed=args.seed)
-    algo = BSI(data_shape=(32, 32, 3), lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=128)
+    shape = (args.image_size, args.image_size, 3)
+    model = build_model(args.model, dev, seed=args.seed, image_size=args.image_size)
+    algo = BSI(data_shape=shape, lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=128)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    mu = torch.randn((args.batch, 32, 32, 3), generator=gen, device=dev)
+    mu = torch.randn((args.batch,) + shape, generator=gen, device=dev)
     t = torch.full((args.batch,), 0.5, device=dev)
 
     def step():
@@ -198,7 +208,7 @@ def main(argv=None) -> dict:
                 step()
             torch.cuda.synchronize()
 
-    result = {"model": args.model, "batch": args.batch, **summarize(prof, args.steps, statistics.median(wall), flops)}
+    result = {"model": args.model, "image_size": args.image_size, "batch": args.batch, **summarize(prof, args.steps, statistics.median(wall), flops)}
     print(json.dumps(result, indent=1))
     if args.out:
         with open(args.out, "w") as f:

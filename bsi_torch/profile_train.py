@@ -1,6 +1,6 @@
 """Where the time of one train step goes on the card.
 
-    python -m bsi_torch.profile_train [--model unet|dit] [--batch N] [--steps 3] [--out FILE]
+    python -m bsi_torch.profile_train [--model unet|dit] [--image-size 32|16] [--batch N] [--steps 3] [--out FILE]
 
 Builds the JAX package's train bench (``scripts/bench_train.py::build``) for
 ``--model``, with random weights and synthetic 8-bit images from a seed:
@@ -13,7 +13,9 @@ Builds the JAX package's train bench (``scripts/bench_train.py::build``) for
   block's ``ada_out`` filled with normals of std 0.02 so the blocks are not
   the identity;
 
-both bf16 compute on f32 parameters, BSI with EDM preconditioning (lambda_0
+both bf16 compute on f32 parameters, on ``--image-size`` square images (16
+runs the UNet's attention over 256 pixels, through K5f and K5b), BSI with
+EDM preconditioning (lambda_0
 1e-2, alpha_M 1e6, alpha_R 2e6, k=50), warmup 100 and a cosine to 1e6
 steps, clip 1.0, EMA after step 1000. Times ``--steps`` train steps with
 host clocks around synchronised steps, then profiles as many under
@@ -48,25 +50,27 @@ from bsi_torch.train import (
 )
 
 
-def build(name: str, device, seed: int = 0):
-    """The train bench of ``name`` ("unet" or "dit"): ``(model, algorithm,
-    optimizer, EMA config, default batch)``, the model in train mode with
-    random weights from ``seed``."""
+def build(name: str, device, seed: int = 0, image_size: int = 32):
+    """The train bench of ``name`` ("unet" or "dit") on ``image_size`` square
+    images: ``(model, algorithm, optimizer, EMA config, default batch)``, the
+    model in train mode with random weights from ``seed``."""
     torch.manual_seed(seed)
     ff = FourierFeatures(6, 8)
+    shape = (image_size, image_size, 3)
     if name == "unet":
         model = DenoisingVDMUNet(
-            (32, 32, 3), NyquistPositionalEmbedding(32, 100), dim=128, levels=32, pos_emb_mult=4,
+            shape, NyquistPositionalEmbedding(32, 100), dim=128, levels=32, pos_emb_mult=4,
             n_attention_heads=1, dropout=0.1, fourier_features=ff, dtype=torch.bfloat16, device=device,
         )
         lr, cast, batch = 2e-4, {}, 128
     elif name == "dit":
-        model = DenoisingDiT(fourier_features=ff, dropout=0.05, dtype=torch.bfloat16, device=device, **DIT_L2)
+        model = DenoisingDiT(fourier_features=ff, dropout=0.05, dtype=torch.bfloat16, device=device,
+                             **{**DIT_L2, "data_shape": shape})
         fill_ada_out(model, torch.Generator(device=device).manual_seed(seed))
         lr, cast, batch = 5e-4, dict(mu_dtype="bfloat16", nu_dtype="bfloat16"), 64
     else:
         raise ValueError(f"unknown model {name!r}")
-    algo = BSI(data_shape=(32, 32, 3), lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=50, preconditioning="edm")
+    algo = BSI(data_shape=shape, lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=50, preconditioning="edm")
     tx = make_optimizer(warmup_cosine_schedule(lr, warmup_steps=100, max_steps=10**6), **cast)
     return model.train(), algo, tx, EMAConfig(update_after_step=1000), batch
 
@@ -74,6 +78,7 @@ def build(name: str, device, seed: int = 0):
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--model", choices=("unet", "dit"), default="unet")
+    parser.add_argument("--image-size", type=int, choices=(32, 16), default=32)
     parser.add_argument("--batch", type=int, default=None)
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--seed", type=int, default=0)
@@ -82,14 +87,15 @@ def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
     dev = torch.device("cuda")
-    model, algo, tx, ema, batch_size = build(args.model, dev, args.seed)
+    model, algo, tx, ema, batch_size = build(args.model, dev, args.seed, args.image_size)
     batch_size = args.batch or batch_size
     params = dict(model.named_parameters())
     state = TrainState.create(params=params, opt_state=tx.init(params),
                               generator=torch.Generator(device=dev).manual_seed(args.seed + 1))
     train_step = make_train_step(algo, module_apply(model), tx, ema)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    batch = torch.randint(0, 256, (batch_size, 32, 32, 3), generator=gen, device=dev) / 255.0 * 2.0 - 1.0
+    batch = torch.randint(0, 256, (batch_size, args.image_size, args.image_size, 3), generator=gen,
+                          device=dev) / 255.0 * 2.0 - 1.0
 
     def step():
         nonlocal state
@@ -114,7 +120,7 @@ def main(argv=None) -> dict:
         for _ in range(args.steps):
             step()
         torch.cuda.synchronize()
-    result = {"model": args.model, "batch": batch_size, "wall_ms_per_step_runs": wall,
+    result = {"model": args.model, "image_size": args.image_size, "batch": batch_size, "wall_ms_per_step_runs": wall,
               **summarize(prof, args.steps, statistics.median(wall), flops)}
     print(json.dumps(result, indent=1))
     if args.out:

@@ -1,20 +1,29 @@
-"""The train step: loss -> grads -> clip/AdamW -> EMA -> switch-EMA.
+"""The train step (loss -> grads -> clip/AdamW -> EMA -> switch-EMA), the
+ELBO eval step and the sampling function.
 
-Counterpart of ``bsi_tpu/train/step.py::make_train_step`` with
-``accum_steps=1``. The JAX step is one jitted program over an immutable
-state; this one runs eagerly and updates the state's tensors in place.
+Counterpart of ``bsi_tpu/train/step.py``: ``make_train_step`` with
+``accum_steps=1``, ``make_eval_step`` and ``make_sample_fn``. The JAX step is
+one jitted program over an immutable state; this one runs eagerly and
+updates the state's tensors in place.
 
 ``model_apply(params, mu, t)`` binds a parameter dict to a network, as the
 JAX package's ``model_apply`` does; :func:`module_apply` makes one from an
 ``nn.Module`` with ``torch.func.functional_call``, so a bf16 training model
 and an f32 eval model can run on the same f32 parameters (the precision
-split of ``bsi_tpu/tasks/task.py``). Dropout is the module's
-``nn.Dropout`` in ``train()`` mode, drawing from PyTorch's default generator
-of the device; the algorithm's noise comes from the state's generator.
+split of ``bsi_tpu/tasks/task.py``).
+
+Dropout, the modules' ``nn.Dropout`` in ``train()`` mode and the attention
+kernels' seeds, draws from the device's default generator. The train step
+reseeds that generator for its forward from the state's ``dropout_seed``
+and its step, as JAX folds the step into ``state.rng``, inside
+``torch.random.fork_rng``, which restores the generator's stream after: the
+masks of a step are a function of the state, and the caller's own draws are
+untouched. The algorithm's noise comes from the state's generator.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
@@ -27,6 +36,36 @@ from .state import TrainState
 ModelApply = Callable[[dict, torch.Tensor, torch.Tensor], torch.Tensor]
 # Noise of one step: (step, batch) -> (t [batch], eps of the batch's shape).
 StepNoise = Callable[[int, torch.Tensor], tuple]
+# Draws of one eval step: batch -> BSI.elbo_noise's (recon eps, t, measure eps).
+EvalNoise = Callable[[torch.Tensor], tuple]
+
+_MASK64 = (1 << 64) - 1
+
+
+def _mix64(z: int) -> int:
+    """The splitmix64 finaliser: a bijection of 64-bit integers."""
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def step_seed(dropout_seed: int, step: int) -> int:
+    """The 64-bit seed of step ``step``'s dropout draws under a state's
+    ``dropout_seed``: distinct steps and distinct seeds give distinct seeds."""
+    return _mix64((_mix64(dropout_seed & _MASK64) + step) & _MASK64)
+
+
+@contextlib.contextmanager
+def _dropout_rng(device: torch.device, seed: int):
+    """Seeds the default generator of ``device`` with ``seed`` for the body of
+    the ``with``, and restores its stream (and the CPU's) after."""
+    index = None
+    if device.type == "cuda":
+        index = torch.cuda.current_device() if device.index is None else device.index
+    with torch.random.fork_rng(devices=[] if index is None else [index]):
+        generator = torch.default_generator if index is None else torch.cuda.default_generators[index]
+        generator.manual_seed(seed)
+        yield
 
 
 def module_apply(module: nn.Module, *, train: bool = True) -> ModelApply:
@@ -54,7 +93,8 @@ def make_train_step(
     ``train/loss`` (the batch mean) and ``train/grad_norm`` (the global norm
     of the unclipped gradients), both 0-d tensors on the device. The noise
     of step ``n`` comes from ``state.generator`` unless ``noise`` is given,
-    which the tests use to feed the JAX package's draws.
+    which the tests use to feed the JAX package's draws; its dropout masks
+    from (``state.dropout_seed``, ``n``).
     """
 
     def train_step(state: TrainState, batch: torch.Tensor):
@@ -63,7 +103,8 @@ def make_train_step(
         else:
             t, eps = noise(state.step, batch)
         model_fn = lambda mu, tt: model_apply(state.params, mu, tt)
-        loss = algorithm._train_loss_on(model_fn, batch, t, eps).mean()
+        with _dropout_rng(batch.device, step_seed(state.dropout_seed, state.step)):
+            loss = algorithm._train_loss_on(model_fn, batch, t, eps).mean()
         grads = torch.autograd.grad(loss, list(state.params.values()))
         norm = global_norm(grads)
         tx.update(grads, state.opt_state, state.params, grad_norm=norm)
@@ -73,3 +114,59 @@ def make_train_step(
         return state, {"train/loss": loss.detach(), "train/grad_norm": norm}
 
     return train_step
+
+
+def make_eval_step(
+    algorithm,
+    model_apply: ModelApply,
+    *,
+    n_recon_samples: int = 1,
+    n_measure_samples: int = 1,
+    use_ema: bool = True,
+    noise: Optional[EvalNoise] = None,
+):
+    """Build ``eval_step(state, batch, mask, generator) -> metrics``: masked
+    ELBO sums over the batch.
+
+    ``metrics`` holds 0-d tensors ``elbo_sum``, ``bpd_sum``, ``count`` (the
+    mask's sum) and ``part_sum/l_recon``, ``part_sum/l_measure`` (each part's
+    per-example mean over its samples, summed), so that a caller aggregates
+    exactly over a ragged last batch: pad it and zero its mask. The model
+    sees the EMA parameters unless ``use_ema`` is False, and should be in
+    eval mode (``module_apply(model, train=False)``). The draws come from
+    ``generator`` (on the batch's device) unless ``noise`` is given, which
+    the tests use to feed the JAX package's draws.
+    """
+
+    def eval_step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> dict:
+        params = state.ema_params if use_ema else state.params
+        model_fn = lambda mu, t: model_apply(params, mu, t)
+        with torch.inference_mode():
+            if noise is None:
+                draws = algorithm.elbo_noise(generator, batch, n_recon_samples, n_measure_samples)
+            else:
+                draws = noise(batch)
+            elbo, bpd, extra = algorithm._elbo_on(model_fn, batch, *draws)
+            m = mask.to(elbo.dtype)
+            out = {"elbo_sum": (elbo * m).sum(), "bpd_sum": (bpd * m).sum(), "count": m.sum()}
+            for name, part in extra.items():
+                per_example = part.mean(dim=0) if part.ndim > 1 else part
+                out[f"part_sum/{name}"] = (per_example * m).sum()
+        return out
+
+    return eval_step
+
+
+def make_sample_fn(algorithm, model_apply: ModelApply, *, use_ema: bool = True):
+    """Build ``sample(state, generator, n_samples, t=None, dtype=float32)``:
+    the algorithm's sampler on the EMA parameters (the parameters when
+    ``use_ema`` is False), on the generator's device. The model should be in
+    eval mode."""
+
+    def sample(state: TrainState, generator: torch.Generator, n_samples: int, t=None, dtype=torch.float32):
+        params = state.ema_params if use_ema else state.params
+        model_fn = lambda mu, tt: model_apply(params, mu, tt)
+        return algorithm.sample(model_fn, generator, n_samples, device=generator.device, t=t, dtype=dtype)
+
+    return sample

@@ -13,8 +13,12 @@ batch 64, bf16; the train step of the JAX package's UNet train bench
 (``scripts/bench_train.py``) at batch 128, bf16; DiT-L/2 BSI sampling at
 k=128, batch 64, bf16, as the JAX package's ``bench.py`` serves it; and the
 DiT-L/2 train step of ``bench.py``'s ``dit-train`` row at batch 64, bf16,
-dropout 0.05, bf16 Adam moments -- and checks that each went through its
-kernels and through no other. Prints one line per phase, a JSON line
+dropout 0.05, bf16 Adam moments -- then the same UNet on 16x16 images (its
+output, gradients and eval-step bpd card vs CPU first): sampling through
+``make_sample_fn`` at k=128, batch 64, bf16; the train step at batch 128,
+bf16, dropout 0.1; and the ELBO eval step (``make_eval_step``) on the EMA
+parameters, f32, batch 64 -- and checks that each went through its kernels
+and through no other. Prints one line per phase, a JSON line
 with every kernel's numbers, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits 1 before printing a result.
@@ -84,6 +88,17 @@ DIT_TRAIN_BATCH = 64
 DIT_DROPOUT = 0.05
 K3_PER_STEP = 24
 K4B_PER_STEP = 48
+# The same UNet on 16x16 images (the shape of Downsampled ImageNet 16x16,
+# bsi_tpu/data/imagenet.py): its attention runs over S = 256 pixels, where
+# the JAX package runs its whole-sequence kernels: K5f once a forward, K5b
+# once a train step, and no K1. The ELBO eval step runs the f32 model twice
+# (reconstruction and measurement), on EVAL_BATCH images.
+DATA16 = (16, 16, 3)
+K5F_PER_FORWARD = 1
+K5B_PER_STEP = 1
+EVAL_BATCH = 64
+EVAL_STEPS = 5
+K5_RATE = 0.1
 
 
 def phase(name: str, **fields) -> None:
@@ -159,6 +174,29 @@ def check_attn_bwd(name: str, got, want, dtype) -> float:
     return check_close(name, got, want, tol)
 
 
+def card_vs_cpu_grads(what: str, models, algo, x, t, eps):
+    """The mean train-loss gradients of ``models`` (a CPU model, then its
+    copy on the card) on the same draws, each of the card's leaves within
+    1e-3 of the CPU's leaf's norm. Returns the CPU's gradients by name, the
+    worst relative error, its leaf, and whether the card's are finite."""
+    import torch
+
+    grads = []
+    for model in models:
+        device = next(model.parameters()).device
+        named = dict(model.named_parameters())
+        loss = algo._train_loss_on(model, x.to(device), t.to(device), eps.to(device)).mean()
+        grads.append(dict(zip(named, (g.cpu() for g in torch.autograd.grad(loss, list(named.values()))))))
+    worst, worst_name = 0.0, None
+    for name, want in grads[0].items():
+        rel = ((grads[1][name] - want).norm() / want.norm()).item()
+        if not rel <= 1e-3:
+            raise AssertionError(f"{what} {name}: card vs CPU {rel:.3e} of its norm, limit 1e-3")
+        if rel > worst:
+            worst, worst_name = rel, name
+    return grads[0], worst, worst_name, all(bool(torch.isfinite(g).all()) for g in grads[1].values())
+
+
 def predicted_train_peak_gib(batch: int, pixels: int, dim: int, levels: int) -> float:
     """Activations autograd keeps for one bf16 train step, from the shapes:
     per residual block its input (GroupNorm and skip), the GroupNorm output
@@ -194,7 +232,9 @@ def main() -> int:
     from bsi_torch.train import (
         EMAConfig,
         TrainState,
+        make_eval_step,
         make_optimizer,
+        make_sample_fn,
         make_train_step,
         module_apply,
         warmup_cosine_schedule,
@@ -216,6 +256,8 @@ def main() -> int:
     # Every kernel's launch counter, by the name its JSON entry carries.
     counters = {
         "flash_attention": fa.flash_attention_cuda,
+        "flash_attention_dropout": fa.flash_attention_dropout_cuda,
+        "flash_attention_bwd": fa.flash_attention_bwd_cuda,
         "groupnorm_silu_fwd": gn.groupnorm_silu_cuda,
         "groupnorm_silu_bwd": gn.groupnorm_silu_bwd_cuda,
         "flash_attention_fused": fap.flash_attention_fused_cuda,
@@ -243,11 +285,12 @@ def main() -> int:
         return got
 
     # --------------------------------------------------------------- build
-    # nvcc builds K1, K2/K6f and K3/K6b, one process each, while Triton
-    # compiles K7f, K7b, K4f and K4b on their first launches.
+    # nvcc builds K1, K5f, K5b, K2/K6f and K3/K6b, one process each, while
+    # Triton compiles K7f, K7b, K4f and K4b on their first launches.
     start = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        nvcc = {src: pool.submit(_build.build, src) for src in (fa.SOURCE, fap.SOURCE, fap.BWD_SOURCE)}
+    sources = (fa.SOURCE, fa.DROPOUT_SOURCE, fa.BWD_SOURCE, fap.SOURCE, fap.BWD_SOURCE)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        nvcc = {src: pool.submit(_build.build, src) for src in sources}
         x = torch.randn(2, 64, 64, device=dev)
         gamma, beta = torch.ones(64, device=dev), torch.zeros(64, device=dev)
         gn.groupnorm_silu_cuda(x, gamma, beta, 32)
@@ -264,7 +307,8 @@ def main() -> int:
         torch.cuda.synchronize()
         triton_k4b_s = time.perf_counter() - start - triton_s - triton_bwd_s - triton_k4f_s
         built = {src: future.result() for src, future in nvcc.items()}
-    phase("build", k1_nvcc_s=f"{built[fa.SOURCE][1]:.2f}", k2_nvcc_s=f"{built[fap.SOURCE][1]:.2f}",
+    phase("build", k1_nvcc_s=f"{built[fa.SOURCE][1]:.2f}", k5f_nvcc_s=f"{built[fa.DROPOUT_SOURCE][1]:.2f}",
+          k5b_nvcc_s=f"{built[fa.BWD_SOURCE][1]:.2f}", k2_nvcc_s=f"{built[fap.SOURCE][1]:.2f}",
           k3_nvcc_s=f"{built[fap.BWD_SOURCE][1]:.2f}",
           k7_triton_first_launch_s=f"{triton_s:.2f}", k7b_triton_first_launch_s=f"{triton_bwd_s:.2f}",
           k4f_triton_first_launch_s=f"{triton_k4f_s:.2f}", k4b_triton_first_launch_s=f"{triton_k4b_s:.2f}",
@@ -646,6 +690,139 @@ def main() -> int:
     kernels.append(k4b)
     del mod, shift, scale, g_out, x_lib, shift_lib, scale_lib, out_lib
 
+    # ------------------------------------- K3, K6b at head_dim 256 vs twins
+    # Heads of 256 split dK and dV into two column slices of 128 (bf16) and
+    # take 32-row blocks (f32); the same tolerances as at 64 and 128.
+    for rate in (0.0, DIT_DROPOUT):
+        for dtype in (torch.bfloat16, torch.float32):
+            cb, cs, ch, cd = 8, 256, 4, 256
+            qkv = randn(cb, cs, 3 * ch * cd, dtype=dtype)
+            g_out = randn(cb, cs, ch * cd, dtype=dtype)
+            sd = fap.draw_seeds(cb, ch, dev, gen) if rate else None
+            kp = fap._philox_keep_mask(sd, cs, 1.0 - rate) if rate else None
+            dqkv = fap.flash_attention_fused_bwd_cuda(qkv, g_out, ch, sd, rate)
+            err3 = check_attn_bwd(f"K3 D=256 rate {rate} {dtype}", dqkv,
+                                  fap._fused_bwd_math(qkv, g_out, ch, kp, 1.0 - rate), dtype)
+            q, k, v = (fap._merge_heads(t).contiguous() for t in fap.split_qkv_grouped(qkv, ch))
+            grads = fap.flash_attention_packed_bwd_cuda(q, k, v, g_out, ch, sd, rate)
+            err6 = max(check_attn_bwd(f"K6b D=256 {part} rate {rate} {dtype}", a, w, dtype)
+                       for part, a, w in zip("qkv", grads, fap._packed_heads_bwd_math(q, k, v, g_out, ch, kp, 1.0 - rate)))
+            if not torch.equal(dqkv, fap.merge_qkv_grouped(*(fap._split_heads(t, ch) for t in grads))):
+                raise AssertionError(f"K3 at D=256, rate {rate}, {dtype} is not K6b's gradients interleaved")
+            phase("k3.d256.check", shape=tuple(qkv.shape), heads=ch, head_dim=cd, dtype=str(dtype), rate=rate,
+                  k3_max_abs_err=f"{err3:.3e}", k6b_max_abs_err=f"{err6:.3e}",
+                  tol=repr("2e-2 (bf16) or 1e-5 (f32) of the largest element"), k3_is_k6b_interleaved_bit_for_bit=True)
+            del qkv, g_out, dqkv, grads
+
+    # ---------------------------------------------- K5f, K5b vs their twins
+    # [B, H, S, D] at the 16x16 UNet's shapes (one head of 128 over S = 256
+    # pixels: sampling b64 bf16, training b128 bf16, eval b64 f32), then other
+    # head dims and lengths, each at rate 0 and 0.1. bf16 within 2e-2 (the
+    # forward, as K2's) or 2e-2 of the largest element (the gradients, as
+    # K3's); f32 within 1e-5, which at rate 0.1 pins the in-kernel keep masks
+    # to the Philox twin of the flat [B*H] seeds.
+    s16, d16 = DATA16[0] * DATA16[1], UNET["dim"]
+    for (cb, ch, cs, cd), dtype in [
+        ((BATCH, 1, s16, d16), torch.bfloat16),
+        ((TRAIN_BATCH, 1, s16, d16), torch.bfloat16),
+        ((EVAL_BATCH, 1, s16, d16), torch.float32),
+        ((4, 2, 128, 64), torch.bfloat16),
+        ((4, 2, 128, 64), torch.float32),
+        ((2, 2, 384, 256), torch.bfloat16),
+        ((2, 2, 384, 256), torch.float32),
+        ((2, 2, 512, 128), torch.float32),
+    ]:
+        for rate in (0.0, K5_RATE):
+            q, k, v, g_out = (randn(cb, ch, cs, cd, dtype=dtype) for _ in range(4))
+            sd = fap.draw_seeds(cb, ch, dev, gen).reshape(-1) if rate else None
+            keep = fa._keep(q, sd, rate)
+            atol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+            err = check_close(f"K5f {(cb, ch, cs, cd)} {dtype} rate {rate}",
+                              fa.flash_attention_dropout_cuda(q, k, v, sd, rate),
+                              fa._fwd_math(q, k, v, fa._scale(q), keep, 1.0 - rate), atol)
+            phase("k5f.check", shape=(cb, ch, cs, cd), dtype=str(dtype), rate=rate, max_abs_err=f"{err:.3e}",
+                  atol=atol)
+            want = fa._bwd_math(q, k, v, g_out, fa._scale(q), keep, 1.0 - rate)
+            errs = [check_attn_bwd(f"K5b d{part} {(cb, ch, cs, cd)} {dtype} rate {rate}", got, w.to(dtype), dtype)
+                    for part, got, w in zip("qkv", fa.flash_attention_bwd_cuda(q, k, v, g_out, sd, rate), want)]
+            phase("k5b.check", shape=(cb, ch, cs, cd), dtype=str(dtype), rate=rate,
+                  max_abs_err_dq=f"{errs[0]:.3e}", max_abs_err_dk=f"{errs[1]:.3e}", max_abs_err_dv=f"{errs[2]:.3e}",
+                  tol=repr(f"{atol} of the largest element"))
+            del q, k, v, g_out, keep, want
+    # Times: K5f at the sampling shape, bf16, rate 0 (and 0.1, and f32 at the
+    # eval shape); K5b at the train shape, bf16, rate 0 (and 0.1). The plain
+    # versions with dropout draw their mask with the Philox twin in the time.
+    attn16_flops = lambda n: 4 * n * s16 * s16 * d16
+    attn16_bytes = lambda n, size: 4 * n * s16 * d16 * size  # q, k, v read, out written
+    q, k, v = (randn(BATCH, 1, s16, d16, dtype=torch.bfloat16) for _ in range(3))
+    sd = fap.draw_seeds(BATCH, 1, dev, gen).reshape(-1)
+    keep = fa._keep(q, sd, K5_RATE)
+    k5f = dict(
+        name="flash_attention_dropout", route="cuda", source="bsi_torch/ops/csrc/flash_attention_dropout.cu",
+        replaces="bsi_tpu/ops/flash_attention.py:273", shape=[BATCH, 1, s16, d16], dtype="bfloat16", rate=0.0,
+        max_abs_err=check_close("K5f main", fa.flash_attention_dropout_cuda(q, k, v),
+                                fa._fwd_math(q, k, v, fa._scale(q)), 2e-2),
+        ms=time_ms(lambda: fa.flash_attention_dropout_cuda(q, k, v), flush=flush),
+        plain_ms=time_ms(lambda: fa._fwd_math(q, k, v, fa._scale(q)).to(q.dtype), flush=flush),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v), flush=flush),
+        library="scaled_dot_product_attention",
+        **bound(attn16_bytes(BATCH, 2), attn16_flops(BATCH), BF16_TENSOR_FLOPS),
+    )
+    k5f["at_rate_0_1"] = dict(
+        max_abs_err=check_close("K5f dropout main", fa.flash_attention_dropout_cuda(q, k, v, sd, K5_RATE),
+                                fa._fwd_math(q, k, v, fa._scale(q), keep, 1.0 - K5_RATE), 2e-2),
+        ms=time_ms(lambda: fa.flash_attention_dropout_cuda(q, k, v, sd, K5_RATE), flush=flush),
+        plain_ms=time_ms(lambda: fa._fwd_math(q, k, v, fa._scale(q), fa._keep(q, sd, K5_RATE), 1.0 - K5_RATE).to(
+            q.dtype), reps=5, flush=flush),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=K5_RATE), flush=flush),
+        library="scaled_dot_product_attention, dropout_p 0.1",
+        **bound(attn16_bytes(BATCH, 2) + sd.numel() * 4, attn16_flops(BATCH), BF16_TENSOR_FLOPS),
+    )
+    q32, k32, v32 = (randn(EVAL_BATCH, 1, s16, d16) for _ in range(3))
+    k5f["at_f32_eval_shape"] = dict(
+        shape=[EVAL_BATCH, 1, s16, d16],
+        max_abs_err=check_close("K5f f32 main", fa.flash_attention_dropout_cuda(q32, k32, v32),
+                                fa._fwd_math(q32, k32, v32, fa._scale(q32)), 1e-5),
+        ms=time_ms(lambda: fa.flash_attention_dropout_cuda(q32, k32, v32), flush=flush),
+        plain_ms=time_ms(lambda: fa._fwd_math(q32, k32, v32, fa._scale(q32)), flush=flush),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q32, k32, v32), flush=flush),
+        library="scaled_dot_product_attention, f32, TF32 off",
+        **bound(attn16_bytes(EVAL_BATCH, 4), attn16_flops(EVAL_BATCH), F32_FLOPS),
+    )
+    phase("k5f.time", **{key: k5f[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+          rate_0_1={key: k5f["at_rate_0_1"][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+          f32_eval_shape={key: k5f["at_f32_eval_shape"][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                                         "bound_by")})
+    kernels.append(k5f)
+    del q, k, v, q32, k32, v32, keep
+    q, k, v, g_out = (randn(TRAIN_BATCH, 1, s16, d16, dtype=torch.bfloat16) for _ in range(4))
+    sd = fap.draw_seeds(TRAIN_BATCH, 1, dev, gen).reshape(-1)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out_lib = F.scaled_dot_product_attention(*leaves)
+    # bytes: q, k, v and dO read once, dq, dk, dv written once; products
+    # 10*B*H*S^2*D (Q K^T, dO V^T, dV, dQ, dK)
+    k5b_bytes = 7 * TRAIN_BATCH * s16 * d16 * 2
+    k5b_flops = 10 * TRAIN_BATCH * s16 * s16 * d16
+    k5b = dict(
+        name="flash_attention_bwd", route="cuda", source="bsi_torch/ops/csrc/flash_attention_bwd.cu",
+        replaces="bsi_tpu/ops/flash_attention.py:311", shape=[TRAIN_BATCH, 1, s16, d16], dtype="bfloat16", rate=0.0,
+        max_abs_err=max(check_attn_bwd(f"K5b main d{part}", got, w.to(torch.bfloat16), torch.bfloat16)
+                        for part, got, w in zip("qkv", fa.flash_attention_bwd_cuda(q, k, v, g_out),
+                                                fa._bwd_math(q, k, v, g_out, fa._scale(q)))),
+        ms=time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, g_out), flush=flush),
+        plain_ms=time_ms(lambda: fa._bwd_math(q, k, v, g_out, fa._scale(q)), flush=flush),
+        library_ms=time_ms(lambda: torch.autograd.grad(out_lib, leaves, g_out, retain_graph=True), flush=flush),
+        library="scaled_dot_product_attention backward alone",
+        at_rate_0_1=dict(
+            ms=time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, g_out, sd, K5_RATE), flush=flush),
+            **bound(k5b_bytes + sd.numel() * 4, k5b_flops, BF16_TENSOR_FLOPS)),
+        **bound(k5b_bytes, k5b_flops, BF16_TENSOR_FLOPS),
+    )
+    phase("k5b.time", **{key: k5b[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+          ms_at_rate_0_1=k5b["at_rate_0_1"]["ms"])
+    kernels.append(k5b)
+    del g_out, leaves, out_lib, sd
+
     # --------------------------------------- whole model, card against CPU
     pos_emb = NyquistPositionalEmbedding(32, 100)
     ff = FourierFeatures(n_min=6, n_max=8)
@@ -707,22 +884,10 @@ def main() -> int:
                      preconditioning="edm")
     x_small = torch.rand((2,) + DATA_SHAPE, generator=cpu_gen) * 2.0 - 1.0
     t_small, eps_small = algo_train.train_noise(cpu_gen, x_small)
-    grads = []
-    for model_g, device in ((model_cpu, "cpu"), (model_f32, dev)):
-        named = dict(model_g.named_parameters())
-        loss = algo_train._train_loss_on(
-            model_g, x_small.to(device), t_small.to(device), eps_small.to(device)).mean()
-        grads.append(dict(zip(named, (gr.cpu() for gr in torch.autograd.grad(loss, list(named.values()))))))
-    worst, worst_name = 0.0, None
-    for name, want_g in grads[0].items():
-        rel = ((grads[1][name] - want_g).norm() / want_g.norm()).item()
-        if not rel <= 1e-3:
-            raise AssertionError(f"train gradient {name}: card vs CPU {rel:.3e} of its norm, limit 1e-3")
-        if rel > worst:
-            worst, worst_name = rel, name
-    phase("train.check", batch=2, dtype="float32", leaves=len(grads[0]), worst_rel_err=f"{worst:.3e}",
-          worst_leaf=worst_name, tol="1e-3 of each leaf's norm", finite=all(
-              bool(torch.isfinite(gr).all()) for gr in grads[1].values()))
+    grads, worst, worst_name, finite = card_vs_cpu_grads(
+        "train gradient", (model_cpu, model_f32), algo_train, x_small, t_small, eps_small)
+    phase("train.check", batch=2, dtype="float32", leaves=len(grads), worst_rel_err=f"{worst:.3e}",
+          worst_leaf=worst_name, tol="1e-3 of each leaf's norm", finite=finite)
     del model_f32, grads
 
     # ------------------------------------------------ main path: sampling
@@ -845,30 +1010,18 @@ def main() -> int:
     x_small = torch.rand((2,) + DATA_SHAPE, generator=cpu_gen) * 2.0 - 1.0
     t_small, eps_small = algo_train.train_noise(cpu_gen, x_small)
     reset_counts()
-    grads = []
-    for model_g, device in ((dit_cpu, "cpu"), (dit_f32, dev)):
-        named = dict(model_g.named_parameters())
-        loss = algo_train._train_loss_on(
-            model_g, x_small.to(device), t_small.to(device), eps_small.to(device)).mean()
-        grads.append(dict(zip(named, (gr.cpu() for gr in torch.autograd.grad(loss, list(named.values()))))))
+    grads, worst, worst_name, finite = card_vs_cpu_grads(
+        "DiT train gradient", (dit_cpu, dit_f32), algo_train, x_small, t_small, eps_small)
     expect_counts("one f32 DiT-L/2 train-loss gradient", flash_attention_fused=K2_PER_FORWARD,
                   layernorm_modulate_fwd=K4F_PER_FORWARD, flash_attention_fused_bwd=K3_PER_STEP,
                   layernorm_modulate_bwd=K4B_PER_STEP)
-    worst, worst_name = 0.0, None
-    for name, want_g in grads[0].items():
-        rel = ((grads[1][name] - want_g).norm() / want_g.norm()).item()
-        if not rel <= 1e-3:
-            raise AssertionError(f"DiT train gradient {name}: card vs CPU {rel:.3e} of its norm, limit 1e-3")
-        if rel > worst:
-            worst, worst_name = rel, name
-    qkv_grad = grads[0]["dit.block_0.attn.to_qkv.weight"].abs().max().item()
-    phase("dit.train.check", batch=2, dtype="float32", dropout=None, leaves=len(grads[0]),
+    qkv_grad = grads["dit.block_0.attn.to_qkv.weight"].abs().max().item()
+    phase("dit.train.check", batch=2, dtype="float32", dropout=None, leaves=len(grads),
           worst_rel_err=f"{worst:.3e}", worst_leaf=worst_name, tol="1e-3 of each leaf's norm",
-          block0_qkv_grad_max=f"{qkv_grad:.3e}",
-          finite=all(bool(torch.isfinite(gr).all()) for gr in grads[1].values()))
+          block0_qkv_grad_max=f"{qkv_grad:.3e}", finite=finite)
     if not qkv_grad > 0:
         raise AssertionError("the attention's gradient is zero: adaLN-Zero hides the backward")
-    del dit_cpu, dit_f32, grads, named, loss, model_g  # named holds the f32 DiT's parameters
+    del dit_cpu, dit_f32, grads
 
     # -------------------------------------------- main path: DiT sampling
     dit = DenoisingDiT(fourier_features=ff, dtype=torch.bfloat16, device=dev, **DIT_L2).eval()
@@ -952,6 +1105,176 @@ def main() -> int:
           launches_per_step={name: n // TRAIN_STEPS for name, n in train_launches.items() if n})
     path_launches["dit_train"] = train_launches
     del dit_train, params, tx_dit, state, train_step, batch, metrics
+
+    # --------------------------------- the 16x16 UNet, card against CPU
+    # The same full-width UNet on 16x16 images, f32, TF32 off, batch 2: its
+    # output within 1e-4 of the output's scale (as [model.check]), its
+    # train-loss gradients within 1e-3 of each leaf's norm (as
+    # [train.check]), dropout off, through K5f, K5b, K7f and K7b on the card;
+    # and the eval step's bpd on the same draws, within 1e-4 of its size.
+    torch.manual_seed(SEED + 7)
+    unet16_cpu = DenoisingVDMUNet(DATA16, pos_emb, fourier_features=ff, device="cpu", **UNET).eval()
+    weights16 = unet16_cpu.state_dict()
+    unet16_f32 = DenoisingVDMUNet(DATA16, pos_emb, fourier_features=ff, device=dev, **UNET).eval()
+    unet16_f32.load_state_dict(weights16)
+    mu = torch.randn((2,) + DATA16, generator=cpu_gen)
+    t = torch.rand(2, generator=cpu_gen)
+    reset_counts()
+    with torch.inference_mode():
+        ref = unet16_cpu(mu, t)
+        out = unet16_f32(mu.to(dev), t.to(dev)).cpu()
+    expect_counts("one f32 16x16 UNet forward", flash_attention_dropout=K5F_PER_FORWARD,
+                  groupnorm_silu_fwd=K7_PER_FORWARD)
+    scale = ref.abs().max().item()
+    tol16 = 1e-4 * max(1.0, scale)
+    err = check_close("16x16 UNet f32 card vs CPU", out, ref, tol16)
+    phase("unet16.model.check", batch=2, dtype="float32", max_abs_err=f"{err:.3e}", atol=f"{tol16:.3e}",
+          output_max_abs=f"{scale:.3e}", finite=bool(torch.isfinite(out).all()))
+    algo16_train = BSI(data_shape=DATA16, lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=50, preconditioning="edm")
+    x_small = torch.rand((2,) + DATA16, generator=cpu_gen) * 2.0 - 1.0
+    t_small, eps_small = algo16_train.train_noise(cpu_gen, x_small)
+    reset_counts()
+    grads, worst, worst_name, finite = card_vs_cpu_grads(
+        "16x16 train gradient", (unet16_cpu, unet16_f32), algo16_train, x_small, t_small, eps_small)
+    expect_counts("one f32 16x16 UNet train-loss gradient", flash_attention_dropout=K5F_PER_FORWARD,
+                  flash_attention_bwd=K5B_PER_STEP, groupnorm_silu_fwd=K7_PER_FORWARD,
+                  groupnorm_silu_bwd=K7B_PER_STEP)
+    phase("unet16.train.check", batch=2, dtype="float32", leaves=len(grads), worst_rel_err=f"{worst:.3e}",
+          worst_leaf=worst_name, tol="1e-3 of each leaf's norm", finite=finite)
+    algo16 = BSI(data_shape=DATA16, lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=K_STEPS, preconditioning="edm")
+    draws = algo16.elbo_noise(cpu_gen, x_small)
+    reset_counts()
+    evals = []
+    for model_e, device in ((unet16_cpu, "cpu"), (unet16_f32, dev)):
+        params_e = {name: p.detach() for name, p in model_e.named_parameters()}
+        state_e = TrainState.create(params=params_e, opt_state=None, generator=torch.Generator())
+        step_e = make_eval_step(algo16, module_apply(model_e, train=False),
+                                noise=lambda batch: [draw.to(batch.device) for draw in draws])
+        evals.append({key: val.item() for key, val in step_e(state_e, x_small.to(device),
+                                                           torch.ones(2, device=device)).items()})
+    expect_counts("one f32 16x16 eval step", flash_attention_dropout=2 * K5F_PER_FORWARD,
+                  groupnorm_silu_fwd=2 * K7_PER_FORWARD)
+    bpd_err = abs(evals[1]["bpd_sum"] - evals[0]["bpd_sum"])
+    if not bpd_err <= 1e-4 * abs(evals[0]["bpd_sum"]):
+        raise AssertionError(f"16x16 eval bpd card vs CPU: {evals[1]['bpd_sum']} vs {evals[0]['bpd_sum']}")
+    phase("unet16.eval.check", batch=2, dtype="float32", bpd_sum_cpu=f"{evals[0]['bpd_sum']:.6f}",
+          bpd_sum_card=f"{evals[1]['bpd_sum']:.6f}", abs_err=f"{bpd_err:.3e}", tol="1e-4 of the bpd sum",
+          finite=all(math.isfinite(val) for val in evals[1].values()))
+    del unet16_cpu, unet16_f32, grads, model_e, params_e, state_e, step_e
+
+    # ------------------------------- main path: 16x16 sampling, make_sample_fn
+    # The train state's EMA parameters (at step 0 the weights) through a bf16
+    # model in eval mode, k=128, batch 64.
+    train16 = DenoisingVDMUNet(DATA16, pos_emb, fourier_features=ff, dropout=0.1, dtype=torch.bfloat16, device=dev,
+                               **UNET)
+    train16.load_state_dict(weights16)
+    params16 = dict(train16.named_parameters())
+    tx16 = make_optimizer(warmup_cosine_schedule(2e-4, warmup_steps=100, max_steps=10**6))
+    state16 = TrainState.create(params=params16, opt_state=tx16.init(params16),
+                                generator=torch.Generator(device=dev).manual_seed(SEED + 8))
+    sample16 = make_sample_fn(algo16, module_apply(
+        DenoisingVDMUNet(DATA16, pos_emb, fourier_features=ff, dtype=torch.bfloat16, device=dev, **UNET),
+        train=False))
+    sample_gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    sample16(state16, sample_gen, BATCH)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(3):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples = sample16(state16, sample_gen, BATCH)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches = expect_counts("a 16x16 UNet sampling run",
+                                 flash_attention_dropout=K5F_PER_FORWARD * (K_STEPS + 1),
+                                 groupnorm_silu_fwd=K7_PER_FORWARD * (K_STEPS + 1))
+        if samples.shape != (BATCH,) + DATA16 or not torch.isfinite(samples).all():
+            raise AssertionError(f"bad 16x16 samples: shape {tuple(samples.shape)}, "
+                                 f"finite {bool(torch.isfinite(samples).all())}")
+    peak = torch.cuda.max_memory_allocated()
+    phase("unet16.sample", k=K_STEPS, batch=BATCH, dtype="bfloat16", run_s=secs,
+          samples_per_s=f"{BATCH / statistics.median(secs):.3f}", peak_mem_gib=f"{peak / 2**30:.3f}",
+          launches={name: n for name, n in launches.items() if n}, finite=True, shape=tuple(samples.shape))
+    path_launches["unet16_sample"] = launches
+    del samples, sample16
+
+    # ---------------------------------------------- main path: 16x16 training
+    # As [train]: batch 128, bf16 on f32 parameters, dropout 0.1 (in the
+    # residual blocks; the attention has none), AdamW 2e-4, warmup 100, cosine
+    # to 1e6, clip 1.0, EMA after 1000.
+    train_step16 = make_train_step(algo16_train, module_apply(train16), tx16, EMAConfig(update_after_step=1000))
+    data_gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    batch = torch.randint(0, 256, (TRAIN_BATCH,) + DATA16, generator=data_gen, device=dev) / 255.0 * 2.0 - 1.0
+    with torch.no_grad():
+        forward_flops = sum(count_flops(train16, lambda: train16(
+            batch, torch.full((TRAIN_BATCH,), 0.5, device=dev))).values())
+    state16, metrics = train_step16(state16, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state16, metrics = train_step16(state16, batch)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = expect_counts(
+        f"{TRAIN_STEPS} 16x16 UNet train steps", flash_attention_dropout=K5F_PER_FORWARD * TRAIN_STEPS,
+        flash_attention_bwd=K5B_PER_STEP * TRAIN_STEPS, groupnorm_silu_fwd=K7_PER_FORWARD * TRAIN_STEPS,
+        groupnorm_silu_bwd=K7B_PER_STEP * TRAIN_STEPS)
+    final_loss = metrics["train/loss"].item()
+    grad_norm = metrics["train/grad_norm"].item()
+    if not (math.isfinite(final_loss) and final_loss > 0 and math.isfinite(grad_norm)):
+        raise AssertionError(f"bad 16x16 train metrics: loss {final_loss}, grad norm {grad_norm}")
+    peak = torch.cuda.max_memory_allocated()
+    ms_step = train_s / TRAIN_STEPS * 1e3
+    step_flops = 3 * forward_flops
+    phase("unet16.train", batch=TRAIN_BATCH, dtype="bfloat16", dropout=0.1, steps=TRAIN_STEPS, step=state16.step,
+          ms_per_step=f"{ms_step:.3f}", examples_per_s=f"{TRAIN_BATCH * TRAIN_STEPS / train_s:.3f}",
+          tflop_per_step=f"{step_flops / 1e12:.3f}",
+          mfu=f"{step_flops / (ms_step / 1e3) / BF16_TENSOR_FLOPS:.4f}",
+          peak_mem_gib=f"{peak / 2**30:.3f}", final_loss=f"{final_loss:.6g}", grad_norm=f"{grad_norm:.6g}",
+          launches_per_step={name: n // TRAIN_STEPS for name, n in train_launches.items() if n})
+    path_launches["unet16_train"] = train_launches
+    del train_step16, train16, params16, tx16, batch, metrics
+
+    # -------------------------------------------- main path: 16x16 ELBO eval
+    # make_eval_step on the EMA parameters through the f32 model (TF32 off),
+    # n_recon = n_measure = 1, batch 64 with its last 8 images masked out.
+    eval16 = DenoisingVDMUNet(DATA16, pos_emb, fourier_features=ff, device=dev, **UNET)
+    eval_step16 = make_eval_step(algo16, module_apply(eval16, train=False))
+    batch = torch.randint(0, 256, (EVAL_BATCH,) + DATA16, generator=data_gen, device=dev) / 255.0 * 2.0 - 1.0
+    mask = (torch.arange(EVAL_BATCH, device=dev) < EVAL_BATCH - 8).float()
+    eval_gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    with torch.no_grad():
+        eval_flops = 2 * sum(count_flops(eval16, lambda: eval16(
+            batch, torch.full((EVAL_BATCH,), 0.5, device=dev))).values())
+    eval_step16(state16, batch, mask, eval_gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    eval_secs = []
+    for _ in range(EVAL_STEPS):
+        t0 = time.perf_counter()
+        sums = eval_step16(state16, batch, mask, eval_gen)
+        torch.cuda.synchronize()
+        eval_secs.append(time.perf_counter() - t0)
+    eval_launches = expect_counts(
+        f"{EVAL_STEPS} 16x16 eval steps", flash_attention_dropout=2 * K5F_PER_FORWARD * EVAL_STEPS,
+        groupnorm_silu_fwd=2 * K7_PER_FORWARD * EVAL_STEPS)
+    bpd = sums["bpd_sum"].item() / sums["count"].item()
+    if not (math.isfinite(bpd) and bpd > 0 and sums["count"].item() == EVAL_BATCH - 8):
+        raise AssertionError(f"bad 16x16 eval metrics: {({key: val.item() for key, val in sums.items()})}")
+    peak = torch.cuda.max_memory_allocated()
+    eval_ms = statistics.median(eval_secs) * 1e3
+    phase("unet16.eval", batch=EVAL_BATCH, dtype="float32", masked_out=8, steps=EVAL_STEPS,
+          ms_per_step_runs=[f"{x * 1e3:.3f}" for x in eval_secs], ms_per_step=f"{eval_ms:.3f}",
+          examples_per_s=f"{EVAL_BATCH / eval_ms * 1e3:.3f}", tflop_per_step=f"{eval_flops / 1e12:.3f}",
+          f32_tflop_per_s=f"{eval_flops / eval_ms / 1e9:.2f}", bpd=f"{bpd:.6g}", peak_mem_gib=f"{peak / 2**30:.3f}",
+          launches_per_step={name: n // EVAL_STEPS for name, n in eval_launches.items() if n})
+    path_launches["unet16_eval"] = eval_launches
+    del eval16, eval_step16, state16, batch
 
     # Each kernel's launches on the main path that runs it (K6f, K6b: none does).
     for entry in kernels:

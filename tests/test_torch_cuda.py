@@ -42,18 +42,27 @@ def test_flash_attention_kernel_matches_twin(cuda, shape, dtype, atol):
 
 
 def test_cuda_tensor_routes_to_flash_attention(cuda):
+    # as the JAX package routes it: S <= 512 to the whole-sequence K5f, longer
+    # sequences to K1
     gen = torch.Generator(device=cuda).manual_seed(1)
     qkv = _randn(gen, 2, 256, 3 * 128, dtype=torch.bfloat16, device=cuda)
     q, k, v = attention.split_qkv_grouped(qkv, 1)
-    before = fa.flash_attention_cuda.launches
+    k1, k5f = fa.flash_attention_cuda.launches, fa.flash_attention_dropout_cuda.launches
     out = attention.multi_head_attention(q, k, v)
-    assert fa.flash_attention_cuda.launches == before + 1
+    assert fa.flash_attention_dropout_cuda.launches == k5f + 1
+    assert fa.flash_attention_cuda.launches == k1
     want = fa._fwd_math(q, k, v, fa._scale(q))
     assert (out.float() - want).abs().max().item() <= 2e-2
+    long = _randn(gen, 2, 1, 1024, 128, dtype=torch.bfloat16, device=cuda)
+    out = attention.multi_head_attention(long, long, long)
+    assert fa.flash_attention_cuda.launches == k1 + 1
+    assert fa.flash_attention_dropout_cuda.launches == k5f + 1
+    assert (out.float() - fa._fwd_math(long, long, long, fa._scale(long))).abs().max().item() <= 2e-2
     # a shape the JAX package sends to plain math goes there here too
     short = _randn(gen, 2, 1, 64, 128, dtype=torch.bfloat16, device=cuda)
     attention.multi_head_attention(short, short, short)
-    assert fa.flash_attention_cuda.launches == before + 1
+    assert fa.flash_attention_cuda.launches == k1 + 1
+    assert fa.flash_attention_dropout_cuda.launches == k5f + 1
 
 
 def test_flash_attention_kernel_rejects_unsupported(cuda):
@@ -253,7 +262,8 @@ def _interleave(dq, dk, dv, heads):
 
 @pytest.mark.parametrize("rate", [0.0, RATE])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,s,heads,d", [(2, 256, 16, 64), (2, 128, 2, 128), (3, 200, 4, 64), (1, 96, 1, 128)])
+@pytest.mark.parametrize("b,s,heads,d", [(2, 256, 16, 64), (2, 128, 2, 128), (3, 200, 4, 64), (1, 96, 1, 128),
+                                         (2, 256, 2, 256), (1, 160, 1, 256)])
 def test_fused_qkv_bwd_kernel_matches_plain(cuda, b, s, heads, d, dtype, rate):
     gen = torch.Generator(device=cuda).manual_seed(22)
     qkv = _randn(gen, b, s, 3 * heads * d, dtype=dtype, device=cuda)
@@ -274,9 +284,9 @@ def test_fused_qkv_bwd_kernel_matches_plain(cuda, b, s, heads, d, dtype, rate):
 
 
 def test_bwd_kernels_refuse_unsupported(cuda):
-    qkv = torch.zeros(1, 128, 3 * 2 * 256, device=cuda)
+    qkv = torch.zeros(1, 128, 3 * 2 * 32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
-        fap.flash_attention_fused_bwd_cuda(qkv, torch.zeros(1, 128, 512, device=cuda), 2)
+        fap.flash_attention_fused_bwd_cuda(qkv, torch.zeros(1, 128, 64, device=cuda), 2)
     qkv = torch.zeros(1, 128, 3 * 2 * 64, device=cuda)
     with pytest.raises(ValueError, match="dO"):
         fap.flash_attention_fused_bwd_cuda(qkv, torch.zeros(1, 128, 64, device=cuda), 2)
@@ -300,6 +310,136 @@ def test_packed_attention_gradient_matches_plain_autograd(cuda):
     keeps = fap._philox_keep_mask(seeds, s, 1.0 - RATE)
     (want,) = torch.autograd.grad(fap._fused_fwd_math(leaf, heads, keeps, 1.0 - RATE), leaf, g)
     assert (grad - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+# ------------------------------------------- K5f, K5b: whole-sequence attention
+
+K5_RATE = 0.1
+
+
+def _k5_inputs(gen, shape, dtype, rate, device):
+    q, k, v, do = (_randn(gen, *shape, dtype=dtype, device=device) for _ in range(4))
+    b, h, s, _ = shape
+    seeds = fap.draw_seeds(b, h, device, gen).reshape(-1) if rate else None
+    keep = fa._keep(q, seeds, rate)
+    return q, k, v, do, seeds, keep
+
+
+@pytest.mark.parametrize("rate", [0.0, K5_RATE])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("s", [128, 256, 384, 512])
+def test_flash_attention_dropout_kernel_matches_plain(cuda, s, d, dtype, rate):
+    # f32 within 1e-5 at rate 0.1 pins the in-kernel mask to the Philox twin:
+    # one differing keep bit moves an output by about p * v / keep_prob
+    gen = torch.Generator(device=cuda).manual_seed(40)
+    q, k, v, _, seeds, keep = _k5_inputs(gen, (2, 2, s, d), dtype, rate, cuda)
+    before = fa.flash_attention_dropout_cuda.launches
+    got = fa.flash_attention_dropout(q, k, v, seeds, rate=rate)
+    assert fa.flash_attention_dropout_cuda.launches == before + 1
+    want = fa._fwd_math(q, k, v, fa._scale(q), keep, 1.0 - rate)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert (got.float() - want).abs().max().item() <= _packed_atol(dtype)
+
+
+@pytest.mark.parametrize("rate", [0.0, K5_RATE])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("s", [128, 256, 384, 512])
+def test_flash_attention_bwd_kernel_matches_plain(cuda, s, d, dtype, rate):
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    q, k, v, do, seeds, keep = _k5_inputs(gen, (2, 2, s, d), dtype, rate, cuda)
+    before = fa.flash_attention_bwd_cuda.launches
+    grads = fa.flash_attention_bwd(q, k, v, do, seeds, rate=rate)
+    assert fa.flash_attention_bwd_cuda.launches == before + 1
+    for g, w in zip(grads, fa._bwd_math(q, k, v, do, fa._scale(q), keep, 1.0 - rate)):
+        _bwd_close(g, w.to(dtype), dtype)
+
+
+def test_k5_kernels_refuse_unsupported(cuda):
+    x = torch.zeros(1, 2, 128, 32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_dropout_cuda(x, x, x)
+    y = torch.zeros(1, 2, 128, 64, device=cuda)
+    with pytest.raises(ValueError, match="seeds"):
+        fa.flash_attention_bwd_cuda(y, y, y, y, torch.zeros(1, 2, dtype=torch.int32, device=cuda), 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_dropout_cuda(y.transpose(2, 3), y.transpose(2, 3), y.transpose(2, 3))
+
+
+def test_attention_dispatch_runs_k5f_and_k5b_with_dropout(cuda, monkeypatch):
+    # [B, H, S, D] attention with dropout at S <= 512: K5f forward, K5b
+    # backward, never the plain versions; the gradient is autograd's through
+    # the plain forward with the seeds' mask, f32
+    def plain(*args, **kw):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    gen = torch.Generator(device=cuda).manual_seed(42)
+    b, h, s, d = 2, 2, 256, 128
+    q, k, v, g = (_randn(gen, b, h, s, d, dtype=torch.float32, device=cuda) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    counts = fa.flash_attention_dropout_cuda.launches, fa.flash_attention_bwd_cuda.launches
+    state = gen.get_state()
+    with monkeypatch.context() as m:
+        m.setattr(fa, "_fwd_math", plain)
+        m.setattr(fa, "_bwd_math", plain)
+        out = attention.multi_head_attention(*leaves, dropout_rate=K5_RATE, generator=gen)
+        grads = torch.autograd.grad(out, leaves, g)
+    assert fa.flash_attention_dropout_cuda.launches == counts[0] + 1
+    assert fa.flash_attention_bwd_cuda.launches == counts[1] + 1
+    gen.set_state(state)
+    keep = fa._keep(q, fap.draw_seeds(b, h, cuda, gen).reshape(-1), K5_RATE)
+    plain_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want_out = fa._fwd_math(*plain_leaves, fa._scale(q), keep, 1.0 - K5_RATE)
+    assert (out - want_out).abs().max().item() <= 1e-5
+    for got, want in zip(grads, torch.autograd.grad(want_out, plain_leaves, g)):
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_tiny_unet16_on_card_matches_cpu(cuda):
+    # the 16x16 slice: forward, train-loss gradients and the eval step's bpd,
+    # f32, through K5f, K5b and K7 on the card against the plain path on the
+    # CPU; dim 128 gives K5 a head of 128
+    from bsi_torch.core import BSI
+    from bsi_torch.models import DenoisingVDMUNet
+    from bsi_torch.nn import FourierFeatures, NyquistPositionalEmbedding
+    from bsi_torch.train import AdamState, TrainState, make_eval_step, module_apply
+
+    torch.manual_seed(0)
+    kw = dict(data_shape=(16, 16, 3), pos_emb=NyquistPositionalEmbedding(16, 100), dim=128, levels=2,
+              fourier_features=FourierFeatures(6, 8))
+    cpu = DenoisingVDMUNet(device="cpu", **kw).eval()
+    card = DenoisingVDMUNet(device=cuda, **kw).eval()
+    card.load_state_dict(cpu.state_dict())
+    algo = BSI(data_shape=(16, 16, 3), lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=50, preconditioning="edm")
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand(2, 16, 16, 3, generator=gen) * 2 - 1
+    mu, t = torch.randn(2, 16, 16, 3, generator=gen), torch.rand(2, generator=gen)
+    k5f, k5b, k1 = (fa.flash_attention_dropout_cuda.launches, fa.flash_attention_bwd_cuda.launches,
+                    fa.flash_attention_cuda.launches)
+    with torch.inference_mode():
+        want, got = cpu(mu, t), card(mu.to(cuda), t.to(cuda)).cpu()
+    assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+    tt, eps = algo.train_noise(gen, x)
+    grads = []
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        named = dict(model.named_parameters())
+        loss = algo._train_loss_on(model, x.to(dev), tt.to(dev), eps.to(dev)).mean()
+        grads.append([gr.cpu() for gr in torch.autograd.grad(loss, list(named.values()))])
+    for (name, _), w, gr in zip(cpu.named_parameters(), *grads):
+        assert (gr - w).norm() <= 1e-3 * w.norm() + 1e-12, name
+    draws = algo.elbo_noise(gen, x)
+    bpds = []
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        params = {k: v.detach() for k, v in model.named_parameters()}
+        state = TrainState.create(params=params, opt_state=AdamState(0, {}, {}), generator=torch.Generator())
+        step = make_eval_step(algo, module_apply(model, train=False),
+                              noise=lambda batch: [d.to(batch.device) for d in draws])
+        bpds.append(step(state, x.to(dev), torch.ones(2, device=dev))["bpd_sum"].item())
+    assert abs(bpds[1] - bpds[0]) <= 1e-4 * abs(bpds[0])
+    assert fa.flash_attention_dropout_cuda.launches == k5f + 1 + 1 + 2
+    assert fa.flash_attention_bwd_cuda.launches == k5b + 1
+    assert fa.flash_attention_cuda.launches == k1
 
 
 # ------------------------------------------------- K4f: LayerNorm+modulate
