@@ -8,13 +8,20 @@ table built from two 1D Nyquist embeddings.
 
 Submodules carry the flax names (``dit``, ``patch_encoder``, ``block_{i}``,
 ``ada_in``, ``attn``, ``mlp``, ...), so converted weights load by name. The
-JAX package's ``scan_blocks`` and ``token_sharding`` are layout and compile
-knobs of XLA and have no counterpart here: the blocks run as a Python loop,
-and :func:`bsi_torch.convert.params_from_jax` splits a scan-layout tree into
-``block_{i}``. Its ``remat`` (recompute each block's activations in the
-backward) is left out: it trades time for memory and changes no number, and
-at DiT-L/2's batch 64 the saved activations fit the card without it
-(``torch.utils.checkpoint`` per block would be its counterpart).
+JAX package's keywords are taken as the shared ``configs/`` pass them:
+
+- ``remat``: in training each block runs under non-reentrant
+  ``torch.utils.checkpoint``, which keeps only its inputs and recomputes
+  its activations in the backward. The checkpoint saves the RNG states and
+  restores them for the recompute, so ``nn.Dropout`` and the seeds the
+  attention kernels draw (``draw_seeds``) give the same masks twice: the
+  gradients are those without it.
+- ``scan_blocks``: a layout flag that changes no arithmetic. The blocks
+  always run as a Python loop (the loop layout);
+  :func:`bsi_torch.convert.params_from_jax` splits a scan-layout tree into
+  ``block_{i}``.
+- ``token_sharding``: a sharding of the tokens over a device mesh; only
+  None, until the parallel layouts are ported.
 
 On a CUDA tensor each block runs K4f twice (the fused LayerNorm + modulate
 before the attention and before the MLP) and K2 once (the attention, read
@@ -32,10 +39,16 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from bsi_torch.core.common import resolve_device
 from bsi_torch.nn import MLP, Dense, FourierFeatures, LayerNorm, NyquistPositionalEmbedding, TokenAttention
 from bsi_torch.ops.ln_modulate import layernorm_modulate
+
+
+def _check_token_sharding(token_sharding) -> None:
+    if token_sharding is not None:
+        raise NotImplementedError("token_sharding: the port has no parallel layouts yet; pass None")
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -90,11 +103,16 @@ class DiT(nn.Module):
         heads: int,
         mlp_ratio: int = 4,
         dropout: float | None = None,
+        remat: bool = False,
+        scan_blocks: bool = False,
         *,
         dtype=None,
         device=None,
+        token_sharding=None,
     ):
         super().__init__()
+        _check_token_sharding(token_sharding)
+        self.remat = remat
         self.input_size = tuple(input_size)
         self.patch_size = patch_size
         self.out_channels = out_channels
@@ -139,8 +157,13 @@ class DiT(nn.Module):
         return tokens, self.t_emb(t)
 
     def run_blocks(self, tokens: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for i in range(self.depth):
-            tokens = getattr(self, f"block_{i}")(tokens, c)
+            block = getattr(self, f"block_{i}")
+            if remat:
+                tokens = checkpoint(block, tokens, c, use_reentrant=False, preserve_rng_state=True)
+            else:
+                tokens = block(tokens, c)
         return tokens
 
     def decode(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -169,9 +192,12 @@ class DenoisingDiT(nn.Module):
         heads: Attention heads.
         mlp_ratio: MLP hidden width over ``dim``.
         dropout: Attention and pre-MLP dropout rate, active in ``train()``.
+        remat: Recompute each block's activations in the backward.
+        scan_blocks: The JAX package's scan layout flag; changes nothing here.
         fourier_features: Optional per-pixel Fourier features of the input.
         dtype: Compute dtype (parameters stay f32).
         device: Where the parameters live; ``None`` means the card.
+        token_sharding: Must be None (no parallel layouts yet).
     """
 
     def __init__(
@@ -183,20 +209,24 @@ class DenoisingDiT(nn.Module):
         heads: int,
         mlp_ratio: int = 4,
         dropout: float | None = None,
+        remat: bool = False,
+        scan_blocks: bool = False,
         fourier_features: FourierFeatures | None = None,
         dtype: torch.dtype | None = None,
+        token_sharding=None,
         device: torch.device | str | None = None,
     ):
         super().__init__()
         if len(data_shape) != 3:
             raise ValueError("DenoisingDiT only supports 2D image data (H, W, C)")
+        _check_token_sharding(token_sharding)
         device = resolve_device(device)
         self.data_shape = tuple(data_shape)
         self.fourier_features = fourier_features
         channels = data_shape[-1]
         in_channels = channels * (1 + (fourier_features.n_features() if fourier_features else 0))
         self.dit = DiT(data_shape[:2], patch_size, in_channels, channels, dim, depth, heads, mlp_ratio,
-                       dropout, dtype=dtype, device=device)
+                       dropout, remat, scan_blocks, dtype=dtype, device=device)
 
     def _features(self, mu: torch.Tensor) -> torch.Tensor:
         if self.fourier_features is not None:

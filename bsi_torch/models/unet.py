@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from bsi_torch.core.common import resolve_device
 from bsi_torch.nn import Conv, Dense, FourierFeatures, NyquistPositionalEmbedding, SimplifiedUNet
@@ -34,9 +35,9 @@ class DenoisingVDMUNet(nn.Module):
         pos_emb_mult: Conditioning width = pos_emb.size * pos_emb_mult.
         n_attention_heads: Heads of the centre attention.
         dropout: Dropout rate inside the residual blocks, active in ``train()``.
-        downsampling_attention: Attention tail on every residual block; not
-            ported (with silu the JAX module itself fails on it, see
-            ``__init__``).
+        downsampling_attention: An attention tail on every residual block,
+            each over S = H*W pixels (K1 above 512 pixels, K5f at or below).
+            Raises with silu, which the JAX module cannot build.
         fourier_features: Optional per-pixel Fourier features of the input.
         dtype: Compute dtype (parameters stay f32).
         device: Where the parameters live; ``None`` means the card.
@@ -60,11 +61,9 @@ class DenoisingVDMUNet(nn.Module):
         super().__init__()
         if len(data_shape) != 3:
             raise ValueError("DenoisingVDMUNet only supports 2D image data (H, W, C)")
-        if downsampling_attention:
-            # The JAX ResidualBlock names both its fused GroupNorm+SiLU and the
-            # attention tail's GroupNorm "GroupNorm_0", so flax refuses to build
-            # it with silu; there is no reference to hold a port against.
-            raise ValueError("downsampling_attention is not supported")
+        if downsampling_attention and actfn_from_str(actfn) is F.silu:
+            # flax refuses this model: the JAX block names its fused norm and the tail's both "GroupNorm_0".
+            raise ValueError("downsampling_attention is not supported with silu")
         device = resolve_device(device)
         self.data_shape = tuple(data_shape)
         self.pos_emb = pos_emb
@@ -79,7 +78,7 @@ class DenoisingVDMUNet(nn.Module):
         self.encode = Conv(in_channels, dim, 3, **kw)
         self.unet = SimplifiedUNet(
             dim, levels, c_dim, actfn=self.act, dropout=dropout,
-            attention_heads=n_attention_heads, **kw,
+            downsampling_attention=downsampling_attention, attention_heads=n_attention_heads, **kw,
         )
         self.decode = Conv(dim, channels, 1, **kw)
 

@@ -47,7 +47,15 @@ class GroupNormSiLU(nn.Module):
 
 
 class ResidualBlock(nn.Module):
-    """Norm -> act -> conv3x3 -> FiLM(c) -> act -> dropout -> conv3x3 + skip."""
+    """Norm -> act -> conv3x3 -> FiLM(c) -> act -> dropout -> conv3x3 + skip,
+    then with ``attention`` a tail ``out + Attention2D_0(GroupNorm_1(out))``
+    over the block's own pixels.
+
+    The tail's norm is ``GroupNorm_1``, flax's automatic name beside the
+    block's ``GroupNorm_0``: with silu the JAX block names its fused norm
+    ``GroupNorm_0`` explicitly and the tail's clashes with it, so flax
+    builds the tail for every other activation only.
+    """
 
     def __init__(
         self,
@@ -58,6 +66,8 @@ class ResidualBlock(nn.Module):
         actfn: Callable[[torch.Tensor], torch.Tensor] = F.silu,
         groups: int = 32,
         dropout: float | None = None,
+        attention: bool = False,
+        attention_heads: int = 4,
         dtype=None,
         device=None,
     ):
@@ -73,6 +83,10 @@ class ResidualBlock(nn.Module):
         self.dropout = nn.Dropout(dropout) if dropout is not None else None
         self.conv2 = Conv(dim_out, dim_out, 3, **kw)
         self.skip = Conv(dim_in, dim_out, 1, **kw) if dim_in != dim_out else None
+        if attention:
+            self.GroupNorm_1 = GroupNorm(dim_out, groups, **kw)
+            self.Attention2D_0 = Attention2D(dim_out, attention_heads, **kw)
+        self.attention = attention
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         scale, shift = self.to_scale_shift(c).chunk(2, dim=-1)
@@ -87,14 +101,18 @@ class ResidualBlock(nn.Module):
         h = self.conv2(h)
         if self.skip is not None:
             x = self.skip(x)
-        return x + h
+        out = x + h
+        if self.attention:
+            out = out + self.Attention2D_0(self.GroupNorm_1(out))
+        return out
 
 
 class SimplifiedUNet(nn.Module):
     """U-Net without down/upsampling: ``levels`` residual blocks down (each
     pushing a skip), an attention-centred bottleneck, and ``levels`` blocks up
     consuming ``cat([x, skip])``. Blocks are ``down_{i}``, ``center_in``,
-    ``center_out`` and ``up_{i}``, as in flax."""
+    ``center_out`` and ``up_{i}``, as in flax; with
+    ``downsampling_attention`` each ends in an attention tail."""
 
     def __init__(
         self,
@@ -104,6 +122,7 @@ class SimplifiedUNet(nn.Module):
         *,
         actfn: Callable[[torch.Tensor], torch.Tensor] = F.silu,
         dropout: float | None = None,
+        downsampling_attention: bool = False,
         attention_heads: int = 1,
         dtype=None,
         device=None,
@@ -111,7 +130,8 @@ class SimplifiedUNet(nn.Module):
         super().__init__()
         self.levels = levels
         block = lambda dim_in: ResidualBlock(
-            dim_in, dim, c_dim, actfn=actfn, dropout=dropout, dtype=dtype, device=device
+            dim_in, dim, c_dim, actfn=actfn, dropout=dropout, attention=downsampling_attention,
+            attention_heads=attention_heads, dtype=dtype, device=device
         )
         for i in range(levels):
             self.add_module(f"down_{i}", block(dim))

@@ -8,32 +8,40 @@
 // [dropout] v for each (batch, head) slice of contiguous [B, H, S, D] q, k
 // and v, the keep mask drawn per slice from int32 seeds [B*H], no mask in
 // memory. The TPU kernel holds a whole [S, S] slice in VMEM and loops over
-// groups of slices; here [B*H, S, D] is K6f's packed layout with one head
-// per batch row (heads = 1, every row stride D), so K5f runs the device
-// code of K2 and K6f (packed_attention_fwd.cuh, whose note gives the bf16
-// and f32 designs) under its own entry and names. The keep mask of element
-// (i, j) of slice bh is the Philox bits of packed_attention_common.cuh
-// keyed by seeds[bh], so the backward (K5b, flash_attention_bwd.cu) and the
-// plain version (flash_attention_packed.py::_philox_keep_mask) regenerate
-// it.
+// groups of slices; here a block owns a tile of query rows of one slice.
 //
-// Grid: one block of 4 warps (bf16; 8 for f32) per (64 query rows, slice).
-// At the 16x16 UNet's sampling shape, [64, 1, 256, 128], that is 256 blocks
-// over 132 SMs; tiling the whole-sequence TPU grid by slice alone would give
-// 64 blocks and leave half the card idle.
+// Head dim 128 (every path's) runs bh_attention_fwd_sm90.cuh, whose note
+// gives the designs and bounds, and which K1 launches too: in bf16 a
+// warp-specialised block of 128 query rows, TMA loads through a two-stage
+// mbarrier ring and wgmma products; in f32 exact FMAs tiled as an SGEMM.
+// Head dims 64 and 256 run the mma.sync and f32 bodies of
+// packed_attention_fwd.cuh (K2's). Each has its own __global__ name
+// (bh_attn_*). The keep mask of element (i, j) of slice bh is the Philox
+// bits of packed_attention_common.cuh keyed by seeds[bh] in every body, so
+// the backward (K5b, flash_attention_bwd.cu) and the plain version
+// (flash_attention_packed.py::_philox_keep_mask) regenerate it.
 //
-// Bound on an H100 SXM at [64, 1, 256, 128] bf16: 16.8 MB of HBM traffic (q,
-// k, v read once, o written once), 5.0 us at 3.35 TB/s, against
-// 4*B*H*S^2*D = 2.15 GFLOP, 2.2 us at 989 TFLOP/s dense bf16: the bound is
-// bytes. In f32 (the eval model's) the same 2.15 GFLOP on the CUDA cores at
-// 67 TFLOP/s, 32 us, bound the time: operations. At these sizes one launch
-// (a few us) is as long as the bound. mma.sync, no cp.async/TMA pipeline.
+// Bound on an H100 SXM at the 16x16 UNet's [64, 1, 256, 128] bf16: 16.8 MB
+// of HBM traffic (q, k, v read once, o written once), 5.0 us at 3.35 TB/s,
+// against 4*B*H*S^2*D = 2.15 GFLOP, 2.2 us at 989 TFLOP/s dense bf16: the
+// bound is bytes, and one launch (a few us) is as long. In f32 (the eval
+// model's) the same 2.15 GFLOP on the CUDA cores at 67 TFLOP/s, 32 us: the
+// bound is operations. Grid at that shape: 128 blocks (bf16) or 256 (f32)
+// over 132 SMs.
 
-#include "packed_attention_fwd.cuh"
+#include "bh_attention_fwd_sm90.cuh"
 
 namespace {
 
 using namespace bsi;
+
+__global__ void __launch_bounds__(sm90::THREADS, 1) bh_attn_fwd_bf16_sm90(__grid_constant__ const sm90::Params p) {
+  sm90::bf16_body(p);
+}
+
+__global__ void __launch_bounds__(sm90::F_THREADS) bh_attn_fwd_f32_tiled(const fwd::Args a) {
+  sm90::f32_body(a);
+}
 
 template <int D>
 __global__ void __launch_bounds__(fwd::BF16_THREADS) bh_attn_fwd_bf16(const fwd::Args a) {
@@ -46,6 +54,8 @@ __global__ void __launch_bounds__(fwd::F32_THREADS) bh_attn_fwd_f32(const fwd::A
 }
 
 struct Kernels {
+  static auto bf16_sm90() { return bh_attn_fwd_bf16_sm90; }
+  static auto f32_tiled() { return bh_attn_fwd_f32_tiled; }
   template <int D>
   static auto bf16() { return bh_attn_fwd_bf16<D>; }
   template <int D>
@@ -68,7 +78,7 @@ int bsi_flash_attention_dropout_fwd(const void* q, const void* k, const void* v,
                                     void* stream) {
   const fwd::Args a{q, k, v, o, seq, 1, 1, head_dim, head_dim, head_dim, scale,
                     static_cast<const int*>(seeds), threshold, inv_keep};
-  return fwd::dispatch<Kernels>(head_dim, is_bf16, bh, a, static_cast<cudaStream_t>(stream));
+  return sm90::dispatch<Kernels>(head_dim, is_bf16, bh, a, static_cast<cudaStream_t>(stream));
 }
 
 const char* bsi_cuda_error_string(int code) {

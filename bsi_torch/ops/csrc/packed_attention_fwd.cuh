@@ -1,9 +1,11 @@
 // The attention forward over heads addressed in place, as device code that
 // more than one kernel launches: K2 and K6f (flash_attention_packed.cu) read
-// their heads out of packed token-major layouts, K5f
-// (flash_attention_dropout.cu) reads [B*H, S, D], one head per row of the
-// grid. Each of those files wraps the bodies below in its own __global__
-// entries, so every kernel keeps its own name in a profile.
+// their heads out of packed token-major layouts, K1 and K5f
+// (flash_attention.cu, flash_attention_dropout.cu) read [B*H, S, D], one
+// head per row of the grid, at head_dim 64 and 256 (at 128 they run
+// bh_attention_fwd_sm90.cuh). Each of those files wraps the bodies below in
+// its own __global__ entries, so every kernel keeps its own name in a
+// profile.
 //
 // Both bodies compute softmax(q k^T * scale) [dropout] v for one block of 64
 // query rows of one head. Head bh (blockIdx.y) of batch row b = bh / heads,

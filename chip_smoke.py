@@ -18,7 +18,10 @@ output, gradients and eval-step bpd card vs CPU first): sampling through
 ``make_sample_fn`` at k=128, batch 64, bf16; the train step at batch 128,
 bf16, dropout 0.1; and the ELBO eval step (``make_eval_step``) on the EMA
 parameters, f32, batch 64 -- and checks that each went through its kernels
-and through no other. Prints one line per phase, a JSON line
+and through no other. Last, the gelu UNet with ``downsampling_attention``
+(an attention in every residual block) at 32x32 and 16x16: its launches of
+K1 and K5f in one forward, its f32 output card vs CPU and the bf16 b64
+forward's time. Prints one line per phase, a JSON line
 with every kernel's numbers, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits 1 before printing a result.
@@ -99,6 +102,10 @@ K5B_PER_STEP = 1
 EVAL_BATCH = 64
 EVAL_STEPS = 5
 K5_RATE = 0.1
+# The UNet with downsampling_attention (gelu: flax cannot build it with silu):
+# an attention tail on each of the 66 residual blocks plus the centre's, all
+# over the image's pixels.
+TAIL_ATTENTIONS = 2 * UNET["levels"] + 2 + 1
 
 
 def phase(name: str, **fields) -> None:
@@ -172,6 +179,71 @@ def check_attn_bwd(name: str, got, want, dtype) -> float:
     if got.dtype != want.dtype or got.shape != want.shape:
         raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
     return check_close(name, got, want, tol)
+
+
+def cuda_kernel_names(fn) -> list[str]:
+    """The names of the CUDA kernels ``fn()`` launches, from a profile."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({evt.key for evt in prof.key_averages() if evt.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def time_sdpa_bwd(leaves, grad, flush, **sdpa_kw) -> float:
+    """Median ms of SDPA's backward alone, on one graph kept across calls,
+    after three warm-up backward passes."""
+    import torch
+    from torch.nn import functional as F
+
+    out = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
+    backward = lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True)
+    for _ in range(3):
+        backward()
+    torch.cuda.synchronize()
+    return time_ms(backward, flush=flush)
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each kernel from ``nvcc -Xptxas -v``."""
+    import re
+
+    report, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            report[name] = {}
+        elif name is not None:
+            for key, pattern in (("registers", r"Used (\d+) registers"),
+                                 ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                                 ("spill_load_bytes", r"(\d+) bytes spill loads")):
+                found = re.search(pattern, line)
+                if found:
+                    report[name][key] = int(found.group(1))
+    return report
+
+
+def sass_instructions(library: Path, wanted: tuple[str, ...]) -> dict:
+    """For each kernel in ``library``, how many of its SASS instructions
+    start with each opcode of ``wanted`` (``cuobjdump -sass``)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = dict.fromkeys(wanted, 0)
+        elif name is not None and "*/" in line:
+            words = line.split("*/", 1)[1].split()
+            if words:
+                opcode = words[1] if words[0].startswith("@") and len(words) > 1 else words[0]
+                for op in wanted:
+                    if opcode.startswith(op):
+                        counts[name][op] += 1
+    return counts
 
 
 def card_vs_cpu_grads(what: str, models, algo, x, t, eps):
@@ -250,8 +322,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    sm_clock = lambda: subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                                      capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     phase("card", nvidia_smi=repr(smi), torch=torch.__version__, cuda=torch.version.cuda,
-          device=repr(torch.cuda.get_device_name(0)), count=torch.cuda.device_count())
+          device=repr(torch.cuda.get_device_name(0)), count=torch.cuda.device_count(), sm_clock=repr(sm_clock()))
 
     # Every kernel's launch counter, by the name its JSON entry carries.
     counters = {
@@ -313,10 +387,17 @@ def main() -> int:
           k7_triton_first_launch_s=f"{triton_s:.2f}", k7b_triton_first_launch_s=f"{triton_bwd_s:.2f}",
           k4f_triton_first_launch_s=f"{triton_k4f_s:.2f}", k4b_triton_first_launch_s=f"{triton_k4b_s:.2f}",
           total_s=f"{time.perf_counter() - start:.2f}", libraries=[path.name for path, _, _ in built.values()])
-    for _, _, log in built.values():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                phase("build.ptxas", info=repr(line.strip()))
+    for source, (_, _, log) in built.items():
+        for kernel, info in ptxas_report(log).items():
+            phase("build.ptxas", source=source, kernel=kernel, **info)
+    # K1's and K5f's bf16 bodies at head_dim 128 must be the Hopper design:
+    # wgmma (SASS HGMMA) fed by TMA loads (UTMALDG).
+    for source in (fa.SOURCE, fa.DROPOUT_SOURCE):
+        sass = sass_instructions(built[source][0], ("HGMMA", "UTMALDG"))
+        hopper = {name: counts for name, counts in sass.items() if "bf16_sm90" in name}
+        if not hopper or not all(counts["HGMMA"] and counts["UTMALDG"] for counts in hopper.values()):
+            raise AssertionError(f"{source}: no bf16 kernel with HGMMA and UTMALDG in its SASS: {sass}")
+        phase("build.sass", source=source, **{name: counts for name, counts in hopper.items()})
     # Triton's compiled kernels carry their register and spill counts (the
     # ptxas report of the CUDA route); older Triton may lack the fields.
     for name, wrapper in (("k7f", gn.groupnorm_silu_cuda), ("k7b", gn.groupnorm_silu_bwd_cuda),
@@ -343,6 +424,12 @@ def main() -> int:
         ((3, 2, 200, 64), torch.float32, 1e-5),
         ((2, 2, 384, 256), torch.bfloat16, 2e-2),
         ((2, 2, 384, 256), torch.float32, 1e-5),
+        ((2, 1, 1, 128), torch.bfloat16, 2e-2),
+        ((2, 1, 1, 128), torch.float32, 1e-5),
+        ((2, 2, 63, 128), torch.bfloat16, 2e-2),
+        ((2, 2, 63, 128), torch.float32, 1e-5),
+        ((2, 1, 1000, 128), torch.bfloat16, 2e-2),
+        ((2, 1, 1000, 128), torch.float32, 1e-5),
     ]:
         q, k, v = (randn(*shape, dtype=dtype) for _ in range(3))
         got = fa.flash_attention_cuda(q, k, v)
@@ -355,6 +442,7 @@ def main() -> int:
     err = check_close("K1 main", fa.flash_attention_cuda(q, k, v), fa._fwd_math(q, k, v, fa._scale(q)), 2e-2)
     k1 = dict(
         name="flash_attention", route="cuda", source="bsi_torch/ops/csrc/flash_attention.cu",
+        device_code="bsi_torch/ops/csrc/bh_attention_fwd_sm90.cuh",
         replaces="bsi_tpu/ops/flash_attention.py:232", shape=[b, h, s, d], dtype="bfloat16",
         max_abs_err=err,
         ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v), flush=flush),
@@ -575,9 +663,8 @@ def main() -> int:
         key: k2["at_rate_0_05"][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
     # The library's backward: SDPA's alone on [B, H, S, D], graph kept.
     leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
-    out_lib = F.scaled_dot_product_attention(*leaves, dropout_p=DIT_DROPOUT)
     g4 = split(g_out).contiguous()
-    library_bwd_ms = time_ms(lambda: torch.autograd.grad(out_lib, leaves, g4, retain_graph=True), flush=flush)
+    library_bwd_ms = time_sdpa_bwd(leaves, g4, flush, dropout_p=DIT_DROPOUT)
     # bytes: q, k, v and dO read once, dq, dk, dv written once; products
     # 10*B*H*S^2*D (Q K^T, dO V^T, dV, dQ, dK)
     bwd_bytes = 7 * b * seq * heads * d * qkv.element_size() + seeds.numel() * 4
@@ -593,11 +680,14 @@ def main() -> int:
                          flush=flush),
         library_ms=library_bwd_ms,
         library="scaled_dot_product_attention backward alone, dropout_p 0.05, [B, H, S, D]",
-        at_rate_0=dict(ms=time_ms(lambda: fap.flash_attention_fused_bwd_cuda(qkv, g_out, heads), flush=flush)),
+        at_rate_0=dict(ms=time_ms(lambda: fap.flash_attention_fused_bwd_cuda(qkv, g_out, heads), flush=flush),
+                       library_ms=time_sdpa_bwd(leaves, g4, flush),
+                       library="scaled_dot_product_attention backward alone, dropout_p 0"),
         **bound(bwd_bytes, bwd_flops, BF16_TENSOR_FLOPS),
     )
     phase("k3.time", **{key: k3[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
-          ms_at_rate_0=k3["at_rate_0"]["ms"], philox_calls_from_shape=3 * philox_fwd)
+          ms_at_rate_0=k3["at_rate_0"]["ms"], library_ms_at_rate_0=k3["at_rate_0"]["library_ms"],
+          philox_calls_from_shape=3 * philox_fwd)
     kernels.append(k3)
     q, k, v = (fap._merge_heads(t).contiguous() for t in (q4, k4, v4))
     k6b = dict(
@@ -618,7 +708,7 @@ def main() -> int:
     phase("k6b.time", **{key: k6b[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
           philox_calls_from_shape=3 * philox_fwd)
     kernels.append(k6b)
-    del qkv, q4, k4, v4, g_out, g4, leaves, out_lib, keeps, seeds
+    del qkv, q4, k4, v4, g_out, g4, leaves, keeps, seeds
 
     # ------------------------------------------------------ K4f vs its twin
     # shift and scale are column slices of one adaLN output [B, 6 D], as the
@@ -731,6 +821,8 @@ def main() -> int:
         ((2, 2, 384, 256), torch.bfloat16),
         ((2, 2, 384, 256), torch.float32),
         ((2, 2, 512, 128), torch.float32),
+        ((3, 1, 200, 128), torch.bfloat16),
+        ((3, 1, 200, 128), torch.float32),
     ]:
         for rate in (0.0, K5_RATE):
             q, k, v, g_out = (randn(cb, ch, cs, cd, dtype=dtype) for _ in range(4))
@@ -759,6 +851,7 @@ def main() -> int:
     keep = fa._keep(q, sd, K5_RATE)
     k5f = dict(
         name="flash_attention_dropout", route="cuda", source="bsi_torch/ops/csrc/flash_attention_dropout.cu",
+        device_code="bsi_torch/ops/csrc/bh_attention_fwd_sm90.cuh",
         replaces="bsi_tpu/ops/flash_attention.py:273", shape=[BATCH, 1, s16, d16], dtype="bfloat16", rate=0.0,
         max_abs_err=check_close("K5f main", fa.flash_attention_dropout_cuda(q, k, v),
                                 fa._fwd_math(q, k, v, fa._scale(q)), 2e-2),
@@ -779,8 +872,11 @@ def main() -> int:
         **bound(attn16_bytes(BATCH, 2) + sd.numel() * 4, attn16_flops(BATCH), BF16_TENSOR_FLOPS),
     )
     q32, k32, v32 = (randn(EVAL_BATCH, 1, s16, d16) for _ in range(3))
+    sdpa32 = F.scaled_dot_product_attention(q32, k32, v32)
+    sdpa32_err = (sdpa32 - fa._fwd_math(q32, k32, v32, fa._scale(q32))).abs().max().item()
     k5f["at_f32_eval_shape"] = dict(
         shape=[EVAL_BATCH, 1, s16, d16],
+        library_max_abs_err=sdpa32_err, library_within_1e_5=sdpa32_err <= 1e-5,
         max_abs_err=check_close("K5f f32 main", fa.flash_attention_dropout_cuda(q32, k32, v32),
                                 fa._fwd_math(q32, k32, v32, fa._scale(q32)), 1e-5),
         ms=time_ms(lambda: fa.flash_attention_dropout_cuda(q32, k32, v32), flush=flush),
@@ -792,13 +888,12 @@ def main() -> int:
     phase("k5f.time", **{key: k5f[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
           rate_0_1={key: k5f["at_rate_0_1"][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
           f32_eval_shape={key: k5f["at_f32_eval_shape"][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                                         "bound_by")})
+                                                                         "bound_by", "library_max_abs_err")})
     kernels.append(k5f)
     del q, k, v, q32, k32, v32, keep
     q, k, v, g_out = (randn(TRAIN_BATCH, 1, s16, d16, dtype=torch.bfloat16) for _ in range(4))
     sd = fap.draw_seeds(TRAIN_BATCH, 1, dev, gen).reshape(-1)
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    out_lib = F.scaled_dot_product_attention(*leaves)
     # bytes: q, k, v and dO read once, dq, dk, dv written once; products
     # 10*B*H*S^2*D (Q K^T, dO V^T, dV, dQ, dK)
     k5b_bytes = 7 * TRAIN_BATCH * s16 * d16 * 2
@@ -811,8 +906,8 @@ def main() -> int:
                                                 fa._bwd_math(q, k, v, g_out, fa._scale(q)))),
         ms=time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, g_out), flush=flush),
         plain_ms=time_ms(lambda: fa._bwd_math(q, k, v, g_out, fa._scale(q)), flush=flush),
-        library_ms=time_ms(lambda: torch.autograd.grad(out_lib, leaves, g_out, retain_graph=True), flush=flush),
-        library="scaled_dot_product_attention backward alone",
+        library_ms=time_sdpa_bwd(leaves, g_out, flush),
+        library="scaled_dot_product_attention backward alone, three warm-up passes",
         at_rate_0_1=dict(
             ms=time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, g_out, sd, K5_RATE), flush=flush),
             **bound(k5b_bytes + sd.numel() * 4, k5b_flops, BF16_TENSOR_FLOPS)),
@@ -821,7 +916,7 @@ def main() -> int:
     phase("k5b.time", **{key: k5b[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
           ms_at_rate_0_1=k5b["at_rate_0_1"]["ms"])
     kernels.append(k5b)
-    del g_out, leaves, out_lib, sd
+    del g_out, leaves, sd
 
     # --------------------------------------- whole model, card against CPU
     pos_emb = NyquistPositionalEmbedding(32, 100)
@@ -1276,11 +1371,70 @@ def main() -> int:
     path_launches["unet16_eval"] = eval_launches
     del eval16, eval_step16, state16, batch
 
+    # ---------------------- the UNet with an attention in every residual block
+    # downsampling_attention on the full-width UNet, gelu: TAIL_ATTENTIONS
+    # attentions a forward over the image's pixels, K1 at 32x32 (S = 1024) and
+    # K5f at 16x16 (S = 256), and no K7f (a gelu block's norms are plain). f32
+    # card vs CPU at batch 2, TF32 off, within 1e-4 of the output's scale (as
+    # [model.check]); the bf16 forward at batch 64, wall ms, median of 3 after
+    # a warm-up.
+    for shape, kernel in ((DATA_SHAPE, "flash_attention"), (DATA16, "flash_attention_dropout")):
+        tail_kw = dict(actfn="gelu", downsampling_attention=True, fourier_features=ff, **UNET)
+        torch.manual_seed(SEED + 12)
+        tail_cpu = DenoisingVDMUNet(shape, pos_emb, device="cpu", **tail_kw).eval()
+        tail_f32 = DenoisingVDMUNet(shape, pos_emb, device=dev, **tail_kw).eval()
+        tail_f32.load_state_dict(tail_cpu.state_dict())
+        mu = torch.randn((2,) + shape, generator=cpu_gen)
+        t = torch.rand(2, generator=cpu_gen)
+        what = f"one {shape[0]}x{shape[1]} UNet forward with attention tails"
+        reset_counts()
+        with torch.inference_mode():
+            ref = tail_cpu(mu, t)
+            out = tail_f32(mu.to(dev), t.to(dev)).cpu()
+        counts = expect_counts(f"{what}, f32", **{kernel: TAIL_ATTENTIONS})
+        scale = ref.abs().max().item()
+        tail_tol = 1e-4 * max(1.0, scale)
+        err = check_close(f"{what}: f32 card vs CPU", out, ref, tail_tol)
+        tail_bf16 = DenoisingVDMUNet(shape, pos_emb, dtype=torch.bfloat16, device=dev, **tail_kw).eval()
+        tail_bf16.load_state_dict(tail_cpu.state_dict())
+        del tail_cpu, tail_f32
+        mu64 = torch.randn((BATCH,) + shape, device=dev)
+        t64 = torch.rand(BATCH, device=dev)
+        secs = []
+        with torch.inference_mode():
+            tail_bf16(mu64, t64)  # warm-up
+            for _ in range(3):
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out64 = tail_bf16(mu64, t64)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                expect_counts(f"{what}, bf16 batch {BATCH}", **{kernel: TAIL_ATTENTIONS})
+        if out64.shape != (BATCH,) + shape or not torch.isfinite(out64).all():
+            raise AssertionError(f"{what}: bad bf16 output {tuple(out64.shape)}, "
+                                 f"finite {bool(torch.isfinite(out64).all())}")
+        phase("unet.attn_tail", image=shape, actfn="gelu", attentions=TAIL_ATTENTIONS,
+              launches_per_forward={name: n for name, n in counts.items() if n}, f32_batch=2,
+              f32_max_abs_err=f"{err:.3e}", atol=f"{tail_tol:.3e}", output_max_abs=f"{scale:.3e}",
+              bf16_batch=BATCH, bf16_forward_ms=f"{statistics.median(secs) * 1e3:.3f}",
+              bf16_forward_ms_runs=[f"{x * 1e3:.3f}" for x in secs], finite=True)
+        del tail_bf16, mu64, out64
+
     # Each kernel's launches on the main path that runs it (K6f, K6b: none does).
     for entry in kernels:
         entry["launches_by_path"] = {path: counts[entry["name"]] for path, counts in path_launches.items()}
         entry["launches"] = max(entry["launches_by_path"].values())
 
+    # Which SDPA kernel serves K5f's f32 yardstick, profiled last so that no
+    # timed path runs after the profiler.
+    q32, k32, v32 = (randn(EVAL_BATCH, 1, s16, d16) for _ in range(3))
+    k5f["at_f32_eval_shape"]["library_kernels"] = cuda_kernel_names(
+        lambda: F.scaled_dot_product_attention(q32, k32, v32))
+    phase("k5f.library_f32", kernels=k5f["at_f32_eval_shape"]["library_kernels"],
+          max_abs_err_vs_fwd_math=f"{k5f['at_f32_eval_shape']['library_max_abs_err']:.3e}",
+          within_1e_5=k5f["at_f32_eval_shape"]["library_within_1e_5"])
+    phase("card.end", sm_clock=repr(sm_clock()))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,8 @@ def _randn(gen, *shape, dtype, device):
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)])
-@pytest.mark.parametrize("shape", [(2, 1, 1024, 128), (3, 2, 200, 64), (1, 2, 384, 256)])
+@pytest.mark.parametrize("shape", [(2, 1, 1024, 128), (3, 2, 200, 64), (1, 2, 384, 256), (2, 1, 1, 128),
+                                   (2, 2, 63, 128), (1, 1, 1000, 128)])
 def test_flash_attention_kernel_matches_twin(cuda, shape, dtype, atol):
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (_randn(gen, *shape, dtype=dtype, device=cuda) for _ in range(3))
@@ -344,6 +345,19 @@ def test_flash_attention_dropout_kernel_matches_plain(cuda, s, d, dtype, rate):
 
 @pytest.mark.parametrize("rate", [0.0, K5_RATE])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(3, 1, 200, 128), (2, 1, 1, 128), (1, 2, 1000, 128)])
+def test_flash_attention_dropout_kernel_takes_ragged_lengths(cuda, shape, dtype, rate):
+    # rows past S of a slice: the bf16 body's tensor maps zero-fill them, the
+    # f32 body's copies too; keys past S are masked before the max
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    q, k, v, _, seeds, keep = _k5_inputs(gen, shape, dtype, rate, cuda)
+    got = fa.flash_attention_dropout_cuda(q, k, v, seeds, rate)
+    want = fa._fwd_math(q, k, v, fa._scale(q), keep, 1.0 - rate)
+    assert (got.float() - want).abs().max().item() <= _packed_atol(dtype)
+
+
+@pytest.mark.parametrize("rate", [0.0, K5_RATE])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("s", [128, 256, 384, 512])
 def test_flash_attention_bwd_kernel_matches_plain(cuda, s, d, dtype, rate):
@@ -440,6 +454,62 @@ def test_tiny_unet16_on_card_matches_cpu(cuda):
     assert fa.flash_attention_dropout_cuda.launches == k5f + 1 + 1 + 2
     assert fa.flash_attention_bwd_cuda.launches == k5b + 1
     assert fa.flash_attention_cuda.launches == k1
+
+
+@pytest.mark.parametrize("side", [16, 32])
+def test_tiny_gelu_unet_with_attention_tails_on_card_matches_cpu(cuda, side):
+    # downsampling_attention: an attention in each of the 4 blocks and the
+    # centre, over S = side^2 pixels: K5f at 16x16, K1 at 32x32. f32 against
+    # the plain path on the CPU.
+    from bsi_torch.models import DenoisingVDMUNet
+    from bsi_torch.nn import FourierFeatures, NyquistPositionalEmbedding
+
+    torch.manual_seed(0)
+    shape = (side, side, 3)
+    kw = dict(data_shape=shape, pos_emb=NyquistPositionalEmbedding(16, 100), dim=128, levels=1, actfn="gelu",
+              downsampling_attention=True, fourier_features=FourierFeatures(6, 8))
+    cpu = DenoisingVDMUNet(device="cpu", **kw).eval()
+    card = DenoisingVDMUNet(device=cuda, **kw).eval()
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    mu, t = torch.randn((2,) + shape, generator=gen), torch.rand(2, generator=gen)
+    k5f, k1 = fa.flash_attention_dropout_cuda.launches, fa.flash_attention_cuda.launches
+    with torch.inference_mode():
+        want, got = cpu(mu, t), card(mu.to(cuda), t.to(cuda)).cpu()
+    assert fa.flash_attention_dropout_cuda.launches == k5f + (5 if side == 16 else 0)
+    assert fa.flash_attention_cuda.launches == k1 + (5 if side == 32 else 0)
+    assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+def test_dit_remat_on_card_redraws_the_same_dropout(cuda):
+    # remat with dropout 0.05 in K2 (seeds drawn inside each block) and
+    # nn.Dropout: the recompute restores the card's RNG state, so the masks
+    # and the gradients are those without remat. f32; each leaf within 1e-6
+    # of its norm, the kernels' own run-to-run order of sums.
+    from bsi_torch.core import BSI
+    from bsi_torch.models import DenoisingDiT
+
+    kw = dict(data_shape=(32, 32, 3), patch_size=2, dim=128, depth=2, heads=2, dropout=0.05)
+    algo = BSI(data_shape=(32, 32, 3), lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=50, preconditioning="edm")
+    gen = torch.Generator().manual_seed(2)
+    x = torch.rand(2, 32, 32, 3, generator=gen) * 2 - 1
+    t, eps = algo.train_noise(gen, x)
+    grads = []
+    for remat in (False, True):
+        torch.manual_seed(0)
+        model = DenoisingDiT(remat=remat, device=cuda, **kw).train()
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if ".ada_out." in name:
+                    p.normal_(0.0, 0.02)
+        named = dict(model.named_parameters())
+        torch.cuda.manual_seed(3)
+        k2 = fap.flash_attention_fused_cuda.launches
+        loss = algo._train_loss_on(model, x.to(cuda), t.to(cuda), eps.to(cuda)).mean()
+        grads.append(torch.autograd.grad(loss, list(named.values())))
+        assert fap.flash_attention_fused_cuda.launches == k2 + (4 if remat else 2)
+    for (name, _), want, got in zip(named.items(), *grads):
+        assert (got - want).norm() <= 1e-6 * want.norm() + 1e-12, name
 
 
 # ------------------------------------------------- K4f: LayerNorm+modulate
