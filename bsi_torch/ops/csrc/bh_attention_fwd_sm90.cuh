@@ -1,37 +1,61 @@
-// The whole-sequence attention forward over contiguous [B*H, S, 128], as
-// device code that two kernels launch under their own names: K1
-// (flash_attention.cu) and K5f (flash_attention_dropout.cu). Both compute
-// softmax(q k^T * scale) [dropout] v for each slice, the function of the TPU
-// kernels bsi_tpu/ops/flash_attention.py::flash_attention and
-// flash_attention_dropout. Head dims 64 and 256 do not come here: each
-// entry routes them, by head_dim, to the mma.sync and f32 bodies of
-// packed_attention_fwd.cuh.
+// The attention forward on Hopper, as device code that four kernels launch
+// under their own names: K1 (flash_attention.cu), K5f
+// (flash_attention_dropout.cu), and K2 and K6f (flash_attention_packed.cu).
+// All compute softmax(q k^T * scale) [dropout] v per head, the function of
+// the TPU kernels bsi_tpu/ops/flash_attention.py::flash_attention and
+// flash_attention_dropout and bsi_tpu/ops/flash_attention_packed.py::
+// flash_attention_fused and flash_attention_packed. Heads are addressed as
+// packed_attention_fwd.cuh's fwd::Args has them: K1 and K5f read contiguous
+// [B*H, S, D] (batch B*H, one head a row), K2 the grouped qkv buffer
+// [B, S, 3*H*D], K6f three [B, S, H*D] tensors. bf16 at head_dim 256, and
+// f32 at 64 and 256, run packed_attention_fwd.cuh's bodies; `dispatch`
+// below routes.
 //
-// bf16 (bf16_body): the Hopper design. A block owns 128 query rows of one
-// slice and runs three warpgroups. Warpgroup 2 is the producer: one thread
-// keeps TMA loads of 128-key K and V tiles in flight through a ring of three
-// stages, each signalled by an mbarrier ("full") and handed back by the
-// consumers ("empty"); setmaxnreg gives its registers to the consumers.
+// bf16 at head_dim 64 or 128 (bf16_body<D>): the Hopper design. A work item
+// is 128 query rows of one head; items are ordered (query tile, head,
+// batch), the tile fastest. The launch is persistent: one block an SM (or
+// one an item, if there are fewer), block i taking items i, i + grid, ...,
+// so neighbouring blocks run the tiles of one head at once and its K and V
+// come from L2 for the second. A block runs three warpgroups. Warpgroup 2
+// is the producer: one thread loads each item's Q (two buffers at D = 64,
+// so the next item's Q lands while this one runs; one at 128, where the
+// ring fills the shared memory) and keeps TMA loads of 128-key K and V
+// tiles in flight through a ring of stages (four at D = 64, three at 128)
+// that runs on across items, each stage signalled by an mbarrier ("full")
+// and handed back by the consumers ("empty"); setmaxnreg gives its
+// registers to the consumers.
 // Warpgroups 0 and 1 are the consumers, 64 query rows each:
-//   S = Q K^T      wgmma m64n128k16, A (Q) and B (K, K-major) from shared memory;
+//   S = Q K^T      wgmma m64n128k16 over D / 16 k-steps, A (Q) and B (K,
+//                  K-major) from shared memory;
 //   online softmax in registers: the row max of the f32 logits and the sum
 //                  in f32 over a row's quad of lanes (shuffles), keys past S
-//                  at -inf, exp(scale (s - max)) as one FMA and one ex2 (the
-//                  scale folded into the exponent's factor), dropout after
-//                  the row sum;
-//   O += P V       wgmma m64n128k16, A (P rounded to bf16) from registers, B
+//                  at -inf in the last tile only, exp(scale (s - max)) as one
+//                  FMA and one ex2 (the scale folded into the exponent's
+//                  factor), dropout after the row sum;
+//   O += P V       wgmma m64nDk16, A (P rounded to bf16) from registers, B
 //                  (V) from shared memory in its MN-major (transposed) form;
-// and the output divided by the row sum at the end. The products are
-// software-pipelined: S of tile t is issued with P V of tile t - 1, and the
-// softmax of tile t runs while that product is on the tensor cores. Tiles
-// arrive through 3-D tensor maps over [B*H, S, 128] with 128-byte swizzle,
-// two 64-column boxes a tile (a swizzle row is 128 bytes); rows past S of a
-// slice are zero-filled by the TMA unit, never the next slice's. The wgmma
-// accumulator gives each warp rows 16w + lane/4 (+8) and column pairs
-// 2 (lane % 4), as mma.sync m16n8 does: one S accumulator is P's A operand,
-// and one Philox call gives the keep bits of the four elements a lane holds
-// of each 8-key column block, the mask of packed_attention_common.cuh,
-// which K5b regenerates.
+// and the output divided by the row sum (and keep_prob) at the end, while
+// the producer's next loads are in flight: at D = 64 into a 128-byte
+// swizzled shared-memory box a warpgroup and out by one TMA store (whole
+// 128-byte rows, asynchronous; the TMA unit drops rows past S), at 128 from
+// registers at row stride out_ld. The products are software-pipelined: S of
+// tile t is issued with P V of tile t - 1, and the softmax of tile t runs
+// while that product is on the tensor cores.
+//
+// Tiles arrive through 3-D tensor maps over [batch, seq, in_ld] (dims
+// in_ld, seq, batch) with 128-byte swizzle, boxes of 64 columns x 128 rows
+// x 1: a head's tile is D / 64 boxes at its first column. The TMA unit
+// zero-fills rows past S inside each batch row, so no row of the next is
+// read. The wgmma descriptors match the swizzle: K-major Q and K with SBO
+// 1,024 bytes (an 8-row atom), a 16-column k-step a 32-byte advance inside
+// the 128-byte row and a box's width (64 columns) BOX bytes further; V
+// MN-major with SBO 1,024 bytes per 8 keys and LBO BOX to its second
+// 64-column box (at D = 64 one box is the whole width and the LBO is not
+// read). The wgmma accumulator gives each warp rows 16w + lane/4 (+8) and
+// column pairs 2 (lane % 4), as mma.sync m16n8 does: one S accumulator is
+// P's A operand, and one Philox call gives the keep bits of the four
+// elements a lane holds of each 8-key column block, the mask of
+// packed_attention_common.cuh, which K3, K5b and K6b regenerate.
 //
 // f32 (f32_body): exact f32 FMAs on the CUDA cores, no TF32, as the TPU
 // kernel's Precision.HIGHEST, tiled as an SGEMM. A block of 256 threads
@@ -54,8 +78,11 @@
 // unit (16 a cycle) and the rest of the softmax ~600 on the f32 pipes: the
 // softmax's instructions are what this design pipelines and trims. K5f at
 // [64, 1, 256, 128] bf16: 16.8 MB, 5.0 us, against 2.15 GFLOP, 2.2 us:
-// bytes, and a launch is as long. In f32 the same 2.15 GFLOP on the CUDA
-// cores at 67 TFLOP/s, 32 us: operations.
+// bytes, and a launch is as long. K2 at DiT-L/2 (qkv [64, 256, 3072], 16
+// heads of 64): 134.2 MB, 40 us, against 17.2 GFLOP, 17 us: bytes, over
+// 2,048 items of ~1.5 us of products and softmax each, 15.5 an SM, so the
+// persistent ring's overlap of loads, products and stores is what counts.
+// In f32 K5f's 2.15 GFLOP on the CUDA cores at 67 TFLOP/s, 32 us: operations.
 
 #pragma once
 
@@ -66,30 +93,49 @@
 namespace bsi {
 namespace sm90 {
 
-constexpr int D = 128;
-
 // ------------------------------------------------------------- bf16, wgmma
 
-constexpr int BQ = 128;       // query rows per block, 64 per consumer warpgroup
+constexpr int BQ = 128;       // query rows per work item, 64 per consumer warpgroup
 constexpr int BK = 128;       // keys per K/V tile
-constexpr int STAGES = 3;     // K/V tiles in flight
 constexpr int THREADS = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
 constexpr int CONSUMERS = 256;
-// A tile of 128 rows x 128 columns is two boxes of 128 rows x 64 columns
-// (128 bytes a row, 8-row swizzle atoms of 1,024 bytes), HALF bytes apart.
-constexpr uint32_t HALF = 128 * 128;
-constexpr uint32_t TILE = 2 * HALF;
-constexpr uint32_t SMEM_Q = 0;
-constexpr uint32_t SMEM_K = SMEM_Q + TILE;               // + stage * 2 * TILE
-constexpr uint32_t SMEM_BAR = SMEM_K + STAGES * 2 * TILE;  // q_full, k_full[], v_full[], empty[]
-constexpr int SMEM_BYTES = SMEM_BAR + 8 * (1 + 3 * STAGES) + 1024;  // + room to align the base to 1,024
+// One TMA box: 128 rows x 64 bf16 columns, 128 bytes a row in 8-row swizzle
+// atoms of 1,024 bytes. A tile of head_dim D is D / 64 boxes, BOX bytes apart.
+constexpr uint32_t BOX = 128 * 128;
 
+// The shared-memory plan at head_dim D: Q_BUFS query tiles (two at D = 64,
+// so the next work item's Q lands while this one runs), a ring of STAGES
+// K and V tiles, at D = 64 a 64-row output box for each consumer
+// warpgroup, which a TMA store writes out (at 128 the ring fills the
+// shared memory and the consumers store from registers), then the
+// mbarriers.
+template <int D>
+struct Layout {
+  static constexpr int BOXES = D / 64;
+  static constexpr uint32_t TILE = BOXES * BOX;
+  static constexpr int Q_BUFS = D == 64 ? 2 : 1;
+  static constexpr int STAGES = D == 64 ? 4 : 3;
+  static constexpr bool TMA_STORE = D == 64;
+  static constexpr uint32_t Q = 0;
+  static constexpr uint32_t K = Q + Q_BUFS * TILE;  // + stage * 2 * TILE; V a TILE further
+  static constexpr uint32_t O = K + STAGES * 2 * TILE;  // + consumer warpgroup * BOX / 2
+  // q_full[Q_BUFS], q_empty[Q_BUFS], k_full[STAGES], v_full[STAGES], empty[STAGES]
+  static constexpr uint32_t BAR = O + (TMA_STORE ? BOX : 0);
+  static constexpr int BYTES = BAR + 8 * (2 * Q_BUFS + 3 * STAGES) + 1024;  // + room to align the base
+};
+
+// Heads addressed as fwd::Args has them: head h of batch row b reads q, k
+// and v at columns (h / hpg) * group_stride + (h % hpg) * D of rows
+// b * seq + i of [batch, seq, in_ld], and writes o at b * seq * out_ld + h * D.
 struct Params {
-  CUtensorMap q, k, v;  // [bh, seq, 128] bf16, boxes of 128 rows x 64 columns
+  CUtensorMap q, k, v;  // over [batch, seq, in_ld] bf16: dims (in_ld, seq, batch), boxes 64 x 128 x 1
+  CUtensorMap out;      // over [batch, seq, out_ld] bf16, boxes 64 x 64 x 1 (TMA_STORE)
   bf16* o;
-  int seq;
+  int seq, heads, hpg, group_stride;
+  long long out_ld;
+  int n_qt, n_items;  // query tiles of a head; work items, (query tile, head, batch) with the tile fastest
   float scale;
-  const int* seeds;  // int32 [bh], or null: no dropout
+  const int* seeds;  // int32 [batch * heads], or null: no dropout
   uint32_t threshold;
   float inv_keep;
 };
@@ -121,8 +167,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// One box of `map` at (column c0, row c1, slice c2) into shared memory at
-// `dst`, completing `bar`'s transaction bytes.
+// One box of `map` at (column c0, row c1, batch row c2) into shared memory
+// at `dst`, completing `bar`'s transaction bytes.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
                                          int c1, int c2) {
   asm volatile(
@@ -130,6 +176,21 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// The box of `map` at (column c0, row c1, batch row c2) from shared memory
+// at `src`, in this thread's bulk async-group; rows past the map's end are
+// not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
+// Until `threads` threads (whole warps) have reached named barrier `id`.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // A wgmma shared-memory descriptor of the 128-byte swizzled layout: start
@@ -158,9 +219,10 @@ __device__ __forceinline__ float ex2(float x) {
 
 // Keeps the compiler from touching a wgmma's registers (accumulator or A
 // operand) on this side of the wait that completes it.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[BK / 16][4]) {
 #pragma unroll
@@ -193,8 +255,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a_desc, uint64
       : "l"(a_desc), "l"(b_desc), "r"(accumulate));
 }
 
-// d (64 x 128, f32) += A (64 x 16 bf16 in registers: per warp, the A
-// fragment of mma.sync m16n8k16) B (16 x 128 bf16, shared memory, MN-major).
+// d (64 x N, f32) += A (64 x 16 bf16 in registers: per warp, the A fragment
+// of mma.sync m16n8k16) B (16 x N bf16, shared memory, MN-major), N = 128 or 64.
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b_desc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
@@ -214,24 +276,47 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
 }
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
+}
 
+template <int D>
 __device__ __forceinline__ void bf16_body(const Params& p) {
+  using L = Layout<D>;
+  constexpr int STAGES = L::STAGES;
+  constexpr int Q_BUFS = L::Q_BUFS;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) & ~1023u;
-  const uint32_t q_full = base + SMEM_BAR;
-  auto k_full = [&](int s) { return base + SMEM_BAR + 8 + 8 * s; };
-  auto v_full = [&](int s) { return base + SMEM_BAR + 8 + 8 * (STAGES + s); };
-  auto empty = [&](int s) { return base + SMEM_BAR + 8 + 8 * (2 * STAGES + s); };
-  auto k_tile = [&](int s) { return base + SMEM_K + 2 * TILE * s; };
-  auto v_tile = [&](int s) { return base + SMEM_K + 2 * TILE * s + TILE; };
+  const uint32_t bar = base + L::BAR;
+  auto q_full = [&](int b) { return bar + 8 * b; };
+  auto q_empty = [&](int b) { return bar + 8 * (Q_BUFS + b); };
+  auto k_full = [&](int s) { return bar + 8 * (2 * Q_BUFS + s); };
+  auto v_full = [&](int s) { return bar + 8 * (2 * Q_BUFS + STAGES + s); };
+  auto empty = [&](int s) { return bar + 8 * (2 * Q_BUFS + 2 * STAGES + s); };
+  auto q_tile = [&](int b) { return base + L::Q + L::TILE * b; };
+  auto k_tile = [&](int s) { return base + L::K + 2 * L::TILE * s; };
+  auto v_tile = [&](int s) { return base + L::K + 2 * L::TILE * s + L::TILE; };
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
   const int n_tiles = (p.seq + BK - 1) / BK;
   const int wg = threadIdx.x / 128;
+  // Work item -> (query tile, batch * heads + head, first column of the head).
+  auto head_col = [&](int bh) { return (bh % p.heads / p.hpg) * p.group_stride + (bh % p.heads % p.hpg) * D; };
 
   if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
+    for (int b = 0; b < Q_BUFS; ++b) {
+      mbar_init(q_full(b), 1);
+      mbar_init(q_empty(b), CONSUMERS);
+    }
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(k_full(s), 1);
       mbar_init(v_full(s), 1);
@@ -243,20 +328,34 @@ __device__ __forceinline__ void bf16_body(const Params& p) {
 
   if (wg == 2) {
     // ------------------------------------------------------------ producer
+    // One thread walks this block's work items, loading each one's Q into
+    // its buffer and its K/V tiles through the ring, which runs on across
+    // items: the next item's loads are in flight while the consumers finish
+    // this one and write its output.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 256) {
-      mbar_expect_tx(q_full, TILE);
-      tma_load(base + SMEM_Q, &p.q, q_full, 0, q0, bh);
-      tma_load(base + SMEM_Q + HALF, &p.q, q_full, 64, q0, bh);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % STAGES;
-        if (t >= STAGES) mbar_wait(empty(s), (t / STAGES - 1) & 1);
-        mbar_expect_tx(k_full(s), TILE);
-        tma_load(k_tile(s), &p.k, k_full(s), 0, t * BK, bh);
-        tma_load(k_tile(s) + HALF, &p.k, k_full(s), 64, t * BK, bh);
-        mbar_expect_tx(v_full(s), TILE);
-        tma_load(v_tile(s), &p.v, v_full(s), 0, t * BK, bh);
-        tma_load(v_tile(s) + HALF, &p.v, v_full(s), 64, t * BK, bh);
+      int kt = 0;  // K/V tiles this block has loaded
+      int qi = 0;  // work items this block has loaded
+      for (int item = blockIdx.x; item < p.n_items; item += gridDim.x, ++qi) {
+        const int bh = item / p.n_qt;
+        const int b = bh / p.heads;
+        const int col = head_col(bh);
+        const int qb = qi % Q_BUFS;
+        if (qi >= Q_BUFS) mbar_wait(q_empty(qb), (qi / Q_BUFS - 1) & 1);
+        mbar_expect_tx(q_full(qb), L::TILE);
+#pragma unroll
+        for (int c = 0; c < L::BOXES; ++c)
+          tma_load(q_tile(qb) + c * BOX, &p.q, q_full(qb), col + 64 * c, (item % p.n_qt) * BQ, b);
+        for (int t = 0; t < n_tiles; ++t, ++kt) {
+          const int s = kt % STAGES;
+          if (kt >= STAGES) mbar_wait(empty(s), (kt / STAGES - 1) & 1);
+          mbar_expect_tx(k_full(s), L::TILE);
+#pragma unroll
+          for (int c = 0; c < L::BOXES; ++c) tma_load(k_tile(s) + c * BOX, &p.k, k_full(s), col + 64 * c, t * BK, b);
+          mbar_expect_tx(v_full(s), L::TILE);
+#pragma unroll
+          for (int c = 0; c < L::BOXES; ++c) tma_load(v_tile(s) + c * BOX, &p.v, v_full(s), col + 64 * c, t * BK, b);
+        }
       }
     }
   } else {
@@ -265,153 +364,191 @@ __device__ __forceinline__ void bf16_body(const Params& p) {
     const int warp = (threadIdx.x % 128) / 32;
     const int lane = threadIdx.x % 32;
     const int quad = lane % 4;
-    const int row = q0 + wg * 64 + warp * 16 + lane / 4;  // and row + 8
-    const uint32_t seed = p.seeds != nullptr ? static_cast<uint32_t>(p.seeds[bh]) : 0u;
-    // This warpgroup's 64 rows of each Q box.
-    const uint32_t q_rows = base + SMEM_Q + wg * 64 * 128;
-
-    float o[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
-    float m_run[2] = {-INFINITY, -INFINITY};
-    float l_run[2] = {0.f, 0.f};
-    float sc[64];      // S of the newest tile, then its probabilities
-    uint32_t pa[BK / 16][4];  // the previous tile's probabilities as bf16 A fragments
-
-    // S = Q K^T of tile t into sc: 8 steps of 16 columns of head_dim, 4 in
-    // each box. Issued, not waited for.
-    auto issue_s = [&](int t) {
-#pragma unroll
-      for (int i = 0; i < 64; ++i) sc[i] = 0.f;
-      mbar_wait(k_full(t % STAGES), (t / STAGES) & 1);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * HALF + (kk % 4) * 32;
-        wgmma_ss(sc, sw128_desc(q_rows + off, 16, 1024), sw128_desc(k_tile(t % STAGES) + off, 16, 1024), 1);
-      }
-      wgmma_commit();
-    };
-    // O += P V of tile t from pa: key step j is S column blocks 2j and 2j +
-    // 1, the A fragment of mma.sync m16n8k16; V's 16 keys of step j are 2
-    // swizzle atoms (1,024 bytes apart) of both 64-column boxes (HALF apart).
-    auto issue_pv = [&](int t) {
-      mbar_wait(v_full(t % STAGES), (t / STAGES) & 1);
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j)
-        wgmma_rs(o, pa[j], sw128_desc(v_tile(t % STAGES) + j * 16 * 128, HALF, 1024));
-      wgmma_commit();
-    };
-    // Online softmax of tile t in sc: element i is row (i >> 1) & 1 (+8),
-    // key 8 (i / 4) + 2 quad + (i & 1) of the tile. The running max is of
-    // the unscaled logits (the scale is positive), and exp(scale (s - m))
-    // is one FMA and one ex2. Returns O's rescale.
     const float scale_log2e = p.scale * 1.4426950408889634f;
-    auto softmax = [&](int t, float (&alpha)[2]) {
-      const int k0 = t * BK;
-      if (k0 + BK > p.seq) {  // the last tile: keys past S at -inf
-#pragma unroll
-        for (int i = 0; i < 64; ++i)
-          if (k0 + (i / 4) * 8 + quad * 2 + (i & 1) >= p.seq) sc[i] = -INFINITY;
-      }
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-      float sum[2] = {0.f, 0.f};
-      float neg_max[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m_run[r], mx[r]);  // finite: every tile has a valid key
-        alpha[r] = ex2((m_run[r] - m_new) * scale_log2e);
-        m_run[r] = m_new;
-        neg_max[r] = -m_new * scale_log2e;
-      }
-#pragma unroll
-      for (int i = 0; i < 64; ++i) {
-        const float e = ex2(fmaf(sc[i], scale_log2e, neg_max[(i >> 1) & 1]));
-        sc[i] = e;
-        sum[(i >> 1) & 1] += e;
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-        l_run[r] = l_run[r] * alpha[r] + sum[r];
-      }
-      // Dropout after the row sum: the sum is over the undropped probabilities.
-      if (p.seeds != nullptr) {
-#pragma unroll
-        for (int nt = 0; nt < BK / 8; ++nt) {
-          bool keep[4];
-          keep_block(keep, seed, row, k0 + nt * 8 + quad * 2, p.threshold);
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (!keep[e]) sc[4 * nt + e] = 0.f;
-        }
-      }
-    };
-    auto pack_p = [&] {
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) {
-        pa[j][0] = pack_bf16(sc[8 * j + 0], sc[8 * j + 1]);
-        pa[j][1] = pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
-        pa[j][2] = pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
-        pa[j][3] = pack_bf16(sc[8 * j + 6], sc[8 * j + 7]);
-      }
-    };
+    int kt = 0;  // K/V tiles this block has consumed before the current item
+    int qi = 0;
+    for (int item = blockIdx.x; item < p.n_items; item += gridDim.x, ++qi, kt += n_tiles) {
+      const int bh = item / p.n_qt;
+      const int row = (item % p.n_qt) * BQ + wg * 64 + warp * 16 + lane / 4;  // and row + 8
+      const uint32_t seed = p.seeds != nullptr ? static_cast<uint32_t>(p.seeds[bh]) : 0u;
+      const int qb = qi % Q_BUFS;
+      // This warpgroup's 64 rows of each Q box.
+      const uint32_t q_rows = q_tile(qb) + wg * 64 * 128;
+      auto stage = [&](int t) { return (kt + t) % STAGES; };
+      auto phase = [&](int t) { return static_cast<uint32_t>((kt + t) / STAGES) & 1u; };
 
-    // Software pipeline: the tensor cores run S of tile t and P V of tile
-    // t - 1 back to back while this warpgroup waits for S alone, so the
-    // softmax of tile t overlaps P V of tile t - 1. O's rescale by tile t's
-    // max waits for that product.
-    float alpha[2];
-    mbar_wait(q_full, 0);
-    issue_s(0);
-    wgmma_wait<0>();
-    fence_regs(sc);
-    softmax(0, alpha);
-    pack_p();
-    for (int t = 1; t < n_tiles; ++t) {
-      issue_s(t);
-      issue_pv(t - 1);
-      wgmma_wait<1>();  // S of tile t; P V of tile t - 1 may still run
+      float o[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      float m_run[2] = {-INFINITY, -INFINITY};
+      float l_run[2] = {0.f, 0.f};
+      float sc[64];             // S of the newest tile, then its probabilities
+      uint32_t pa[BK / 16][4];  // the previous tile's probabilities as bf16 A fragments
+
+      // S = Q K^T of tile t into sc: D / 16 steps of 16 columns of head_dim,
+      // 4 in each box. Issued, not waited for.
+      auto issue_s = [&](int t) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+        mbar_wait(k_full(stage(t)), phase(t));
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk / 4) * BOX + (kk % 4) * 32;
+          wgmma_ss(sc, sw128_desc(q_rows + off, 16, 1024), sw128_desc(k_tile(stage(t)) + off, 16, 1024), 1);
+        }
+        wgmma_commit();
+      };
+      // O += P V of tile t from pa: key step j is S column blocks 2j and 2j +
+      // 1, the A fragment of mma.sync m16n8k16; V's 16 keys of step j are 2
+      // swizzle atoms (1,024 bytes apart) of each 64-column box (BOX apart;
+      // at D = 64 the one box spans the whole width and the LBO is unused).
+      auto issue_pv = [&](int t) {
+        mbar_wait(v_full(stage(t)), phase(t));
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < BK / 16; ++j) wgmma_rs(o, pa[j], sw128_desc(v_tile(stage(t)) + j * 16 * 128, BOX, 1024));
+        wgmma_commit();
+      };
+      // Online softmax of tile t in sc: element i is row (i >> 1) & 1 (+8),
+      // key 8 (i / 4) + 2 quad + (i & 1) of the tile. The running max is of
+      // the unscaled logits (the scale is positive), and exp(scale (s - m))
+      // is one FMA and one ex2. Sets O's rescale.
+      auto softmax = [&](int t, float (&alpha)[2]) {
+        const int k0 = t * BK;
+        if (k0 + BK > p.seq) {  // the last tile: keys past S at -inf
+#pragma unroll
+          for (int i = 0; i < 64; ++i)
+            if (k0 + (i / 4) * 8 + quad * 2 + (i & 1) >= p.seq) sc[i] = -INFINITY;
+        }
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+        float sum[2] = {0.f, 0.f};
+        float neg_max[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m_run[r], mx[r]);  // finite: every tile has a valid key
+          alpha[r] = ex2((m_run[r] - m_new) * scale_log2e);
+          m_run[r] = m_new;
+          neg_max[r] = -m_new * scale_log2e;
+        }
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const float e = ex2(fmaf(sc[i], scale_log2e, neg_max[(i >> 1) & 1]));
+          sc[i] = e;
+          sum[(i >> 1) & 1] += e;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+          sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+          l_run[r] = l_run[r] * alpha[r] + sum[r];
+        }
+        // Dropout after the row sum: the sum is over the undropped probabilities.
+        if (p.seeds != nullptr) {
+#pragma unroll
+          for (int nt = 0; nt < BK / 8; ++nt) {
+            bool keep[4];
+            keep_block(keep, seed, row, k0 + nt * 8 + quad * 2, p.threshold);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (!keep[e]) sc[4 * nt + e] = 0.f;
+          }
+        }
+      };
+      auto pack_p = [&] {
+#pragma unroll
+        for (int j = 0; j < BK / 16; ++j) {
+          pa[j][0] = pack_bf16(sc[8 * j + 0], sc[8 * j + 1]);
+          pa[j][1] = pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
+          pa[j][2] = pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
+          pa[j][3] = pack_bf16(sc[8 * j + 6], sc[8 * j + 7]);
+        }
+      };
+
+      // Software pipeline: the tensor cores run S of tile t and P V of tile
+      // t - 1 back to back while this warpgroup waits for S alone, so the
+      // softmax of tile t overlaps P V of tile t - 1. O's rescale by tile t's
+      // max waits for that product.
+      float alpha[2];
+      mbar_wait(q_full(qb), (qi / Q_BUFS) & 1);
+      issue_s(0);
+      wgmma_wait<0>();
       fence_regs(sc);
-      softmax(t, alpha);
+      softmax(0, alpha);
+      pack_p();
+      for (int t = 1; t < n_tiles; ++t) {
+        issue_s(t);
+        issue_pv(t - 1);
+        wgmma_wait<1>();  // S of tile t; P V of tile t - 1 may still run
+        fence_regs(sc);
+        softmax(t, alpha);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
+        mbar_arrive(empty(stage(t - 1)));
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+        pack_p();
+      }
+      mbar_arrive(q_empty(qb));  // every S of this item is done: its Q buffer is free
+      issue_pv(n_tiles - 1);
       wgmma_wait<0>();
       fence_regs(o);
-      fence_regs(pa);
-      mbar_arrive(empty((t - 1) % STAGES));
-#pragma unroll
-      for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
-      pack_p();
-    }
-    issue_pv(n_tiles - 1);
-    wgmma_wait<0>();
-    fence_regs(o);
-    mbar_arrive(empty((n_tiles - 1) % STAGES));
+      mbar_arrive(empty(stage(n_tiles - 1)));
 
-    // Epilogue: divide by the row sums (and keep_prob), write bf16 pairs.
-    const float inv0 = p.inv_keep / l_run[0];
-    const float inv1 = p.inv_keep / l_run[1];
-    bf16* oh = p.o + static_cast<long long>(bh) * p.seq * D;
+      // Epilogue: divide by the row sums (and keep_prob), write bf16 pairs
+      // while the producer's loads of the next item are in flight.
+      const float inv0 = p.inv_keep / l_run[0];
+      const float inv1 = p.inv_keep / l_run[1];
+      if constexpr (L::TMA_STORE) {
+        // Into this warpgroup's 64-row box, 128-byte swizzled as the TMA
+        // unit reads it (16-byte chunk c of row r at chunk c ^ (r % 8): a
+        // warp's stores fall on 32 banks), then one TMA store. The box is
+        // refilled once the last item's store has read it.
+        const uint32_t box = base + L::O + wg * (BOX / 2);
+        const int r = warp * 16 + lane / 4;  // and r + 8
+        if (threadIdx.x % 128 == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        named_barrier(1 + wg, 128);
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      const int col = nt * 8 + quad * 2;
-      if (row < p.seq)
-        *reinterpret_cast<uint32_t*>(oh + static_cast<long long>(row) * D + col) =
-            pack_bf16(o[4 * nt] * inv0, o[4 * nt + 1] * inv0);
-      if (row + 8 < p.seq)
-        *reinterpret_cast<uint32_t*>(oh + static_cast<long long>(row + 8) * D + col) =
-            pack_bf16(o[4 * nt + 2] * inv1, o[4 * nt + 3] * inv1);
+        for (int nt = 0; nt < D / 8; ++nt) {
+          const uint32_t at = box + r * 128 + ((nt ^ (r % 8)) << 4) + quad * 4;
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at), "r"(pack_bf16(o[4 * nt] * inv0, o[4 * nt + 1] * inv0))
+                       : "memory");
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at + 8 * 128),
+                       "r"(pack_bf16(o[4 * nt + 2] * inv1, o[4 * nt + 3] * inv1))
+                       : "memory");
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        named_barrier(1 + wg, 128);
+        if (threadIdx.x % 128 == 0) {
+          tma_store(&p.out, box, (bh % p.heads) * D, (item % p.n_qt) * BQ + wg * 64, bh / p.heads);
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        }
+      } else {
+        bf16* oh = p.o + static_cast<long long>(bh / p.heads) * p.seq * p.out_ld + (bh % p.heads) * D;
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt) {
+          const int col = nt * 8 + quad * 2;
+          if (row < p.seq)
+            *reinterpret_cast<uint32_t*>(oh + row * p.out_ld + col) = pack_bf16(o[4 * nt] * inv0, o[4 * nt + 1] * inv0);
+          if (row + 8 < p.seq)
+            *reinterpret_cast<uint32_t*>(oh + (row + 8) * p.out_ld + col) =
+                pack_bf16(o[4 * nt + 2] * inv1, o[4 * nt + 3] * inv1);
+        }
+      }
     }
+    // The last TMA stores are done before the block's shared memory goes.
+    if (L::TMA_STORE && threadIdx.x % 128 == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
 }
 
 // ------------------------------------------------------------ f32, SGEMM-tiled
 
+constexpr int D = 128;  // the f32 body's head_dim
 constexpr int F_BQ = 64;
 constexpr int F_BK = 64;
 constexpr int F_THREADS = 256;
@@ -639,37 +776,55 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D map over contiguous [bh, seq, 128] bf16, boxes of 128 rows x 64
-// columns of one slice, 128-byte swizzle; rows past seq read as zero.
-inline bool encode_bhsd(CUtensorMap* map, const void* ptr, int bh, int seq) {
+// A 3-D map over [batch, seq, ld] bf16 at `ptr` (rows ld elements apart):
+// dims (ld, seq, batch), boxes of 64 columns x box_rows rows x 1, 128-byte
+// swizzle; rows past seq of a batch row read as zero, never the next one's,
+// and are not written.
+inline bool encode_rows(CUtensorMap* map, const void* ptr, long long ld, int seq, int batch, int box_rows = 128) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {D * sizeof(bf16), static_cast<cuuint64_t>(seq) * D * sizeof(bf16)};
-  const cuuint32_t box[3] = {64, 128, 1};
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(ld), static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * sizeof(bf16),
+                                 static_cast<cuuint64_t>(seq) * ld * sizeof(bf16)};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
                 elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Launches a __global__ wrapper of bf16_body over (query tiles, bh).
-template <typename Kernel>
-int launch_bf16(Kernel kernel, int bh, const fwd::Args& a, cudaStream_t stream) {
+// Launches a __global__ wrapper of bf16_body<D> persistently: one block an
+// SM (or one a work item, if fewer), each walking the items blockIdx.x,
+// blockIdx.x + gridDim.x, ... Each of q, k and v gets its own map over
+// [batch, seq, in_ld]; K2's three are one buffer seen from three column
+// shifts, so every box a head's columns give lies inside it.
+template <int D, typename Kernel>
+int launch_bf16(Kernel kernel, int batch, const fwd::Args& a, cudaStream_t stream) {
   Params p;
-  if (!encode_bhsd(&p.q, a.q, bh, a.seq) || !encode_bhsd(&p.k, a.k, bh, a.seq) ||
-      !encode_bhsd(&p.v, a.v, bh, a.seq))
+  if (!encode_rows(&p.q, a.q, a.in_ld, a.seq, batch) || !encode_rows(&p.k, a.k, a.in_ld, a.seq, batch) ||
+      !encode_rows(&p.v, a.v, a.in_ld, a.seq, batch) ||
+      (Layout<D>::TMA_STORE && !encode_rows(&p.out, a.o, a.out_ld, a.seq, batch, 64)))
     return (int)cudaErrorInvalidValue;
   p.o = static_cast<bf16*>(a.o);
   p.seq = a.seq;
+  p.heads = a.heads;
+  p.hpg = a.hpg;
+  p.group_stride = static_cast<int>(a.group_stride);
+  p.out_ld = a.out_ld;
+  p.n_qt = (a.seq + BQ - 1) / BQ;
+  p.n_items = p.n_qt * batch * a.heads;
   p.scale = a.scale;
   p.seeds = a.seeds;
   p.threshold = a.threshold;
   p.inv_keep = a.inv_keep;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::BYTES);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3((a.seq + BQ - 1) / BQ, bh), THREADS, SMEM_BYTES, stream>>>(p);
+  kernel<<<p.n_items < sms ? p.n_items : sms, THREADS, Layout<D>::BYTES, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -682,19 +837,37 @@ int launch_f32(Kernel kernel, int bh, const fwd::Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// Head dim 128 to this header's bodies, 64 and 256 to packed_attention_fwd.cuh's,
-// for the dtype. `Kernels` has static bf16_sm90(), f32_tiled() and the
-// bf16<D>() and f32<D>() of fwd::launch_for.
+// bf16 at head dims 64 and 128 to this header's bf16 body; bf16 at 256, and
+// f32, to packed_attention_fwd.cuh's bodies, but f32 at 128 to this header's
+// SGEMM-tiled body where `Kernels` has one (K1's and K5f's contiguous
+// [B*H, S, 128]). `Kernels` has static bf16_sm90<D>(), bf16<D>() and f32<D>()
+// (the __global__ wrappers of the bodies) and, with TILED_F32, f32_tiled().
 template <class Kernels>
-int dispatch(int head_dim, int is_bf16, int bh, const fwd::Args& a, cudaStream_t stream) {
+int dispatch(int head_dim, int is_bf16, int batch, const fwd::Args& a, cudaStream_t stream) {
+  using fwd::launch;
+  if (is_bf16) {
+    switch (head_dim) {
+      case 64:
+        return launch_bf16<64>(Kernels::template bf16_sm90<64>(), batch, a, stream);
+      case 128:
+        return launch_bf16<128>(Kernels::template bf16_sm90<128>(), batch, a, stream);
+      case 256:
+        return launch(Kernels::template bf16<256>(), fwd::BF16_THREADS, fwd::Bf16Tiles<256>::BYTES, batch, a,
+                      stream);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  if constexpr (Kernels::TILED_F32) {
+    if (head_dim == 128) return launch_f32(Kernels::f32_tiled(), batch, a, stream);
+  }
   switch (head_dim) {
-    case 128:
-      return is_bf16 ? launch_bf16(Kernels::bf16_sm90(), bh, a, stream)
-                     : launch_f32(Kernels::f32_tiled(), bh, a, stream);
     case 64:
-      return fwd::launch_for<Kernels, 64>(is_bf16, bh, a, stream);
+      return launch(Kernels::template f32<64>(), fwd::F32_THREADS, fwd::F32Tiles<64>::BYTES, batch, a, stream);
+    case 128:
+      return launch(Kernels::template f32<128>(), fwd::F32_THREADS, fwd::F32Tiles<128>::BYTES, batch, a, stream);
     case 256:
-      return fwd::launch_for<Kernels, 256>(is_bf16, bh, a, stream);
+      return launch(Kernels::template f32<256>(), fwd::F32_THREADS, fwd::F32Tiles<256>::BYTES, batch, a, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

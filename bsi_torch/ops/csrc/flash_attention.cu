@@ -10,18 +10,19 @@
 // an online softmax.
 //
 // Head dim 128 (every path's) runs bh_attention_fwd_sm90.cuh, whose note
-// gives the designs and bounds: in bf16 a warp-specialised block of 128
-// query rows, TMA loads of K/V tiles through a two-stage mbarrier ring and
-// wgmma products; in f32 exact FMAs tiled as an SGEMM. Head dims 64 and 256
-// run the mma.sync and f32 bodies of packed_attention_fwd.cuh. Each has its
-// own __global__ name (k1_*), so a profile tells K1 from K5f, which launches
-// the same bodies.
+// gives the designs and bounds: in bf16 (at head_dim 64 too) a
+// warp-specialised block of 128 query rows a work item, TMA loads of K/V
+// tiles through a three-stage mbarrier ring (four at head_dim 64) and
+// wgmma products; in f32 exact FMAs tiled as an SGEMM. bf16 at 256, and f32 at 64 and 256, run the
+// mma.sync and f32 bodies of packed_attention_fwd.cuh. Each has its own
+// __global__ name (k1_*), so a profile tells K1 from K5f, K2 and K6f,
+// which launch the same bodies.
 //
 // Bound on an H100 SXM at B*H = 64, S = 1024, D = 128, bf16: 4*B*H*S^2*D =
 // 34.4 GFLOP, 35 us at 989 TFLOP/s dense bf16, against 33.6 MB of HBM
 // traffic (q, k, v read once, o written once), 10 us at 3.35 TB/s: the
-// bound is operations. Grid: (query tiles, B*H), 512 blocks of 384 threads
-// at that shape, one block an SM (225 KB of shared memory).
+// bound is operations. 512 work items of 128 query rows at that shape, over
+// one persistent block of 384 threads an SM (225 KB of shared memory).
 
 #include "bh_attention_fwd_sm90.cuh"
 
@@ -29,8 +30,9 @@ namespace {
 
 using namespace bsi;
 
+template <int D>
 __global__ void __launch_bounds__(sm90::THREADS, 1) k1_attn_fwd_bf16_sm90(__grid_constant__ const sm90::Params p) {
-  sm90::bf16_body(p);
+  sm90::bf16_body<D>(p);
 }
 
 __global__ void __launch_bounds__(sm90::F_THREADS) k1_attn_fwd_f32_tiled(const fwd::Args a) {
@@ -48,7 +50,9 @@ __global__ void __launch_bounds__(fwd::F32_THREADS) k1_attn_fwd_f32(const fwd::A
 }
 
 struct Kernels {
-  static auto bf16_sm90() { return k1_attn_fwd_bf16_sm90; }
+  static constexpr bool TILED_F32 = true;
+  template <int D>
+  static auto bf16_sm90() { return k1_attn_fwd_bf16_sm90<D>; }
   static auto f32_tiled() { return k1_attn_fwd_f32_tiled; }
   template <int D>
   static auto bf16() { return k1_attn_fwd_bf16<D>; }

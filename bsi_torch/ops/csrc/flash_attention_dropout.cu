@@ -11,10 +11,11 @@
 // groups of slices; here a block owns a tile of query rows of one slice.
 //
 // Head dim 128 (every path's) runs bh_attention_fwd_sm90.cuh, whose note
-// gives the designs and bounds, and which K1 launches too: in bf16 a
-// warp-specialised block of 128 query rows, TMA loads through a two-stage
-// mbarrier ring and wgmma products; in f32 exact FMAs tiled as an SGEMM.
-// Head dims 64 and 256 run the mma.sync and f32 bodies of
+// gives the designs and bounds, and which K1, K2 and K6f launch too: in
+// bf16 (at head_dim 64 too) a warp-specialised block of 128 query rows a
+// work item, TMA loads through a three-stage mbarrier ring (four at
+// head_dim 64) and wgmma products; in f32 exact FMAs tiled as an SGEMM.
+// bf16 at 256, and f32 at 64 and 256, run the mma.sync and f32 bodies of
 // packed_attention_fwd.cuh (K2's). Each has its own __global__ name
 // (bh_attn_*). The keep mask of element (i, j) of slice bh is the Philox
 // bits of packed_attention_common.cuh keyed by seeds[bh] in every body, so
@@ -26,8 +27,8 @@
 // against 4*B*H*S^2*D = 2.15 GFLOP, 2.2 us at 989 TFLOP/s dense bf16: the
 // bound is bytes, and one launch (a few us) is as long. In f32 (the eval
 // model's) the same 2.15 GFLOP on the CUDA cores at 67 TFLOP/s, 32 us: the
-// bound is operations. Grid at that shape: 128 blocks (bf16) or 256 (f32)
-// over 132 SMs.
+// bound is operations. At that shape: 128 work items (bf16), one a block,
+// or 256 blocks (f32), over 132 SMs.
 
 #include "bh_attention_fwd_sm90.cuh"
 
@@ -35,8 +36,9 @@ namespace {
 
 using namespace bsi;
 
+template <int D>
 __global__ void __launch_bounds__(sm90::THREADS, 1) bh_attn_fwd_bf16_sm90(__grid_constant__ const sm90::Params p) {
-  sm90::bf16_body(p);
+  sm90::bf16_body<D>(p);
 }
 
 __global__ void __launch_bounds__(sm90::F_THREADS) bh_attn_fwd_f32_tiled(const fwd::Args a) {
@@ -54,7 +56,9 @@ __global__ void __launch_bounds__(fwd::F32_THREADS) bh_attn_fwd_f32(const fwd::A
 }
 
 struct Kernels {
-  static auto bf16_sm90() { return bh_attn_fwd_bf16_sm90; }
+  static constexpr bool TILED_F32 = true;
+  template <int D>
+  static auto bf16_sm90() { return bh_attn_fwd_bf16_sm90<D>; }
   static auto f32_tiled() { return bh_attn_fwd_f32_tiled; }
   template <int D>
   static auto bf16() { return bh_attn_fwd_bf16<D>; }

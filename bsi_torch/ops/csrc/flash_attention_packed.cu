@@ -21,28 +21,45 @@
 // 1 / keep_prob; the backward (flash_attention_packed_bwd.cu) regenerates
 // the same mask.
 //
-// Grid: one block of 4 warps per (64 query rows, batch*head); the query
-// tiles of one head are adjacent in launch order, so its K and V are read
-// from HBM once and then from L2. At DiT-L/2 (B*H = 1024, S = 256, D = 64)
-// that is 4,096 blocks over 132 SMs.
-//
-// The device code is packed_attention_fwd.cuh's, shared with K5f
-// (flash_attention_dropout.cu); its note gives the bf16 and f32 designs.
+// bf16 at head_dim 64 (DiT-L/2's, head pairs: hpg = 2) and 128 (hpg = 1)
+// runs the Hopper body of bh_attention_fwd_sm90.cuh, which K1 and K5f launch
+// too: persistent blocks of three warpgroups, one per SM, each walking work
+// items (128 query rows of one head) with the query tile fastest, so the
+// two tiles of a head at S = 256 run side by side and share K and V through
+// L2; a producer warpgroup keeps TMA loads of Q (double-buffered at D = 64)
+// and of 128-key K/V tiles in flight through an mbarrier ring (four stages
+// at D = 64) that runs on across items; two consumer warpgroups take
+// S = Q K^T and O += P V on wgmma, the trimmed online softmax between them,
+// and write O (at D = 64 through shared memory and a TMA store) while the
+// next item's loads land. Each of q, k and v is a 3-D tensor map
+// over [B, S, in_ld] with 128-byte swizzle, a head's tile a box at its
+// column: K2's three maps are the qkv buffer seen from its q, k and v
+// column shifts, K6f's three separate buffers. bf16 at 256, and f32, run
+// packed_attention_fwd.cuh's mma.sync and exact-f32 bodies, one block of
+// 64 query rows per (tile, batch*head). Every kernel is named
+// packed_attn_fwd_*, so a profile tells K2 and K6f from K1 (k1_*) and K5f
+// (bh_attn_*).
 //
 // Bound on an H100 SXM at DiT-L/2 (qkv [64, 256, 3072] bf16 -> [64, 256,
 // 1024]): 134.2 MB of HBM traffic (the qkv buffer read once, the output
 // written once), 40 us at 3.35 TB/s, against 4*B*H*S^2*D = 17.2 GFLOP, 17 us
-// at 989 TFLOP/s dense bf16: the bound is bytes. With dropout, Philox adds
-// B*H*S^2/4 calls of ten rounds (two 32-bit multiply-highs and two
-// multiply-lows each) on the integer units, beside the bound. mma.sync
-// reaches a fraction of the wgmma rate and the K/V loads are not overlapped
-// with compute (no cp.async/TMA pipeline); those are later work.
+// at 989 TFLOP/s dense bf16: the bound is bytes. A work item reads 16 KB of
+// Q and 64 KB of K and V (half of which the head's other tile finds in L2)
+// and writes 16 KB; the ring keeps up to 128 KB in flight an SM. With
+// dropout, Philox adds B*H*S^2/4 = 16.8 M calls of ten rounds, two 32 x 32
+// -> 64-bit integer products a round, drawn by the consumers in their
+// softmax: integer work of the order of the whole rate-0 kernel.
 
-#include "packed_attention_fwd.cuh"
+#include "bh_attention_fwd_sm90.cuh"
 
 namespace {
 
 using namespace bsi;
+
+template <int D>
+__global__ void __launch_bounds__(sm90::THREADS, 1) packed_attn_fwd_bf16_sm90(__grid_constant__ const sm90::Params p) {
+  sm90::bf16_body<D>(p);
+}
 
 template <int D>
 __global__ void __launch_bounds__(fwd::BF16_THREADS) packed_attn_fwd_bf16(const fwd::Args a) {
@@ -55,6 +72,9 @@ __global__ void __launch_bounds__(fwd::F32_THREADS) packed_attn_fwd_f32(const fw
 }
 
 struct Kernels {
+  static constexpr bool TILED_F32 = false;
+  template <int D>
+  static auto bf16_sm90() { return packed_attn_fwd_bf16_sm90<D>; }
   template <int D>
   static auto bf16() { return packed_attn_fwd_bf16<D>; }
   template <int D>
@@ -81,7 +101,7 @@ int bsi_packed_attention_fwd(const void* q, const void* k, const void* v, void* 
                              void* stream) {
   const fwd::Args a{q, k, v, o, seq, heads, hpg, group_stride, in_ld, out_ld, scale,
                     static_cast<const int*>(seeds), threshold, inv_keep};
-  return fwd::dispatch<Kernels>(head_dim, is_bf16, batch, a, static_cast<cudaStream_t>(stream));
+  return sm90::dispatch<Kernels>(head_dim, is_bf16, batch, a, static_cast<cudaStream_t>(stream));
 }
 
 const char* bsi_cuda_error_string(int code) {

@@ -2,10 +2,12 @@
 // more than one kernel launches: K2 and K6f (flash_attention_packed.cu) read
 // their heads out of packed token-major layouts, K1 and K5f
 // (flash_attention.cu, flash_attention_dropout.cu) read [B*H, S, D], one
-// head per row of the grid, at head_dim 64 and 256 (at 128 they run
-// bh_attention_fwd_sm90.cuh). Each of those files wraps the bodies below in
-// its own __global__ entries, so every kernel keeps its own name in a
-// profile.
+// head per row of the grid. bf16 at head_dim 64 and 128 runs
+// bh_attention_fwd_sm90.cuh's Hopper body instead (its `dispatch` routes);
+// here are bf16 at 256 and f32 at every head_dim (K1's and K5f's f32 at
+// 128 take that header's SGEMM-tiled body). Each of those files wraps the
+// bodies below in its own __global__ entries, so every kernel keeps its
+// own name in a profile.
 //
 // Both bodies compute softmax(q k^T * scale) [dropout] v for one block of 64
 // query rows of one head. Head bh (blockIdx.y) of batch row b = bh / heads,
@@ -347,30 +349,6 @@ int launch(Kernel kernel, int threads, int smem_bytes, int batch, const Args& a,
   const dim3 grid((a.seq + BQ - 1) / BQ, batch * a.heads);
   kernel<<<grid, threads, smem_bytes, stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-// Launches the entry of `Kernels` (a struct whose static bf16<D>() and
-// f32<D>() return the __global__ wrappers of the bodies above) for
-// head_dim and the dtype, over (query tiles, batch * heads) blocks.
-template <class Kernels, int D>
-int launch_for(int is_bf16, int batch, const Args& a, cudaStream_t stream) {
-  if (is_bf16)
-    return launch(Kernels::template bf16<D>(), BF16_THREADS, Bf16Tiles<D>::BYTES, batch, a, stream);
-  return launch(Kernels::template f32<D>(), F32_THREADS, F32Tiles<D>::BYTES, batch, a, stream);
-}
-
-template <class Kernels>
-int dispatch(int head_dim, int is_bf16, int batch, const Args& a, cudaStream_t stream) {
-  switch (head_dim) {
-    case 64:
-      return launch_for<Kernels, 64>(is_bf16, batch, a, stream);
-    case 128:
-      return launch_for<Kernels, 128>(is_bf16, batch, a, stream);
-    case 256:
-      return launch_for<Kernels, 256>(is_bf16, batch, a, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace fwd

@@ -71,6 +71,34 @@ def _philox_keep_mask(seeds: torch.Tensor, seq: int, keep_prob: float, *, chunk:
     return torch.cat(out).reshape(*seeds.shape, seq, seq)
 
 
+def keep_probe(batch: int, heads: int, seq: int, head_dim: int, dtype, device,
+               generator: torch.Generator | None = None):
+    """Attention inputs ``[B, H, S, D]`` whose output reads out the keep mask.
+
+    q = 0, so every probability is 1/S whatever k is (k is drawn from
+    ``generator``); v at key j is the one-hot of column j mod D. Under a
+    keep mask the output at (row, c) is the number of kept keys j = c mod D
+    over ``S * keep_prob`` (:func:`keep_probe_counts`), exact up to the
+    output's rounding, so one flipped keep bit moves an element by
+    ``1 / (S * keep_prob)``: 4.1e-3 at S = 256 and keep_prob 0.95, where
+    bf16 rounding moves it by less than 1e-4.
+    """
+    q = torch.zeros(batch, heads, seq, head_dim, dtype=dtype, device=device)
+    k = torch.randn(batch, heads, seq, head_dim, generator=generator, device=device).to(dtype)
+    one_hot = torch.nn.functional.one_hot(torch.arange(seq, device=device) % head_dim, head_dim)
+    v = one_hot.to(dtype).expand(batch, heads, seq, head_dim).contiguous()
+    return q, k, v
+
+
+def keep_probe_counts(keeps: torch.Tensor, head_dim: int, keep_prob: float) -> torch.Tensor:
+    """The attention output of :func:`keep_probe`'s inputs under bool
+    ``keeps [..., S, S]``: f32 ``[..., S, D]``, the kept keys j = c mod D of
+    each row over ``S * keep_prob``."""
+    seq = keeps.shape[-1]
+    one_hot = torch.nn.functional.one_hot(torch.arange(seq, device=keeps.device) % head_dim, head_dim)
+    return torch.matmul(keeps.float(), one_hot.float()) / (seq * keep_prob)
+
+
 def draw_seeds(batch: int, heads: int, device, generator: torch.Generator | None = None) -> torch.Tensor:
     """One int32 dropout seed per (batch, head), ``[batch, heads]``, as the
     JAX package draws them (``randint(0, 2**31 - 1)``), from ``generator``

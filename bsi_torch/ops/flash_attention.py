@@ -12,9 +12,10 @@ Counterpart of ``bsi_tpu/ops/flash_attention.py``:
   which regenerates K5f's keep mask from the same seeds, source
   ``csrc/flash_attention_bwd.cu``.
 
-K1 and K5f launch the same device code, ``csrc/bh_attention_fwd_sm90.cuh``,
-at head_dim 128 (TMA and ``wgmma`` in bf16, an SGEMM-tiled exact-f32 body
-in f32), and K2's ``csrc/packed_attention_fwd.cuh`` at 64 and 256. The
+K1 and K5f launch the same device code as K2 and K6f,
+``csrc/bh_attention_fwd_sm90.cuh``, in bf16 at head_dim 64 and 128 (TMA
+and ``wgmma``, persistent blocks), its SGEMM-tiled exact-f32 body in f32 at
+128, and ``csrc/packed_attention_fwd.cuh``'s bodies otherwise. The
 sources' header notes give the designs and the bounds on an H100.
 ``_fwd_math`` and ``_bwd_math`` are the plain PyTorch versions of the TPU
 kernels' functions of the same names, with an explicit keep mask: the CPU

@@ -14,7 +14,9 @@ one kernel pair in the same way. The kernels take the layout (row stride,
 column stride between head groups, heads per group) as arguments. Sources:
 ``csrc/flash_attention_packed.cu`` (forward) and
 ``csrc/flash_attention_packed_bwd.cu`` (backward); their header notes give
-the designs and the bounds on an H100.
+the designs and the bounds on an H100. In bf16 at head_dim 64 and 128 the
+forward runs the Hopper body that K1 and K5f run too
+(``csrc/bh_attention_fwd_sm90.cuh``: TMA, ``wgmma``, persistent blocks).
 
 Attention dropout follows the TPU kernels: one int32 seed per (batch, head)
 (:func:`draw_seeds`), from which every kernel regenerates the same keep mask,

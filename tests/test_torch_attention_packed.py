@@ -18,7 +18,8 @@ from bsi_tpu.ops import attention as jax_attention
 
 from bsi_torch.convert import params_from_jax
 from bsi_torch.nn import MLP, TokenAttention
-from bsi_torch.ops import attention, flash_attention_packed as fap
+from bsi_torch.ops import attention, flash_attention as fa, flash_attention_packed as fap
+from bsi_torch.ops.dropout_mask import keep_probe, keep_probe_counts
 
 jax_fap = importlib.import_module("bsi_tpu.ops.flash_attention_packed")
 
@@ -181,6 +182,33 @@ def test_cpu_entries_with_seeds_drop_by_the_philox_mask():
     assert torch.equal(fap.merge_qkv_grouped(*map(split, grads)), dqkv)
     with pytest.raises(ValueError, match="seeds"):
         fap.flash_attention_fused(qkv, heads=heads, rate=rate)
+
+
+@pytest.mark.parametrize("rate", [0.05, 0.1])
+@pytest.mark.parametrize("twin,heads,seq,d", [("fused", 4, 256, 64), ("packed", 2, 200, 128),
+                                              ("dropout", 2, 256, 128)])
+def test_keep_probe_reads_the_mask_out_of_the_plain_twins(twin, heads, seq, d, rate):
+    # q = 0 and one-hot v (keep_probe): each output element times S keep_prob
+    # is the count of kept keys j = c mod D of its row, exactly, so one
+    # flipped keep bit moves it by a whole 1 / (S keep_prob)
+    b, keep_prob = 2, 1.0 - rate
+    seeds = fap.draw_seeds(b, heads, "cpu", torch.Generator().manual_seed(2))
+    q, k, v = keep_probe(b, heads, seq, d, torch.float32, "cpu", torch.Generator().manual_seed(3))
+    if twin == "fused":
+        out = fap._split_heads(fap.flash_attention_fused(fap.merge_qkv_grouped(q, k, v), heads=heads, seeds=seeds,
+                                                         rate=rate), heads)
+    elif twin == "packed":
+        out = fap._split_heads(fap.flash_attention_packed(*map(fap._merge_heads, (q, k, v)), heads=heads,
+                                                          seeds=seeds, rate=rate), heads)
+    else:
+        out = fa.flash_attention_dropout(q, k, v, seeds.reshape(-1), rate=rate)
+    keeps = fap._philox_keep_mask(seeds, seq, keep_prob)
+    counts = torch.matmul(keeps.double(), torch.nn.functional.one_hot(torch.arange(seq) % d, d).double())
+    assert 0 < (~keeps).sum() and (counts > 0).any()
+    scaled = out.double() * seq * keep_prob
+    assert torch.equal(scaled.round(), counts)
+    assert (scaled - counts).abs().max().item() <= 1e-5
+    npt.assert_allclose(out.numpy(), keep_probe_counts(keeps, d, keep_prob).numpy(), atol=1e-6, rtol=0)
 
 
 def test_merge_qkv_grouped_inverts_the_split():

@@ -13,6 +13,7 @@ import torch
 
 from bsi_torch.ops import attention, flash_attention as fa, flash_attention_packed as fap
 from bsi_torch.ops import groupnorm_silu as gn, ln_modulate as lm
+from bsi_torch.ops.dropout_mask import keep_probe, keep_probe_counts
 
 pytestmark = pytest.mark.cuda
 
@@ -162,9 +163,16 @@ def _packed_atol(dtype):
     return 2e-2 if dtype == torch.bfloat16 else 1e-5
 
 
+# K2 and K6f at ragged lengths (one row, under one tile, past a tile) at
+# head_dim 64 (head pairs) and 128 (one head a group): the tensor maps
+# zero-fill rows past S, keys past S are masked in the last tile only.
+RAGGED = [(2, 1, 4, 64), (2, 63, 4, 64), (1, 1000, 2, 64), (2, 1, 2, 128), (2, 63, 2, 128), (3, 200, 2, 128),
+          (1, 1000, 1, 128)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,s,heads,d", [(2, 256, 16, 64), (2, 128, 2, 128), (1, 128, 2, 256),
-                                         (3, 200, 4, 64), (2, 96, 3, 64)])
+                                         (3, 200, 4, 64), (2, 96, 3, 64), *RAGGED])
 def test_fused_qkv_kernel_matches_plain(cuda, b, s, heads, d, dtype):
     gen = torch.Generator(device=cuda).manual_seed(10)
     qkv = _randn(gen, b, s, 3 * heads * d, dtype=dtype, device=cuda)
@@ -177,7 +185,7 @@ def test_fused_qkv_kernel_matches_plain(cuda, b, s, heads, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,s,heads,d", [(2, 256, 16, 64), (2, 128, 2, 128), (3, 200, 4, 64)])
+@pytest.mark.parametrize("b,s,heads,d", [(2, 256, 16, 64), (2, 128, 2, 128), (3, 200, 4, 64), *RAGGED])
 def test_packed_kernel_matches_plain(cuda, b, s, heads, d, dtype):
     gen = torch.Generator(device=cuda).manual_seed(11)
     q, k, v = (_randn(gen, b, s, heads * d, dtype=dtype, device=cuda) for _ in range(3))
@@ -229,7 +237,8 @@ def _seeds(gen, b, heads, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,s,heads,d", [(2, 256, 16, 64), (2, 128, 2, 128), (1, 128, 2, 256), (3, 200, 4, 64)])
+@pytest.mark.parametrize("b,s,heads,d", [(2, 256, 16, 64), (2, 128, 2, 128), (1, 128, 2, 256), (3, 200, 4, 64),
+                                         *RAGGED])
 def test_fused_qkv_kernel_with_dropout_matches_plain(cuda, b, s, heads, d, dtype):
     # f32 at 1e-5 shows that the masks agree: one differing keep bit moves an
     # output by about p * v / keep_prob, far above it
@@ -244,6 +253,32 @@ def test_fused_qkv_kernel_with_dropout_matches_plain(cuda, b, s, heads, d, dtype
     got = fap.flash_attention_packed_cuda(q, k, v, heads, seeds, RATE)
     want = fap._packed_heads_math(q, k, v, heads, keeps, 1.0 - RATE)
     assert (got.float() - want.float()).abs().max().item() <= _packed_atol(dtype)
+
+
+@pytest.mark.parametrize("rate", [RATE, 0.1])
+@pytest.mark.parametrize("kernel,b,heads,s,d", [("k2", 2, 4, 256, 64), ("k6f", 2, 4, 256, 64), ("k5f", 2, 2, 256, 64),
+                                                ("k2", 2, 2, 200, 128), ("k6f", 1, 2, 384, 128), ("k5f", 2, 1, 256, 128)])
+def test_bf16_keep_masks_are_the_philox_twins_bit_for_bit(cuda, kernel, b, heads, s, d, rate):
+    # keep_probe's inputs read the mask out: each element is the count of
+    # kept keys j = c mod D over S keep_prob, so one flipped keep bit moves
+    # it by 1 / (S keep_prob) >= 2.6e-3 here, bf16 rounding by < 1e-4: 1e-3
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    q, k, v = keep_probe(b, heads, s, d, torch.bfloat16, cuda, gen)
+    seeds = _seeds(gen, b, heads, cuda)
+    keeps = fap._philox_keep_mask(seeds, s, 1.0 - rate)
+    if kernel == "k2":
+        got = fap._split_heads(fap.flash_attention_fused_cuda(fap.merge_qkv_grouped(q, k, v), heads, seeds, rate),
+                               heads)
+    elif kernel == "k6f":
+        got = fap._split_heads(fap.flash_attention_packed_cuda(
+            *(fap._merge_heads(t).contiguous() for t in (q, k, v)), heads, seeds, rate), heads)
+    else:
+        got = fa.flash_attention_dropout_cuda(q, k, v, seeds.reshape(-1), rate)
+    want = fa._fwd_math(q, k, v, fa._scale(q), keeps, 1.0 - rate)
+    counts = keep_probe_counts(keeps, d, 1.0 - rate)
+    assert (want - counts).abs().max().item() <= 1e-3
+    assert (got.float() - want).abs().max().item() <= 1e-3
+    assert (got.float() - counts).abs().max().item() <= 1e-3
 
 
 def _bwd_close(got, want, dtype):
