@@ -66,36 +66,55 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _xla_attention(q, k, v, dropout_rate=dropout_rate, generator=generator)
 
 
+def _takes_grad(*tensors) -> bool:
+    """Whether autograd will take a gradient through these inputs: the
+    forward then writes the row statistics its backward reads."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 class _FusedQKVAttention(torch.autograd.Function):
     """K2 forward, K3 backward; the seeds (or None at rate 0) are saved so
-    that K3 regenerates K2's keep mask."""
+    that K3 regenerates K2's keep mask. With ``stats`` (a gradient will be
+    taken) K2 also writes its row statistics, saved with its output for K3
+    (the DiT keeps that output anyway: it is ``to_out``'s input)."""
 
     @staticmethod
-    def forward(ctx, qkv, seeds, heads, rate):
+    def forward(ctx, qkv, seeds, heads, rate, stats):
         ctx.heads, ctx.rate = heads, rate
-        ctx.save_for_backward(qkv, seeds)
-        return flash_attention_fused_cuda(qkv, heads, seeds, rate)
+        if stats:
+            out, lse = flash_attention_fused_cuda(qkv, heads, seeds, rate, with_lse=True)
+        else:
+            out, lse = flash_attention_fused_cuda(qkv, heads, seeds, rate), None
+        ctx.save_for_backward(qkv, seeds, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        qkv, seeds = ctx.saved_tensors
-        return flash_attention_fused_bwd_cuda(qkv, g.contiguous(), ctx.heads, seeds, ctx.rate), None, None, None
+        qkv, seeds, out, lse = ctx.saved_tensors
+        dqkv = flash_attention_fused_bwd_cuda(qkv, g.contiguous(), ctx.heads, seeds, ctx.rate, out=out, lse=lse)
+        return dqkv, None, None, None, None
 
 
 class _PackedAttention(torch.autograd.Function):
-    """K6f forward, K6b backward, seeds as :class:`_FusedQKVAttention`."""
+    """K6f forward, K6b backward, seeds and statistics as
+    :class:`_FusedQKVAttention`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seeds, heads, rate):
+    def forward(ctx, q, k, v, seeds, heads, rate, stats):
         ctx.heads, ctx.rate = heads, rate
-        ctx.save_for_backward(q, k, v, seeds)
-        return flash_attention_packed_cuda(q, k, v, heads, seeds, rate)
+        if stats:
+            out, lse = flash_attention_packed_cuda(q, k, v, heads, seeds, rate, with_lse=True)
+        else:
+            out, lse = flash_attention_packed_cuda(q, k, v, heads, seeds, rate), None
+        ctx.save_for_backward(q, k, v, seeds, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, seeds = ctx.saved_tensors
-        dq, dk, dv = flash_attention_packed_bwd_cuda(q, k, v, g.contiguous(), ctx.heads, seeds, ctx.rate)
-        return dq, dk, dv, None, None, None
+        q, k, v, seeds, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_packed_bwd_cuda(q, k, v, g.contiguous(), ctx.heads, seeds, ctx.rate,
+                                                     out=out, lse=lse)
+        return dq, dk, dv, None, None, None, None
 
 
 def _seeds(batch: int, heads: int, device, dropout_rate: float, generator):
@@ -118,7 +137,7 @@ def multi_head_attention_fused_qkv(qkv: torch.Tensor, *, heads: int, dropout_rat
     hd_total = three_hd // 3
     if qkv.device.type == "cuda" and packed_applicable(hd_total, heads, s):
         seeds = _seeds(b, heads, qkv.device, dropout_rate, generator)
-        return _FusedQKVAttention.apply(qkv.contiguous(), seeds, heads, float(dropout_rate))
+        return _FusedQKVAttention.apply(qkv.contiguous(), seeds, heads, float(dropout_rate), _takes_grad(qkv))
     q, k, v = split_qkv_grouped(qkv, heads)
     return _merge_heads(multi_head_attention(q, k, v, dropout_rate=dropout_rate, generator=generator))
 
@@ -139,7 +158,7 @@ def multi_head_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     if q.device.type == "cuda" and packed_applicable(hd_total, heads, s):
         seeds = _seeds(b, heads, q.device, dropout_rate, generator)
         return _PackedAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), seeds, heads,
-                                      float(dropout_rate))
+                                      float(dropout_rate), _takes_grad(q, k, v))
     out = multi_head_attention(*(_split_heads(x, heads) for x in (q, k, v)),
                                dropout_rate=dropout_rate, generator=generator)
     return _merge_heads(out)

@@ -40,7 +40,11 @@
 // 128-byte rows, asynchronous; the TMA unit drops rows past S), at 128 from
 // registers at row stride out_ld. The products are software-pipelined: S of
 // tile t is issued with P V of tile t - 1, and the softmax of tile t runs
-// while that product is on the tensor cores.
+// while that product is on the tensor cores. Asked for them (Params::lse,
+// when a gradient will be taken), the epilogue also writes each row's
+// statistics for the backward (bh_attention_bwd_sm90.cuh): lse = m c +
+// log2(l), the base-2 log-sum-exp of c s (c = scale log2(e)), one f32 a
+// row; sampling and K1 pass null and write nothing.
 //
 // Tiles arrive through 3-D tensor maps over [batch, seq, in_ld] (dims
 // in_ld, seq, batch) with 128-byte swizzle, boxes of 64 columns x 128 rows
@@ -124,6 +128,15 @@ struct Layout {
   static constexpr int BYTES = BAR + 8 * (2 * Q_BUFS + 3 * STAGES) + 1024;  // + room to align the base
 };
 
+// The row stride of the statistics that the bf16 body writes for the
+// backward (bf16 at head_dim 64 and 128): each head's rows over whole
+// BQ-row query tiles, rows past seq included. 0 where the route writes none.
+// The backward (bh_attention_bwd_sm90.cuh) reads them at this stride, and
+// the bindings ask for it (bsi_attention_stats_ld).
+inline int stats_ld(int seq, int head_dim, int is_bf16) {
+  return is_bf16 && (head_dim == 64 || head_dim == 128) ? (seq + BQ - 1) / BQ * BQ : 0;
+}
+
 // Heads addressed as fwd::Args has them: head h of batch row b reads q, k
 // and v at columns (h / hpg) * group_stride + (h % hpg) * D of rows
 // b * seq + i of [batch, seq, in_ld], and writes o at b * seq * out_ld + h * D.
@@ -138,6 +151,11 @@ struct Params {
   const int* seeds;  // int32 [batch * heads], or null: no dropout
   uint32_t threshold;
   float inv_keep;
+  // The backward's row statistics, or null (sampling, K1): row i of head bh
+  // at lse[bh * lse_ld + i], lse_ld = stats_ld(...) = n_qt * BQ, for every
+  // row of every query tile (rows past seq included).
+  float* lse;
+  int lse_ld;
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -500,6 +518,16 @@ __device__ __forceinline__ void bf16_body(const Params& p) {
       fence_regs(o);
       mbar_arrive(empty(stage(n_tiles - 1)));
 
+      // The row statistics for the backward: log2 of the row's sum of
+      // 2^(scale log2(e) s), base 2 as the exponentials are (m_run is the
+      // max of the unscaled logits, l_run the sum of 2^(scale log2(e) (s -
+      // m_run)) over the undropped probabilities, >= 1).
+      if (p.lse != nullptr && quad == 0) {
+        float* at = p.lse + static_cast<long long>(bh) * p.lse_ld + row;
+        at[0] = fmaf(m_run[0], scale_log2e, __log2f(l_run[0]));
+        at[8] = fmaf(m_run[1], scale_log2e, __log2f(l_run[1]));
+      }
+
       // Epilogue: divide by the row sums (and keep_prob), write bf16 pairs
       // while the producer's loads of the next item are in flight.
       const float inv0 = p.inv_keep / l_run[0];
@@ -800,7 +828,7 @@ inline bool encode_rows(CUtensorMap* map, const void* ptr, long long ld, int seq
 // [batch, seq, in_ld]; K2's three are one buffer seen from three column
 // shifts, so every box a head's columns give lies inside it.
 template <int D, typename Kernel>
-int launch_bf16(Kernel kernel, int batch, const fwd::Args& a, cudaStream_t stream) {
+int launch_bf16(Kernel kernel, int batch, const fwd::Args& a, float* lse, cudaStream_t stream) {
   Params p;
   if (!encode_rows(&p.q, a.q, a.in_ld, a.seq, batch) || !encode_rows(&p.k, a.k, a.in_ld, a.seq, batch) ||
       !encode_rows(&p.v, a.v, a.in_ld, a.seq, batch) ||
@@ -818,6 +846,8 @@ int launch_bf16(Kernel kernel, int batch, const fwd::Args& a, cudaStream_t strea
   p.seeds = a.seeds;
   p.threshold = a.threshold;
   p.inv_keep = a.inv_keep;
+  p.lse = lse;
+  p.lse_ld = stats_ld(a.seq, D, 1);
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -842,15 +872,19 @@ int launch_f32(Kernel kernel, int bh, const fwd::Args& a, cudaStream_t stream) {
 // SGEMM-tiled body where `Kernels` has one (K1's and K5f's contiguous
 // [B*H, S, 128]). `Kernels` has static bf16_sm90<D>(), bf16<D>() and f32<D>()
 // (the __global__ wrappers of the bodies) and, with TILED_F32, f32_tiled().
+// `lse` (f32 [batch * heads, stats_ld], or null) takes the row statistics
+// of the bf16 body; the other bodies write none and refuse it.
 template <class Kernels>
-int dispatch(int head_dim, int is_bf16, int batch, const fwd::Args& a, cudaStream_t stream) {
+int dispatch(int head_dim, int is_bf16, int batch, const fwd::Args& a, cudaStream_t stream,
+             float* lse = nullptr) {
   using fwd::launch;
+  if (lse != nullptr && stats_ld(a.seq, head_dim, is_bf16) == 0) return (int)cudaErrorInvalidValue;
   if (is_bf16) {
     switch (head_dim) {
       case 64:
-        return launch_bf16<64>(Kernels::template bf16_sm90<64>(), batch, a, stream);
+        return launch_bf16<64>(Kernels::template bf16_sm90<64>(), batch, a, lse, stream);
       case 128:
-        return launch_bf16<128>(Kernels::template bf16_sm90<128>(), batch, a, stream);
+        return launch_bf16<128>(Kernels::template bf16_sm90<128>(), batch, a, lse, stream);
       case 256:
         return launch(Kernels::template bf16<256>(), fwd::BF16_THREADS, fwd::Bf16Tiles<256>::BYTES, batch, a,
                       stream);

@@ -74,15 +74,24 @@ extern "C" {
 // (is_bf16 = 1) or all f32; head_dim 64, 128 or 256; any seq. scale is
 // 1/sqrt(head_dim) rounded to f32 by the caller. seeds: int32 [bh] for
 // dropout, or null for none; threshold = round(keep_prob * 2^32) capped at
-// 2^32 - 1, inv_keep = 1 / keep_prob (1 without dropout). Returns a
-// cudaError_t; 0 means launched.
-int bsi_flash_attention_dropout_fwd(const void* q, const void* k, const void* v, void* o, int bh,
+// 2^32 - 1, inv_keep = 1 / keep_prob (1 without dropout). lse: null, or
+// (bf16 at head_dim 64 and 128 only) f32 [bh, bsi_attention_stats_ld] for
+// each row's log2-sum-exp2 of scale log2(e) q k^T, K5b's statistics.
+// Returns a cudaError_t; 0 means launched.
+int bsi_flash_attention_dropout_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                                     int seq, int head_dim, int is_bf16, float scale,
                                     const void* seeds, unsigned int threshold, float inv_keep,
                                     void* stream) {
   const fwd::Args a{q, k, v, o, seq, 1, 1, head_dim, head_dim, head_dim, scale,
                     static_cast<const int*>(seeds), threshold, inv_keep};
-  return sm90::dispatch<Kernels>(head_dim, is_bf16, bh, a, static_cast<cudaStream_t>(stream));
+  return sm90::dispatch<Kernels>(head_dim, is_bf16, bh, a, static_cast<cudaStream_t>(stream),
+                                 static_cast<float*>(lse));
+}
+
+// The row stride of the statistics this route writes into lse, or 0 where
+// it writes none (and refuses lse).
+int bsi_attention_stats_ld(int seq, int head_dim, int is_bf16) {
+  return sm90::stats_ld(seq, head_dim, is_bf16);
 }
 
 const char* bsi_cuda_error_string(int code) {

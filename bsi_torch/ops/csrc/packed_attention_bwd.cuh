@@ -1,7 +1,10 @@
-// The attention backward over heads addressed in place, as device code that
-// more than one kernel launches: K3 and K6b (flash_attention_packed_bwd.cu)
-// and K5b (flash_attention_bwd.cu). Each of those files wraps the bodies
-// below in its own __global__ entries.
+// The attention backward over heads addressed in place, in f32 at head_dim
+// 64, 128 and 256 and in bf16 at 256: the older bodies that K3 and K6b
+// (flash_attention_packed_bwd.cu) and K5b (flash_attention_bwd.cu) launch
+// where bh_attention_bwd_sm90.cuh's Hopper design (bf16 at 64 and 128, from
+// the forward's output and row statistics) does not apply; its
+// `bwd_dispatch` routes. Each of those files wraps the bodies below in its
+// own __global__ entries.
 //
 // From q, k, v and the output gradient dO the bodies recompute the softmax P
 // (and, with dropout, regenerate the forward's keep mask from the same
@@ -16,9 +19,8 @@
 // dk, dv lives at base + b*seq*in_ld + (h / hpg)*group_stride + (h % hpg)*D
 // (rows in_ld apart), of dO at b*seq*do_ld + h*D (rows do_ld apart).
 //
-// The TPU kernels hold a whole [S, S] head in VMEM; a block here cannot.
-// The work splits as FlashAttention-2's backward does, into two kernels
-// that both recompute P and need no atomics:
+// Two kernels, as FlashAttention-2's backward splits the work, both
+// recomputing P, no atomics:
 // - dq: one block per (ROWS query rows, batch*head). Pass 1 walks the key
 //   tiles for the row max m, the row sum l and delta = rowsum(dP * P)
 //   (online, rescaled as the max moves); pass 2 walks them again for dS and
@@ -30,20 +32,22 @@
 //   warp's keep bits for a tile are drawn into shared memory in the 2x2-block
 //   order of the mask (one Philox call per four elements) and read
 //   transposed.
-// bf16: 4 warps of 16 rows, mma.sync m16n8k16 with f32 accumulation, the
-// accumulator layout of one product the A operand of the next, ldmatrix
-// (transposing where the contraction runs over rows) from shared memory.
-// f32: exact f32 FMAs on the CUDA cores, no TF32, 4 threads a row.
+// Nine products of B H S^2 D where five would do, and the mask drawn three
+// times: the cost the Hopper design removes where it applies. bf16: 4 warps
+// of 16 rows, mma.sync m16n8k16 with f32 accumulation, the accumulator
+// layout of one product the A operand of the next, ldmatrix (transposing
+// where the contraction runs over rows) from shared memory. f32: exact f32
+// FMAs on the CUDA cores, no TF32, 4 threads a row.
 //
 // head_dim 256. In bf16 a dkv warp's two [16, D] f32 accumulators are 256
 // registers a lane at D = 256, past the 255 a thread may have; so the dkv
 // grid splits the output columns into two slices of 128 (DKV_SPLITS): each
-// block contracts S^T and dP^T over the whole D from shared memory, as at
-// D = 128, and accumulates and writes only its 128 columns of dK and dV.
-// That recomputes S^T and dP^T once more; it moves no more bytes from HBM
-// than the L2 absorbs. In f32 the registers fit (4 threads a row), but the
-// four [64, 257] f32 tiles of a block exceed its 227 KB of shared memory;
-// so at D = 256 an f32 block takes 32 rows (128 threads) and 32-row tiles.
+// block contracts S^T and dP^T over the whole D from shared memory and
+// accumulates and writes only its 128 columns of dK and dV. That recomputes
+// S^T and dP^T once more; it moves no more bytes from HBM than the L2
+// absorbs. In f32 the registers fit (4 threads a row), but the four [64,
+// 257] f32 tiles of a block exceed its 227 KB of shared memory; so at D =
+// 256 an f32 block takes 32 rows (128 threads) and 32-row tiles.
 
 #pragma once
 
@@ -601,31 +605,6 @@ int launch(DqKernel dq_kernel, DkvKernel dkv_kernel, int batch, const Args& a, c
   if (err != cudaSuccess) return (int)err;
   dkv_kernel<<<dim3(tiles, batch * a.heads, Plan::DKV_SPLITS), Plan::THREADS, Plan::DKV_BYTES, stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-// Launches the entries of `Kernels` (a struct whose static dq_bf16<D>(),
-// dkv_bf16<D>(), dq_f32<D>() and dkv_f32<D>() return the __global__
-// wrappers of the bodies above) for head_dim and the dtype.
-template <class Kernels, int D>
-int launch_for(int is_bf16, int batch, const Args& a, cudaStream_t stream) {
-  if (is_bf16)
-    return launch<Bf16Plan<D>>(Kernels::template dq_bf16<D>(), Kernels::template dkv_bf16<D>(), batch, a,
-                               stream);
-  return launch<F32Plan<D>>(Kernels::template dq_f32<D>(), Kernels::template dkv_f32<D>(), batch, a, stream);
-}
-
-template <class Kernels>
-int dispatch(int head_dim, int is_bf16, int batch, const Args& a, cudaStream_t stream) {
-  switch (head_dim) {
-    case 64:
-      return launch_for<Kernels, 64>(is_bf16, batch, a, stream);
-    case 128:
-      return launch_for<Kernels, 128>(is_bf16, batch, a, stream);
-    case 256:
-      return launch_for<Kernels, 256>(is_bf16, batch, a, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace bwd

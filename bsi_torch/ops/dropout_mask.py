@@ -99,6 +99,39 @@ def keep_probe_counts(keeps: torch.Tensor, head_dim: int, keep_prob: float) -> t
     return torch.matmul(keeps.float(), one_hot.float()) / (seq * keep_prob)
 
 
+def keep_probe_bwd(batch: int, heads: int, seq: int, head_dim: int, dtype, device):
+    """Backward inputs ``[B, H, S, D]`` (q, k, v, dO) whose gradients read out
+    the keep mask.
+
+    q = 0, so every probability is 1/S; k at key j is the one-hot of column
+    j mod D, v is ones, dO at query i the one-hot of column i mod D. Under a
+    keep mask dV[j, c] counts the kept queries i = c mod D of key j and
+    dQ[i, c] the kept keys j = c mod D of row i (:func:`keep_probe_bwd_counts`),
+    so the dV of a backward reads the mask as its key-major kernel sees it
+    and the dQ as its query-major kernel does: one flipped keep bit moves dV
+    by 1 / (S keep_prob) and dQ by scale / (S keep_prob), 5.1e-4 at S = 256,
+    D = 64 and keep_prob 0.95, where bf16 rounding moves it by < 1e-5.
+    """
+    one_hot = torch.nn.functional.one_hot(torch.arange(seq, device=device) % head_dim, head_dim).to(dtype)
+    q = torch.zeros(batch, heads, seq, head_dim, dtype=dtype, device=device)
+    k = one_hot.expand(batch, heads, seq, head_dim).contiguous()
+    v = torch.ones(batch, heads, seq, head_dim, dtype=dtype, device=device)
+    return q, k, v, k.clone()
+
+
+def keep_probe_bwd_counts(keeps: torch.Tensor, head_dim: int, keep_prob: float, scale: float):
+    """dq and dv (f32 ``[..., S, D]``) of :func:`keep_probe_bwd`'s inputs under
+    bool ``keeps [..., S, S]``: with P = 1/S, out = kept_i / (S keep_prob) in
+    every column, delta_i = out_i and dS_ij = (keep_ij / keep_prob - delta_i)
+    / S, dQ = dS K scale and dV = Pd^T dO."""
+    seq = keeps.shape[-1]
+    one_hot = torch.nn.functional.one_hot(torch.arange(seq, device=keeps.device) % head_dim, head_dim).float()
+    kept = keeps.float()
+    delta = kept.sum(dim=-1, keepdim=True) / (seq * keep_prob)
+    ds = (kept / keep_prob - delta) / seq
+    return torch.matmul(ds, one_hot) * scale, torch.matmul(kept.transpose(-1, -2), one_hot) / (seq * keep_prob)
+
+
 def draw_seeds(batch: int, heads: int, device, generator: torch.Generator | None = None) -> torch.Tensor:
     """One int32 dropout seed per (batch, head), ``[batch, heads]``, as the
     JAX package draws them (``randint(0, 2**31 - 1)``), from ``generator``

@@ -16,7 +16,10 @@ column stride between head groups, heads per group) as arguments. Sources:
 ``csrc/flash_attention_packed_bwd.cu`` (backward); their header notes give
 the designs and the bounds on an H100. In bf16 at head_dim 64 and 128 the
 forward runs the Hopper body that K1 and K5f run too
-(``csrc/bh_attention_fwd_sm90.cuh``: TMA, ``wgmma``, persistent blocks).
+(``csrc/bh_attention_fwd_sm90.cuh``: TMA, ``wgmma``, persistent blocks) and,
+asked for them, writes each row's statistics (``with_lse``); the backward
+runs the Hopper body that K5b runs too (``csrc/bh_attention_bwd_sm90.cuh``),
+which reads them and the forward's output (``out``, ``lse``).
 
 Attention dropout follows the TPU kernels: one int32 seed per (batch, head)
 (:func:`draw_seeds`), from which every kernel regenerates the same keep mask,
@@ -26,7 +29,10 @@ so the backward needs no mask in memory (:mod:`bsi_torch.ops.dropout_mask`).
 of the kernels' per-head math (the TPU kernel's functions of the same
 names), with optional explicit keep masks; ``_fused_fwd_math``,
 ``_packed_heads_math``, ``_fused_bwd_math`` and ``_packed_heads_bwd_math``
-are the plain versions of the four entries.
+are the plain versions of the four entries, the backwards from the
+forward's output and statistics where given
+(:func:`bsi_torch.ops.flash_attention._bwd_from_stats`), and
+``_fused_lse_math`` and ``_packed_heads_lse_math`` those of the statistics.
 """
 
 from __future__ import annotations
@@ -45,7 +51,19 @@ from .dropout_mask import (  # noqa: F401 (_philox4x32_10, keep_threshold: re-ex
     keep_threshold,
     kernel_dropout_args,
 )
-from .flash_attention import MAX_FUSED_TRAIN_SEQ, _no_path
+from .flash_attention import (
+    MAX_FUSED_TRAIN_SEQ,
+    _bwd_from_stats,
+    _lse_math,
+    _bind_bwd,
+    _bind_stats,
+    _no_path,
+    bwd_workspace,
+    stats_arg,
+    stats_buffer,
+    stats_ld,
+    writes_stats,
+)
 
 LANE = 128
 SOURCE = "flash_attention_packed.cu"
@@ -175,19 +193,44 @@ def _packed_heads_math(q, k, v, heads: int, keeps=None, keep_prob: float = 1.0):
     return _merge_heads(out).to(q.dtype)
 
 
-def _fused_bwd_math(qkv: torch.Tensor, do: torch.Tensor, heads: int, keeps=None, keep_prob: float = 1.0):
+def _fused_lse_math(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """Plain version of K2's row statistics: f32 ``[B, H, S]`` (``_lse_math``)."""
+    q, k, _ = split_qkv_grouped(qkv, heads)
+    return _lse_math(q, k, _scale(q.shape[-1]))
+
+
+def _packed_heads_lse_math(q: torch.Tensor, k: torch.Tensor, heads: int) -> torch.Tensor:
+    """Plain version of K6f's row statistics: f32 ``[B, H, S]``."""
+    q4, k4 = _split_heads(q, heads), _split_heads(k, heads)
+    return _lse_math(q4, k4, _scale(q4.shape[-1]))
+
+
+def _heads_bwd(q4, k4, v4, do4, heads: int, keeps, keep_prob: float, out=None, lse=None):
+    # _packed_bwd_math, or its counterpart from the forward's output [B, S,
+    # H*D] and statistics [B, H, S] where both are given
+    scale = _scale(q4.shape[-1])
+    if out is None or lse is None:
+        return _packed_bwd_math(q4, k4, v4, do4, scale, keeps, keep_prob)
+    acc = torch.promote_types(v4.dtype, torch.float32)
+    return _bwd_from_stats(q4, k4, v4, do4, _split_heads(out, heads), lse, scale, keeps, keep_prob, acc)
+
+
+def _fused_bwd_math(qkv: torch.Tensor, do: torch.Tensor, heads: int, keeps=None, keep_prob: float = 1.0,
+                    out=None, lse=None):
     """Plain version of K3: grouped qkv and dO ``[B, S, H*D]`` -> the fused
-    dqkv ``[B, S, 3*H*D]`` in the grouped layout, in qkv's dtype."""
+    dqkv ``[B, S, 3*H*D]`` in the grouped layout, in qkv's dtype; from K2's
+    output and statistics where both are given."""
     q, k, v = split_qkv_grouped(qkv, heads)
-    grads = _packed_bwd_math(q, k, v, _split_heads(do, heads), _scale(q.shape[-1]), keeps, keep_prob)
+    grads = _heads_bwd(q, k, v, _split_heads(do, heads), heads, keeps, keep_prob, out, lse)
     return merge_qkv_grouped(*grads).to(qkv.dtype)
 
 
-def _packed_heads_bwd_math(q, k, v, do, heads: int, keeps=None, keep_prob: float = 1.0):
+def _packed_heads_bwd_math(q, k, v, do, heads: int, keeps=None, keep_prob: float = 1.0, out=None, lse=None):
     """Plain version of K6b: q, k, v, dO ``[B, S, H*D]`` -> dq, dk, dv
-    ``[B, S, H*D]`` in q's dtype."""
+    ``[B, S, H*D]`` in q's dtype; from K6f's output and statistics where
+    both are given."""
     q4, k4, v4, do4 = (_split_heads(x, heads) for x in (q, k, v, do))
-    grads = _packed_bwd_math(q4, k4, v4, do4, _scale(q4.shape[-1]), keeps, keep_prob)
+    grads = _heads_bwd(q4, k4, v4, do4, heads, keeps, keep_prob, out, lse)
     return tuple(_merge_heads(g).to(q.dtype) for g in grads)
 
 
@@ -226,87 +269,103 @@ def _check_do(name: str, do: torch.Tensor, like: torch.Tensor, width: int) -> No
 
 
 def _launch(q_ptr, k_ptr, v_ptr, out, batch, seq, heads, head_dim, hpg, group_stride, in_ld, seeds,
-            rate, what):
+            rate, with_lse, what):
     seed_ptr, threshold, inv_keep = kernel_dropout_args(what, seeds, rate, (batch, heads), out.device)
     lib = _lib()
+    ld = stats_ld(lib, seq, head_dim, out.dtype)
+    lse = stats_buffer(batch, heads, seq, ld, out.device) if with_lse and ld else None
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         code = lib.bsi_packed_attention_fwd(
-            q_ptr, k_ptr, v_ptr, out.data_ptr(), batch, seq, heads, head_dim, hpg,
-            group_stride, in_ld, out.shape[-1], int(out.dtype == torch.bfloat16),
+            q_ptr, k_ptr, v_ptr, out.data_ptr(), None if lse is None else lse.data_ptr(), batch, seq, heads,
+            head_dim, hpg, group_stride, in_ld, out.shape[-1], int(out.dtype == torch.bfloat16),
             _scale(head_dim), seed_ptr, threshold, inv_keep, stream,
         )
     _build.check(lib, code, what)
+    return (out, lse) if with_lse else out
 
 
 def flash_attention_fused_cuda(qkv: torch.Tensor, heads: int, seeds: torch.Tensor | None = None,
-                               rate: float = 0.0) -> torch.Tensor:
+                               rate: float = 0.0, *, with_lse: bool = False):
     """Launch K2 on a contiguous CUDA grouped qkv buffer ``[B, S, 3*H*D]``
     (bf16 or f32, D in ``HEAD_DIMS``, any S), with dropout at ``rate`` from
-    int32 ``seeds [B, H]``. Returns ``[B, S, H*D]`` in qkv's dtype. Raises
+    int32 ``seeds [B, H]``. Returns ``[B, S, H*D]`` in qkv's dtype; with
+    ``with_lse``, ``(out, lse)``: the row statistics f32 ``[B, H, S]`` where
+    the route writes them (bf16 at head_dim 64 and 128), else None. Raises
     on anything else."""
     head_dim = _check_cuda("flash_attention_fused_cuda", (qkv,), heads, 3)
     b, seq, three_hd = qkv.shape
     hpg = qkv_heads_per_group(head_dim, heads)
     out = torch.empty(b, seq, three_hd // 3, dtype=qkv.dtype, device=qkv.device)
     base, step = qkv.data_ptr(), hpg * head_dim * qkv.element_size()
-    _launch(base, base + step, base + 2 * step, out, b, seq, heads, head_dim, hpg,
-            3 * hpg * head_dim, three_hd, seeds, rate, "flash_attention_fused kernel")
+    result = _launch(base, base + step, base + 2 * step, out, b, seq, heads, head_dim, hpg,
+                     3 * hpg * head_dim, three_hd, seeds, rate, with_lse, "flash_attention_fused kernel")
     flash_attention_fused_cuda.launches += 1
-    return out
+    return result
 
 
 flash_attention_fused_cuda.launches = 0
 
 
 def flash_attention_packed_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
-                                seeds: torch.Tensor | None = None, rate: float = 0.0) -> torch.Tensor:
+                                seeds: torch.Tensor | None = None, rate: float = 0.0, *, with_lse: bool = False):
     """Launch K6f on contiguous CUDA ``[B, S, H*D]`` q, k, v (bf16 or f32, D
-    in ``HEAD_DIMS``, any S), dropout as K2's. Returns ``[B, S, H*D]``.
-    Raises on anything else."""
+    in ``HEAD_DIMS``, any S), dropout and ``with_lse`` as K2's. Returns
+    ``[B, S, H*D]`` (and the statistics). Raises on anything else."""
     head_dim = _check_cuda("flash_attention_packed_cuda", (q, k, v), heads, 1)
     b, seq, hd = q.shape
-    out = torch.empty_like(q)
-    _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out, b, seq, heads, head_dim, 1,
-            head_dim, hd, seeds, rate, "flash_attention_packed kernel")
+    result = _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), torch.empty_like(q), b, seq, heads, head_dim, 1,
+                     head_dim, hd, seeds, rate, with_lse, "flash_attention_packed kernel")
     flash_attention_packed_cuda.launches += 1
-    return out
+    return result
 
 
 flash_attention_packed_cuda.launches = 0
 
 
-def _launch_bwd(ptrs, grads, do, batch, seq, heads, head_dim, hpg, group_stride, in_ld, seeds, rate,
+def _launch_bwd(ptrs, grads, do, out, lse, ld, batch, seq, heads, head_dim, hpg, group_stride, in_ld, seeds, rate,
                 what):
     seed_ptr, threshold, inv_keep = kernel_dropout_args(what, seeds, rate, (batch, heads), do.device)
-    stats = torch.empty(3 * batch * heads * seq, dtype=torch.float32, device=do.device)
+    out_ptr = lse_ptr = None
+    if ld:
+        _check_do(what, out, do, 1)
+        lse = stats_arg(what, lse, batch, heads, seq, ld, do.device)
+        out_ptr, lse_ptr = out.data_ptr(), lse.data_ptr()
     lib = _bwd_lib()
+    workspace = bwd_workspace(lib, batch * heads, seq, head_dim, do.dtype, seed_ptr is not None, do.device)
     with torch.cuda.device(do.device):
         stream = torch.cuda.current_stream(do.device).cuda_stream
         code = lib.bsi_packed_attention_bwd(
-            *ptrs, do.data_ptr(), *grads, stats.data_ptr(), batch, seq, heads, head_dim, hpg,
-            group_stride, in_ld, do.shape[-1], int(do.dtype == torch.bfloat16), _scale(head_dim),
+            *ptrs, do.data_ptr(), out_ptr, lse_ptr, *grads, workspace.data_ptr(), batch, seq, heads, head_dim,
+            hpg, group_stride, in_ld, do.shape[-1], int(do.dtype == torch.bfloat16), _scale(head_dim),
             seed_ptr, threshold, inv_keep, stream,
         )
     _build.check(lib, code, what)
 
 
 def flash_attention_fused_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, heads: int,
-                                   seeds: torch.Tensor | None = None, rate: float = 0.0) -> torch.Tensor:
+                                   seeds: torch.Tensor | None = None, rate: float = 0.0, *,
+                                   out: torch.Tensor | None = None, lse: torch.Tensor | None = None):
     """Launch K3: the grouped qkv buffer ``[B, S, 3*H*D]`` and the output
     gradient dO ``[B, S, H*D]`` (contiguous CUDA, bf16 or f32, D in
-    ``HEAD_DIMS``, any S), with the forward's ``seeds`` and ``rate``.
-    Returns the fused dqkv ``[B, S, 3*H*D]`` in the grouped layout, written
-    by the kernel in place. Raises on anything else."""
+    ``HEAD_DIMS``, any S), with the forward's ``seeds`` and ``rate``. In
+    bf16 at head_dim 64 and 128 it reads K2's output ``out`` and statistics
+    ``lse`` (:func:`flash_attention_fused_cuda` with ``with_lse``); when
+    either is not given it launches K2 for both first. Returns the fused
+    dqkv ``[B, S, 3*H*D]`` in the grouped layout, written by the kernel in
+    place. Raises on anything else."""
     name = "flash_attention_fused_bwd_cuda"
     head_dim = _check_cuda(name, (qkv,), heads, 3)
     _check_do(name, do, qkv, 3)
     b, seq, three_hd = qkv.shape
+    ld = stats_ld(_bwd_lib(), seq, head_dim, qkv.dtype)
+    if ld and (out is None or lse is None):
+        out, lse = flash_attention_fused_cuda(qkv, heads, seeds, rate, with_lse=True)
     hpg = qkv_heads_per_group(head_dim, heads)
     dqkv = torch.empty_like(qkv)
     step = hpg * head_dim * qkv.element_size()
     offsets = lambda t: (t.data_ptr(), t.data_ptr() + step, t.data_ptr() + 2 * step)
-    _launch_bwd(offsets(qkv), offsets(dqkv), do, b, seq, heads, head_dim, hpg, 3 * hpg * head_dim,
+    _launch_bwd(offsets(qkv), offsets(dqkv), do, out, lse, ld, b, seq, heads, head_dim, hpg, 3 * hpg * head_dim,
                 three_hd, seeds, rate, "flash_attention_fused_bwd kernel")
     flash_attention_fused_bwd_cuda.launches += 1
     return dqkv
@@ -316,15 +375,21 @@ flash_attention_fused_bwd_cuda.launches = 0
 
 
 def flash_attention_packed_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-                                    heads: int, seeds: torch.Tensor | None = None, rate: float = 0.0):
+                                    heads: int, seeds: torch.Tensor | None = None, rate: float = 0.0, *,
+                                    out: torch.Tensor | None = None, lse: torch.Tensor | None = None):
     """Launch K6b on contiguous CUDA ``[B, S, H*D]`` q, k, v and dO (bf16 or
-    f32, D in ``HEAD_DIMS``, any S), dropout as K3's. Returns dq, dk,
-    dv ``[B, S, H*D]``. Raises on anything else."""
-    head_dim = _check_cuda("flash_attention_packed_bwd_cuda", (q, k, v, do), heads, 1)
+    f32, D in ``HEAD_DIMS``, any S), dropout, ``out`` and ``lse`` as K3's
+    (K6f's here). Returns dq, dk, dv ``[B, S, H*D]``. Raises on anything
+    else."""
+    name = "flash_attention_packed_bwd_cuda"
+    head_dim = _check_cuda(name, (q, k, v, do), heads, 1)
     b, seq, hd = q.shape
+    ld = stats_ld(_bwd_lib(), seq, head_dim, q.dtype)
+    if ld and (out is None or lse is None):
+        out, lse = flash_attention_packed_cuda(q, k, v, heads, seeds, rate, with_lse=True)
     grads = tuple(torch.empty_like(q) for _ in range(3))
-    _launch_bwd((q.data_ptr(), k.data_ptr(), v.data_ptr()), tuple(g.data_ptr() for g in grads), do,
-                b, seq, heads, head_dim, 1, head_dim, hd, seeds, rate, "flash_attention_packed_bwd kernel")
+    _launch_bwd((q.data_ptr(), k.data_ptr(), v.data_ptr()), tuple(g.data_ptr() for g in grads), do, out, lse, ld,
+                b, seq, heads, head_dim, 1, head_dim, hd, seeds, rate, name)
     flash_attention_packed_bwd_cuda.launches += 1
     return grads
 
@@ -336,10 +401,11 @@ flash_attention_packed_bwd_cuda.launches = 0
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     fn = lib.bsi_packed_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
                    + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    _bind_stats(lib)
     return lib
 
 
@@ -347,10 +413,10 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load(BWD_SOURCE)
     fn = lib.bsi_packed_attention_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float,
-                      ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    _bind_bwd(lib)
     return lib
 
 
@@ -358,48 +424,60 @@ def _bwd_lib() -> ctypes.CDLL:
 
 
 def flash_attention_fused(qkv: torch.Tensor, *, heads: int, seeds: torch.Tensor | None = None,
-                          rate: float = 0.0) -> torch.Tensor:
+                          rate: float = 0.0, with_lse: bool = False):
     """Attention straight off a grouped qkv buffer ``[B, S, 3*H*D]`` ->
-    ``[B, S, H*D]``, dropout at ``rate`` from ``seeds [B, H]``. A CUDA
-    tensor runs K2 (or raises where K2 cannot take it); a CPU tensor runs the
-    plain version with :func:`_philox_keep_mask`'s mask."""
+    ``[B, S, H*D]``, dropout at ``rate`` from ``seeds [B, H]``; with
+    ``with_lse`` also the row statistics, as :func:`flash_attention_fused_cuda`
+    returns them. A CUDA tensor runs K2 (or raises where K2 cannot take it);
+    a CPU tensor runs the plain version with :func:`_philox_keep_mask`'s
+    mask (and the statistics where the card's route writes them)."""
     if qkv.device.type == "cpu":
-        return _fused_fwd_math(qkv, heads, _keeps(seeds, qkv.shape[1], rate), 1.0 - rate)
+        out = _fused_fwd_math(qkv, heads, _keeps(seeds, qkv.shape[1], rate), 1.0 - rate)
+        if not with_lse:
+            return out
+        return out, _fused_lse_math(qkv, heads) if writes_stats(qkv.dtype, qkv.shape[-1] // 3 // heads) else None
     if qkv.device.type == "cuda":
-        return flash_attention_fused_cuda(qkv, heads, seeds, rate)
+        return flash_attention_fused_cuda(qkv, heads, seeds, rate, with_lse=with_lse)
     raise _no_path("flash_attention_fused", qkv.device)
 
 
 def flash_attention_fused_bwd(qkv: torch.Tensor, do: torch.Tensor, *, heads: int,
-                              seeds: torch.Tensor | None = None, rate: float = 0.0) -> torch.Tensor:
+                              seeds: torch.Tensor | None = None, rate: float = 0.0,
+                              out: torch.Tensor | None = None, lse: torch.Tensor | None = None) -> torch.Tensor:
     """The fused dqkv ``[B, S, 3*H*D]`` of :func:`flash_attention_fused` for
-    the output gradient ``do``. A CUDA tensor runs K3; a CPU tensor the plain
-    version."""
+    the output gradient ``do``, from the forward's ``out`` and ``lse`` where
+    given. A CUDA tensor runs K3; a CPU tensor the plain version."""
     if qkv.device.type == "cpu":
-        return _fused_bwd_math(qkv, do, heads, _keeps(seeds, qkv.shape[1], rate), 1.0 - rate)
+        return _fused_bwd_math(qkv, do, heads, _keeps(seeds, qkv.shape[1], rate), 1.0 - rate, out, lse)
     if qkv.device.type == "cuda":
-        return flash_attention_fused_bwd_cuda(qkv, do, heads, seeds, rate)
+        return flash_attention_fused_bwd_cuda(qkv, do, heads, seeds, rate, out=out, lse=lse)
     raise _no_path("flash_attention_fused_bwd", qkv.device)
 
 
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, heads: int,
-                           seeds: torch.Tensor | None = None, rate: float = 0.0) -> torch.Tensor:
-    """Attention over packed ``[B, S, H*D]`` q, k, v, dropout as
-    :func:`flash_attention_fused`'s. A CUDA tensor runs K6f (or raises where
-    K6f cannot take it); a CPU tensor runs the plain version."""
+                           seeds: torch.Tensor | None = None, rate: float = 0.0, with_lse: bool = False):
+    """Attention over packed ``[B, S, H*D]`` q, k, v, dropout and
+    ``with_lse`` as :func:`flash_attention_fused`'s. A CUDA tensor runs K6f
+    (or raises where K6f cannot take it); a CPU tensor runs the plain
+    version."""
     if q.device.type == "cpu":
-        return _packed_heads_math(q, k, v, heads, _keeps(seeds, q.shape[1], rate), 1.0 - rate)
+        out = _packed_heads_math(q, k, v, heads, _keeps(seeds, q.shape[1], rate), 1.0 - rate)
+        if not with_lse:
+            return out
+        return out, _packed_heads_lse_math(q, k, heads) if writes_stats(q.dtype, q.shape[-1] // heads) else None
     if q.device.type == "cuda":
-        return flash_attention_packed_cuda(q, k, v, heads, seeds, rate)
+        return flash_attention_packed_cuda(q, k, v, heads, seeds, rate, with_lse=with_lse)
     raise _no_path("flash_attention_packed", q.device)
 
 
 def flash_attention_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
-                               heads: int, seeds: torch.Tensor | None = None, rate: float = 0.0):
+                               heads: int, seeds: torch.Tensor | None = None, rate: float = 0.0,
+                               out: torch.Tensor | None = None, lse: torch.Tensor | None = None):
     """dq, dk, dv of :func:`flash_attention_packed` for the output gradient
-    ``do``. A CUDA tensor runs K6b; a CPU tensor the plain version."""
+    ``do``, from the forward's ``out`` and ``lse`` where given. A CUDA tensor
+    runs K6b; a CPU tensor the plain version."""
     if q.device.type == "cpu":
-        return _packed_heads_bwd_math(q, k, v, do, heads, _keeps(seeds, q.shape[1], rate), 1.0 - rate)
+        return _packed_heads_bwd_math(q, k, v, do, heads, _keeps(seeds, q.shape[1], rate), 1.0 - rate, out, lse)
     if q.device.type == "cuda":
-        return flash_attention_packed_bwd_cuda(q, k, v, do, heads, seeds, rate)
+        return flash_attention_packed_bwd_cuda(q, k, v, do, heads, seeds, rate, out=out, lse=lse)
     raise _no_path("flash_attention_packed_bwd", q.device)

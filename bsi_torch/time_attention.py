@@ -1,14 +1,20 @@
-"""Check and time the attention forwards K1, K5f, K2 and K6f on one GPU.
+"""Check and time the attention kernels K1, K5f, K2 and K6f and the
+backwards K3, K6b and K5b on one GPU.
 
     python bsi_torch/time_attention.py [--root DIR] [--out FILE]
 
 Imports ``bsi_torch`` from ``DIR`` (the checkout this file is in by
 default, so an unpacked older commit can be timed by the same script),
-builds its K1, K5f and K2/K6f, holds each against its plain version at the
-UNet's and DiT-L/2's shapes and at ragged lengths (bf16 within 2e-2, f32
-within 1e-5), then times the kernels and their plain versions at those
-shapes: medians of 30 launches between CUDA events, the L2 flushed before
-each (``chip_smoke.py`` times the library's attention beside them).
+builds its kernels, holds each against its plain version at the UNet's and
+DiT-L/2's shapes and at ragged lengths (bf16 within 2e-2, the gradients
+within 2e-2 of their largest element; f32 within 1e-5), then times the
+kernels and their plain versions at those shapes: medians of 30 launches
+between CUDA events, the L2 flushed before each (``chip_smoke.py`` times
+the library's attention beside them). Where the checkout's forwards can
+write the backward's row statistics (``with_lse``) they are timed with the
+store on too, and the backwards with the forward's output and statistics
+given (``ms``, as a train step calls them) and without (``ms_standalone``,
+the forward launched first); an older checkout's backwards take neither.
 Prints one line per check and per time, and the card's name, power limit
 and SM clock at the start and the end; with ``--out`` also writes them as
 JSON. Exits non-zero if a check fails or there is no card.
@@ -17,6 +23,7 @@ JSON. Exits non-zero if a check fails or there is no card.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import statistics
 import subprocess
@@ -62,6 +69,31 @@ TIMES = [
     ("k2", (64, 256, 16, 64), "bfloat16", 0.05),
     ("k6f", (64, 256, 16, 64), "bfloat16", 0.0),
     ("k2", (64, 256, 8, 128), "bfloat16", 0.0),
+]
+# ((batch, seq, heads, head_dim), dtype name, dropout rate) of each K3 and K6b
+# check (over the grouped qkv buffer and over three tensors), and ((B, H, S,
+# D), ...) of each K5b check: the main shapes, then ragged lengths.
+BWD_CHECKS = [
+    ((64, 256, 16, 64), "bfloat16", 0.0),
+    ((64, 256, 16, 64), "bfloat16", 0.05),
+    ((64, 256, 16, 64), "float32", 0.05),
+    ((3, 200, 4, 64), "bfloat16", 0.05),
+    ((2, 63, 2, 128), "bfloat16", 0.05),
+    ((2, 1, 4, 64), "bfloat16", 0.0),
+]
+K5B_CHECKS = [
+    ((128, 1, 256, 128), "bfloat16", 0.0),
+    ((128, 1, 256, 128), "bfloat16", 0.1),
+    ((3, 1, 200, 128), "bfloat16", 0.1),
+    ((2, 2, 384, 64), "bfloat16", 0.1),
+]
+# (kernel, shape, dtype name, dropout rate) of each backward time.
+BWD_TIMES = [
+    ("k3", (64, 256, 16, 64), "bfloat16", 0.0),
+    ("k3", (64, 256, 16, 64), "bfloat16", 0.05),
+    ("k6b", (64, 256, 16, 64), "bfloat16", 0.05),
+    ("k5b", (128, 1, 256, 128), "bfloat16", 0.0),
+    ("k5b", (128, 1, 256, 128), "bfloat16", 0.1),
 ]
 
 
@@ -152,6 +184,70 @@ def main() -> int:
                fap._packed_heads_math(*split3(qkv), h, keeps, 1.0 - rate), atol)
         del qkv, keeps
 
+    # Whether this checkout's forwards write the statistics and its
+    # backwards take them.
+    stats = "with_lse" in inspect.signature(fap.flash_attention_fused_cuda).parameters
+
+    def k3_k6b(qkv, do, h, sd, rate, given):
+        """K3's dqkv and K6b's dq, dk, dv, from the forwards' statistics when
+        `given` (and the checkout takes them)."""
+        q, k, v = split3(qkv)
+        kw3 = kw6 = {}
+        if given and stats:
+            out, lse = fap.flash_attention_fused_cuda(qkv, h, sd, rate, with_lse=True)
+            kw3 = dict(out=out, lse=lse)
+            out6, lse6 = fap.flash_attention_packed_cuda(q, k, v, h, sd, rate, with_lse=True)
+            kw6 = dict(out=out6, lse=lse6)
+        return (fap.flash_attention_fused_bwd_cuda(qkv, do, h, sd, rate, **kw3),
+                fap.flash_attention_packed_bwd_cuda(q, k, v, do, h, sd, rate, **kw6))
+
+    def k5b(q, k, v, do, sd, rate, given):
+        kw = {}
+        if given and stats:
+            out, lse = fa.flash_attention_dropout_cuda(q, k, v, sd, rate, with_lse=True)
+            kw = dict(out=out, lse=lse)
+        return fa.flash_attention_bwd_cuda(q, k, v, do, sd, rate, **kw)
+
+    def report_bwd(name, shape, dtype_name, rate, got, want, given, dv_want, seq):
+        nonlocal failed
+        # dQ and dK vanish at S = 1 (a softmax over one key is constant):
+        # there they are held to the tolerance of dV's largest element, the
+        # scale of the terms that cancel (delta from the bf16 output, dP
+        # from the products)
+        scale = want.float().abs().max().item()
+        if seq == 1:
+            scale = max(scale, dv_want.float().abs().max().item())
+        tol = (2e-2 if dtype_name == "bfloat16" else 1e-5) * scale
+        err = (got.float() - want.float()).abs().max().item()
+        ok = err <= tol
+        failed += not ok
+        record["checks"].append(dict(kernel=name, shape=shape, dtype=dtype_name, rate=rate, stats_given=given,
+                                     max_abs_err=err, tol=tol, ok=ok))
+        print(f"[check] {name} {shape} {dtype_name} rate={rate} stats_given={given} max_abs_err={err:.3e} "
+              f"tol={tol:.3e} ok={ok}", flush=True)
+
+    for (b, s, h, d), dtype_name, rate in BWD_CHECKS:
+        dtype = getattr(torch, dtype_name)
+        qkv, do = randn((b, s, 3 * h * d), dtype), randn((b, s, h * d), dtype)
+        sd = draw_seeds(b, h, dev, gen) if rate else None
+        keeps = fap._philox_keep_mask(sd, s, 1.0 - rate) if rate else None
+        want3 = fap._fused_bwd_math(qkv, do, h, keeps, 1.0 - rate)
+        want6 = fap._packed_heads_bwd_math(*split3(qkv), do, h, keeps, 1.0 - rate)
+        for given in (True, False):
+            got3, got6 = k3_k6b(qkv, do, h, sd, rate, given)
+            report_bwd("k3", (b, s, h, d), dtype_name, rate, got3, want3, given, want6[2], s)
+            for part, g, w in zip("qkv", got6, want6):
+                report_bwd(f"k6b d{part}", (b, s, h, d), dtype_name, rate, g, w, given, want6[2], s)
+        del qkv, do, keeps, want3, want6
+    for shape, dtype_name, rate in K5B_CHECKS:
+        dtype = getattr(torch, dtype_name)
+        q, k, v, do = inputs(shape, dtype) + [randn(shape, dtype)]
+        sd = seeds(shape) if rate else None
+        wants = fa._bwd_math(q, k, v, do, fa._scale(q), fa._keep(q, sd, rate), 1.0 - rate)
+        for given in (True, False):
+            for part, g, w in zip("qkv", k5b(q, k, v, do, sd, rate, given), wants):
+                report_bwd(f"k5b d{part}", shape, dtype_name, rate, g, w.to(dtype), given, wants[2], shape[2])
+
     scrub = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     flush = scrub.zero_
     for name, shape, dtype_name, rate in TIMES:
@@ -162,20 +258,52 @@ def main() -> int:
             sd = seeds(shape) if rate else None
             kernel = (lambda: fa.flash_attention_cuda(q, k, v)) if name == "k1" else (lambda: k5f(q, k, v, sd, rate))
             row["ms"] = median_ms(kernel, flush)
+            if name == "k5f" and stats:
+                row["ms_with_lse"] = median_ms(
+                    lambda: fa.flash_attention_dropout_cuda(q, k, v, sd, rate, with_lse=True), flush)
             if rate == 0.0:
                 row["plain_ms"] = median_ms(lambda: fa._fwd_math(q, k, v, fa._scale(q)).to(dtype), flush)
         else:
             b, s, h, d = shape
             qkv = randn((b, s, 3 * h * d), dtype)
             sd = draw_seeds(b, h, dev, gen) if rate else None
+            q, k, v = split3(qkv)
             if name == "k2":
-                kernel = lambda: k2(qkv, h, sd, rate)
+                kernel = lambda **kw: fap.flash_attention_fused_cuda(qkv, h, sd, rate, **kw)
             else:
-                q, k, v = split3(qkv)
-                kernel = lambda: fap.flash_attention_packed_cuda(q, k, v, h, sd, rate)
+                kernel = lambda **kw: fap.flash_attention_packed_cuda(q, k, v, h, sd, rate, **kw)
             row["ms"] = median_ms(kernel, flush)
+            if stats:
+                row["ms_with_lse"] = median_ms(lambda: kernel(with_lse=True), flush)
             if rate == 0.0:
                 row["plain_ms"] = median_ms(lambda: fap._fused_fwd_math(qkv, h), flush)
+        record["times"].append(row)
+        print("[time] " + " ".join(f"{key}={val}" for key, val in row.items()), flush=True)
+    for name, shape, dtype_name, rate in BWD_TIMES:
+        dtype = getattr(torch, dtype_name)
+        row = dict(kernel=name, shape=shape, dtype=dtype_name, rate=rate)
+        if name == "k5b":
+            q, k, v, do = inputs(shape, dtype) + [randn(shape, dtype)]
+            sd = seeds(shape) if rate else None
+            kw = {}
+            if stats:
+                out, lse = fa.flash_attention_dropout_cuda(q, k, v, sd, rate, with_lse=True)
+                kw = dict(out=out, lse=lse)
+            kernel = lambda **given: fa.flash_attention_bwd_cuda(q, k, v, do, sd, rate, **given)
+        else:
+            b, s, h, d = shape
+            qkv, do = randn((b, s, 3 * h * d), dtype), randn((b, s, h * d), dtype)
+            sd = draw_seeds(b, h, dev, gen) if rate else None
+            q, k, v = split3(qkv)
+            if name == "k3":
+                forward = lambda: fap.flash_attention_fused_cuda(qkv, h, sd, rate, with_lse=True)
+                kernel = lambda **given: fap.flash_attention_fused_bwd_cuda(qkv, do, h, sd, rate, **given)
+            else:
+                forward = lambda: fap.flash_attention_packed_cuda(q, k, v, h, sd, rate, with_lse=True)
+                kernel = lambda **given: fap.flash_attention_packed_bwd_cuda(q, k, v, do, h, sd, rate, **given)
+            kw = dict(zip(("out", "lse"), forward())) if stats else {}
+        row["ms"] = median_ms(lambda: kernel(**kw), flush)
+        row["ms_standalone"] = median_ms(kernel, flush)
         record["times"].append(row)
         print("[time] " + " ".join(f"{key}={val}" for key, val in row.items()), flush=True)
     record["sm_clock_end"] = smi("clocks.sm")

@@ -8,12 +8,14 @@ they run where only PyTorch is installed:
 Without a card they skip.
 """
 
+import itertools
+
 import pytest
 import torch
 
 from bsi_torch.ops import attention, flash_attention as fa, flash_attention_packed as fap
 from bsi_torch.ops import groupnorm_silu as gn, ln_modulate as lm
-from bsi_torch.ops.dropout_mask import keep_probe, keep_probe_counts
+from bsi_torch.ops.dropout_mask import keep_probe, keep_probe_bwd, keep_probe_bwd_counts, keep_probe_counts
 
 pytestmark = pytest.mark.cuda
 
@@ -281,11 +283,12 @@ def test_bf16_keep_masks_are_the_philox_twins_bit_for_bit(cuda, kernel, b, heads
     assert (got.float() - counts).abs().max().item() <= 1e-3
 
 
-def _bwd_close(got, want, dtype):
+def _bwd_close(got, want, dtype, floor=0.0):
     """bf16: within 2e-2 of the largest element (P and dS rounded to bf16 at
     other points than the plain version's, and the outputs to bf16); f32:
-    within 1e-5 of it (exact f32 products summed in another order)."""
-    tol = (2e-2 if dtype == torch.bfloat16 else 1e-5) * want.float().abs().max().item()
+    within 1e-5 of it (exact f32 products summed in another order); plus
+    `floor`."""
+    tol = (2e-2 if dtype == torch.bfloat16 else 1e-5) * want.float().abs().max().item() + floor
     err = (got.float() - want.float()).abs().max().item()
     assert got.dtype == want.dtype and got.shape == want.shape
     assert err <= tol, (err, tol)
@@ -346,6 +349,132 @@ def test_packed_attention_gradient_matches_plain_autograd(cuda):
     keeps = fap._philox_keep_mask(seeds, s, 1.0 - RATE)
     (want,) = torch.autograd.grad(fap._fused_fwd_math(leaf, heads, keeps, 1.0 - RATE), leaf, g)
     assert (grad - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+# ---------------------------- the Hopper backward: statistics from the forward
+
+
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("b,s,heads,d", [(2, 256, 16, 64), (2, 256, 2, 128), (2, 1, 4, 64), (2, 63, 4, 64),
+                                         (3, 200, 3, 64), (2, 384, 4, 64), (2, 63, 2, 128), (1, 200, 2, 128)])
+def test_k3_k6b_from_the_forward_statistics(cuda, b, s, heads, d, rate):
+    # bf16 at head_dim 64 and 128: K2's row statistics against the plain
+    # version's (f32 logits, sums in another order: 1e-4); K3 and K6b from
+    # them against the plain backward (at S = 1 dQ and dK vanish: delta from
+    # the bf16 output and dP from the products are two roundings of terms
+    # of dV's scale, so 2e-2 of dV's largest element beside); with them
+    # given, without them (the forward launched first) and launched twice:
+    # the same bits; K3's dqkv K6b's dq|dk|dv interleaved
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    qkv = _randn(gen, b, s, 3 * heads * d, dtype=torch.bfloat16, device=cuda)
+    do = _randn(gen, b, s, heads * d, dtype=torch.bfloat16, device=cuda)
+    seeds = _seeds(gen, b, heads, cuda) if rate else None
+    keeps = fap._philox_keep_mask(seeds, s, 1.0 - rate) if rate else None
+    out, lse = fap.flash_attention_fused_cuda(qkv, heads, seeds, rate, with_lse=True)
+    assert torch.equal(out, fap.flash_attention_fused_cuda(qkv, heads, seeds, rate))
+    assert (lse - fap._fused_lse_math(qkv, heads)).abs().max().item() <= 1e-4
+    forwards = fap.flash_attention_fused_cuda.launches
+    got = fap.flash_attention_fused_bwd_cuda(qkv, do, heads, seeds, rate, out=out, lse=lse)
+    assert fap.flash_attention_fused_cuda.launches == forwards
+    want = fap._fused_bwd_math(qkv, do, heads, keeps, 1.0 - rate)
+    floor = 2e-2 * fap.split_qkv_grouped(want, heads)[2].float().abs().max().item() if s == 1 else 0.0
+    _bwd_close(got, want, torch.bfloat16, floor)
+    assert torch.equal(got, fap.flash_attention_fused_bwd_cuda(qkv, do, heads, seeds, rate, out=out, lse=lse))
+    assert torch.equal(got, fap.flash_attention_fused_bwd_cuda(qkv, do, heads, seeds, rate))
+    assert fap.flash_attention_fused_cuda.launches == forwards + 1
+    q, k, v = (fap._merge_heads(t).contiguous() for t in fap.split_qkv_grouped(qkv, heads))
+    out6, lse6 = fap.flash_attention_packed_cuda(q, k, v, heads, seeds, rate, with_lse=True)
+    assert torch.equal(lse6, lse)
+    grads = fap.flash_attention_packed_bwd_cuda(q, k, v, do, heads, seeds, rate, out=out6, lse=lse6)
+    for g, w in zip(grads, fap._packed_heads_bwd_math(q, k, v, do, heads, keeps, 1.0 - rate)):
+        _bwd_close(g, w, torch.bfloat16, floor)
+    assert torch.equal(got, _interleave(*grads, heads))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", [(16, 1, 256, 128), (2, 2, 256, 64), (3, 1, 200, 128), (2, 1, 1, 128),
+                                   (2, 2, 63, 64), (1, 1, 384, 128)])
+def test_k5b_from_the_forward_statistics(cuda, shape, rate):
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    q, k, v, do, seeds, keep = _k5_inputs(gen, shape, torch.bfloat16, rate, cuda)
+    out, lse = fa.flash_attention_dropout_cuda(q, k, v, seeds, rate, with_lse=True)
+    assert (lse - fa._lse_math(q, k, fa._scale(q))).abs().max().item() <= 1e-4
+    grads = fa.flash_attention_bwd_cuda(q, k, v, do, seeds, rate, out=out, lse=lse)
+    wants = fa._bwd_math(q, k, v, do, fa._scale(q), keep, 1.0 - rate)
+    floor = 2e-2 * wants[2].abs().max().item() if shape[2] == 1 else 0.0  # as K3's at S = 1
+    for g, w in zip(grads, wants):
+        _bwd_close(g, w.to(torch.bfloat16), torch.bfloat16, floor)
+    for again in (fa.flash_attention_bwd_cuda(q, k, v, do, seeds, rate, out=out, lse=lse),
+                  fa.flash_attention_bwd_cuda(q, k, v, do, seeds, rate)):
+        assert all(map(torch.equal, again, grads))
+    # statistics from the plain version, in another layout, give the same
+    # numbers up to their own rounding
+    plain = fa.flash_attention_bwd_cuda(q, k, v, do, seeds, rate, out=out, lse=fa._lse_math(q, k, fa._scale(q)))
+    for g, w in zip(plain, grads):
+        _bwd_close(g, w, torch.bfloat16, floor)
+
+
+@pytest.mark.parametrize("rate", [RATE, 0.1])
+@pytest.mark.parametrize("kernel,b,heads,s,d", [("k3", 2, 4, 256, 64), ("k6b", 2, 4, 256, 64), ("k5b", 2, 2, 256, 64),
+                                                ("k3", 2, 2, 200, 128), ("k5b", 2, 1, 256, 128)])
+def test_backward_keep_masks_are_the_philox_twins_bit_for_bit(cuda, kernel, b, heads, s, d, rate):
+    # keep_probe_bwd's inputs read the mask out of dV (the dkv kernel reads
+    # the bits back) and dQ (the dq kernel draws them): one flipped bit moves
+    # dV by 1 / (S keep_prob) >= 3.9e-3 and dQ by scale / (S keep_prob) >=
+    # 3.8e-4 here, bf16 rounding by < 5e-5
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    q, k, v, do = keep_probe_bwd(b, heads, s, d, torch.bfloat16, cuda)
+    seeds = _seeds(gen, b, heads, cuda)
+    keeps = fap._philox_keep_mask(seeds, s, 1.0 - rate)
+    if kernel == "k3":
+        got = fap.split_qkv_grouped(fap.flash_attention_fused_bwd_cuda(
+            fap.merge_qkv_grouped(q, k, v), fap._merge_heads(do), heads, seeds, rate), heads)
+    elif kernel == "k6b":
+        got = [fap._split_heads(t, heads) for t in fap.flash_attention_packed_bwd_cuda(
+            *(fap._merge_heads(t).contiguous() for t in (q, k, v, do)), heads, seeds, rate)]
+    else:
+        got = fa.flash_attention_bwd_cuda(q, k, v, do, seeds.reshape(-1), rate)
+    want_dq, want_dv = keep_probe_bwd_counts(keeps, d, 1.0 - rate, fa._scale(q))
+    assert (got[0].float() - want_dq).abs().max().item() <= 1e-4
+    assert (got[2].float() - want_dv).abs().max().item() <= 1e-3
+
+
+def test_training_paths_pass_the_statistics(cuda, monkeypatch):
+    # the autograd paths launch each forward once and each backward once,
+    # the backward reading the forward's statistics (no second forward);
+    # under no_grad the forwards write none
+    gen = torch.Generator(device=cuda).manual_seed(27)
+    qkv = _randn(gen, 2, 256, 3 * 4 * 64, dtype=torch.bfloat16, device=cuda).requires_grad_()
+    counts = fap.flash_attention_fused_cuda.launches, fap.flash_attention_fused_bwd_cuda.launches
+    attention.multi_head_attention_fused_qkv(qkv, heads=4, dropout_rate=RATE, generator=gen).sum().backward()
+    assert (fap.flash_attention_fused_cuda.launches, fap.flash_attention_fused_bwd_cuda.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    q = _randn(gen, 2, 1, 256, 128, dtype=torch.bfloat16, device=cuda).requires_grad_()
+    counts = fa.flash_attention_dropout_cuda.launches, fa.flash_attention_bwd_cuda.launches
+    attention.multi_head_attention(q, q, q, dropout_rate=0.1, generator=gen).sum().backward()
+    assert (fa.flash_attention_dropout_cuda.launches, fa.flash_attention_bwd_cuda.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    calls = []
+    real = fap.stats_buffer
+    monkeypatch.setattr(fap, "stats_buffer", lambda *a: calls.append(a) or real(*a))
+    with torch.no_grad():
+        attention.multi_head_attention_fused_qkv(qkv, heads=4)
+    assert not calls
+
+
+def test_routes_report_their_statistics_and_scratch(cuda):
+    # every library reports one stride for the statistics (the bf16 routes
+    # at 64 and 128, rows over whole 128-row tiles) and 0 elsewhere, as the
+    # plain versions' writes_stats has it; the scratch follows the route
+    libs = (fap._lib(), fap._bwd_lib(), fa._dropout_lib(), fa._bwd_lib())
+    for seq, d, dtype in itertools.product((1, 200, 256, 384), fa.HEAD_DIMS, (torch.bfloat16, torch.float32)):
+        want = -(-seq // 128) * 128 if fa.writes_stats(dtype, d) else 0
+        assert {fa.stats_ld(lib, seq, d, dtype) for lib in libs} == {want}
+    size = lambda seq, d, dtype, dropout: fa.bwd_workspace(fa._bwd_lib(), 8, seq, d, dtype, dropout, cuda).numel()
+    assert size(256, 64, torch.bfloat16, True) == 0  # one block a head
+    assert size(384, 64, torch.bfloat16, False) == 8 * 384 * 4  # delta only
+    assert size(384, 64, torch.bfloat16, True) == 8 * 384 * 4 + 8 * 9 * 2048  # and the keep bits
+    assert size(384, 256, torch.bfloat16, True) == 3 * 8 * 384 * 4  # the recomputing bodies' statistics
 
 
 # ------------------------------------------- K5f, K5b: whole-sequence attention
