@@ -1,4 +1,4 @@
-"""K7: fused GroupNorm + SiLU, forward and backward, Triton kernels for Hopper.
+"""K7: fused GroupNorm + SiLU, forward and backward, CUDA C++ kernels for Hopper.
 
 Counterpart of ``bsi_tpu/ops/groupnorm_silu.py`` (the ``pallas_call``s of
 ``_fwd_kernel`` and ``_bwd_kernel``). The forward (K7f) computes
@@ -6,7 +6,13 @@ Counterpart of ``bsi_tpu/ops/groupnorm_silu.py`` (the ``pallas_call``s of
 flattened pixels, channels last) with f32 one-pass
 statistics (E[x^2] - E[x]^2), eps 1e-6, the affine in f32, then a cast to
 the input dtype and SiLU in that dtype. ``_reference_math`` is its plain
-PyTorch version.
+PyTorch version. The backward (K7b) is the closed-form VJP the JAX kernel
+computes, with the group statistics recomputed from x and z in f32 (not
+rounded as the forward rounds it): ``dz = g * silu'(z)``, per-image partials
+``dgamma_b = sum_rows dz * xhat`` and ``dbeta_b = sum_rows dz``, and ``dx =
+rstd * (dxhat - mean_g(dxhat) - xhat * mean_g(dxhat * xhat))`` with ``dxhat
+= dz * gamma``; ``_bwd_math`` is its plain version. The wrapper sums the
+partials over the batch, as the JAX package sums outside its kernel.
 
 Dispatch departs from the JAX package on purpose. There the kernel is
 opt-in, because on the TPU it lost to XLA fusing the plain math into a
@@ -14,45 +20,57 @@ reduce pass and one elementwise pass. Eager PyTorch fuses nothing: the plain
 version makes several full passes over a 16-33 MB activation. So every CUDA
 tensor runs the kernel, and there is no switch.
 
-Design: the bound on an H100 is memory, one read and one write of x
-(33.5 MB at [64, 1024, 128] bf16, 10 us at 3.35 TB/s; 67 MB, 20 us at
-[64, 1024, 256]). One program holds all rows of a block of channels (whole
-groups) in registers, reduces the group statistics there and writes the
-result, so x is read once and written once. Programs run over
-(batch, channel block): 8 or 16 blocks per image, 512 or 1,024 programs at
-the UNet's shapes, where one program per image would give 64 for 132 SMs.
-A channel block is ``BLOCK_C`` contiguous channels of each row (32 bytes in
-bf16 at 16 channels), a whole DRAM sector.
+What bounds them on an H100 is memory: one read of x (and of g) and one
+write of the output (33.5 MB at [64, 1024, 128] bf16, 10 us at 3.35 TB/s;
+the backward 100.7 MB at [128, 1024, 128], 30 us). A group's statistics
+need all its rows before any row can be written, so a kernel that cannot
+keep a group on chip reads x (and g) more than once. The design (``csrc/groupnorm_silu.cu``) keeps it on
+chip: a slab, one image x 128 bytes of every row (64 bf16 or 32 f32
+channels, whole groups), is split by rows across a thread block cluster of
+1-8 CTAs, each holding its share resident in shared memory, loaded by TMA
+with every chunk in flight at once. The CTAs exchange per-channel partial
+sums through distributed shared memory, in rank order (no atomics: two
+launches give the same bits), then normalise from shared memory and send
+each chunk out by TMA store as soon as it is done. ``plan`` picks the slab
+width, chunk rows and cluster size: the smallest cluster whose share fits
+64 KB of shared memory a CTA (three CTAs an SM), doubled while the launch
+would leave more than half the SMs idle. A slab that 8 CTAs cannot hold raises
+``ValueError``; there is no other route. What holds them from the bound:
+the CTAs of a wave load together and then compute together, so the
+arithmetic (a sigmoid an element forward, two backward, on the MUFU at a
+quarter of the FMA rate) is not hidden under memory traffic; the forward
+reaches about half its bound, the backward 37-45 % (PERF.md).
 
-The backward (K7b) is the closed-form VJP the JAX kernel computes, with the
-group statistics recomputed from x in f32 and z recomputed in f32 (not
-rounded to the input dtype as the forward rounds it): ``dz = g * silu'(z)``,
-per-image partials ``dgamma_b = sum_rows dz * xhat`` and ``dbeta_b = sum_rows
-dz``, and ``dx = rstd * (dxhat - mean_g(dxhat) - xhat * mean_g(dxhat * xhat))``
-with ``dxhat = dz * gamma``. ``_bwd_math`` is its plain PyTorch version. Its
-bound is memory too: x and g read once, dx written once (100.7 MB at
-[128, 1024, 128] bf16, 30 us at 3.35 TB/s; 201 MB, 60 us at C=256). It runs
-over the forward's (image, channel block) grid, but a program cannot hold x
-and g of its block in registers (2 x 64 KB of f32 at 16 channels x 1,024
-rows), so it walks the rows in chunks three times: the statistics, then dz
-and its column sums against 1 and xhat, then dx. A block's 32 + 32 KB of
-bf16 is meant to stay in the 50 MB L2 between the passes, so that the
-rereads come from L2 rather than HBM. The partials go out per image and the
-wrapper sums them over the batch: no atomics, so the result is
-deterministic.
+The backward takes g in any strides: one that is not contiguous is copied
+first, and ``groupnorm_silu_bwd_cuda.g_copies`` counts the copies (none on
+the UNet's paths, where g comes channels-last from the convolution).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
+from . import _build
+
+SOURCE = "groupnorm_silu.cu"
 _EPS = 1e-6
-# Elements of x one program holds: rows x channels of its block.
-_TILE_ELEMS = 16384
-# Elements of x (and of g) the backward reads per chunk of rows.
-_BWD_CHUNK_ELEMS = 2048
+# CTA threads, as csrc/groupnorm_silu.cu has them.
+_THREADS = 256
+_WARPS = _THREADS // 32
+# The dynamic shared memory one block may take on an H100 (227 KB).
+SMEM_LIMIT = 232448
+_MAX_CLUSTER = 8
+# The largest share of a slab a CTA takes where a larger cluster can halve
+# it: three CTAs share an SM's 228 KB.
+_CTA_SHARE = 64 * 1024
+# Bytes of one slab row, and of one chunk of it (a TMA box, one mbarrier).
+_ROW_BYTES = 128
+_CHUNK_BYTES = 8192
+_SMS = 132  # an H100 SXM's
 
 
 def _reference_math(x3, gamma, beta, groups: int):
@@ -94,137 +112,95 @@ def _bwd_math(x3, gamma, beta, g, groups: int):
     return dx.to(x3.dtype), dgamma.to(gamma.dtype), dbeta.to(beta.dtype)
 
 
-@functools.cache
-def _kernel():
-    import triton
-    import triton.language as tl
+class Plan(NamedTuple):
+    """How the kernels cut ``[B, rows, C]``: ``slabs`` slabs of one image x
+    ``width`` channels x all rows, each cut into ``chunks`` TMA boxes of
+    ``chunk_rows`` rows and split across a cluster of ``cluster`` CTAs, each
+    CTA taking ``smem_bytes`` of dynamic shared memory."""
 
-    @triton.jit
-    def gn_silu_fwd(
-        x_ptr, gamma_ptr, beta_ptr, out_ptr, rows, C, inv_n, eps,
-        CG: tl.constexpr, BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr,
-    ):
-        b = tl.program_id(0).to(tl.int64)
-        cb = tl.program_id(1)
-        r = tl.arange(0, BLOCK_R)
-        cl = tl.arange(0, BLOCK_C)
-        c = cb * BLOCK_C + cl
-        offs = b * rows * C + r[:, None] * C + c[None, :]
-        mask = (r < rows)[:, None]
-        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        csum = tl.sum(x, axis=0)
-        csq = tl.sum(x * x, axis=0)
-        # Group sums, broadcast back to each channel of the group.
-        same = (cl[:, None] // CG) == (cl[None, :] // CG)
-        gsum = tl.sum(tl.where(same, csum[:, None], 0.0), axis=0)
-        gsq = tl.sum(tl.where(same, csq[:, None], 0.0), axis=0)
-        mean = gsum * inv_n
-        var = gsq * inv_n - mean * mean
-        rstd = 1.0 / tl.sqrt(var + eps)
-        gamma = tl.load(gamma_ptr + c).to(tl.float32)
-        beta = tl.load(beta_ptr + c).to(tl.float32)
-        z = (x - mean[None, :]) * (rstd * gamma)[None, :] + beta[None, :]
-        dt = out_ptr.dtype.element_ty
-        z = z.to(dt).to(tl.float32)
-        sig = (1.0 / (1.0 + tl.exp(-z))).to(dt).to(tl.float32)
-        tl.store(out_ptr + offs, (z * sig).to(dt), mask=mask)
+    width: int
+    chunk_rows: int
+    chunks: int
+    cluster: int
+    slabs: int
+    smem_bytes: int
 
-    return gn_silu_fwd
+
+def _smem_bytes(backward: bool, size: int, chunks: int, cluster: int, chunk_rows: int, width: int) -> int:
+    """A CTA's dynamic shared memory, as ``csrc/groupnorm_silu.cu``'s
+    ``Layout`` lays it out: its chunks of x (and g), an mbarrier a chunk
+    (rounded up to 128 bytes), a buffer of per-channel partials an exchange,
+    the warps' per-channel sums, per-channel constants and 1,024 bytes to
+    align the base."""
+    tensors = 2 if backward else 1
+    per_cta = -(-chunks // cluster)
+    return (1024 + per_cta * tensors * chunk_rows * width * size + -(-8 * tensors * per_cta // 128) * 128
+            + tensors * width * 8 + _WARPS * width * 8 + width * 16)
 
 
 @functools.cache
-def _bwd_kernel():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def gn_silu_bwd(
-        x_ptr, gamma_ptr, beta_ptr, g_ptr, dx_ptr, dgamma_ptr, dbeta_ptr,
-        rows, C, g_sb, g_sr, g_sc, inv_n, eps,
-        CG: tl.constexpr, BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr,
-    ):
-        b = tl.program_id(0).to(tl.int64)
-        cb = tl.program_id(1)
-        cl = tl.arange(0, BLOCK_C)
-        c = cb * BLOCK_C + cl
-        x_base = x_ptr + b * rows * C + c[None, :]
-        g_base = g_ptr + b * g_sb + c[None, :].to(tl.int64) * g_sc
-        dx_base = dx_ptr + b * rows * C + c[None, :]
-        same = (cl[:, None] // CG) == (cl[None, :] // CG)
-
-        # Pass 1: group statistics of x, broadcast to the group's channels.
-        csum = tl.zeros([BLOCK_C], dtype=tl.float32)
-        csq = tl.zeros([BLOCK_C], dtype=tl.float32)
-        for r0 in range(0, rows, BLOCK_R):
-            r = r0 + tl.arange(0, BLOCK_R)
-            mask = (r < rows)[:, None]
-            x = tl.load(x_base + r[:, None] * C, mask=mask, other=0.0).to(tl.float32)
-            csum += tl.sum(x, axis=0)
-            csq += tl.sum(x * x, axis=0)
-        mean = tl.sum(tl.where(same, csum[:, None], 0.0), axis=0) * inv_n
-        var = tl.sum(tl.where(same, csq[:, None], 0.0), axis=0) * inv_n - mean * mean
-        rstd = 1.0 / tl.sqrt(var + eps)
-        gamma = tl.load(gamma_ptr + c).to(tl.float32)
-        beta = tl.load(beta_ptr + c).to(tl.float32)
-
-        # Pass 2: dz = g * silu'(z) and its column sums against 1 and xhat.
-        sdz = tl.zeros([BLOCK_C], dtype=tl.float32)
-        sdzx = tl.zeros([BLOCK_C], dtype=tl.float32)
-        for r0 in range(0, rows, BLOCK_R):
-            r = r0 + tl.arange(0, BLOCK_R)
-            mask = (r < rows)[:, None]
-            x = tl.load(x_base + r[:, None] * C, mask=mask, other=0.0).to(tl.float32)
-            go = tl.load(g_base + r[:, None].to(tl.int64) * g_sr, mask=mask, other=0.0).to(tl.float32)
-            xhat = (x - mean[None, :]) * rstd[None, :]
-            z = xhat * gamma[None, :] + beta[None, :]
-            sig = 1.0 / (1.0 + tl.exp(-z))
-            dz = go * (sig * (1.0 + z * (1.0 - sig)))
-            sdz += tl.sum(dz, axis=0)
-            sdzx += tl.sum(dz * xhat, axis=0)
-        tl.store(dgamma_ptr + b * C + c, sdzx)
-        tl.store(dbeta_ptr + b * C + c, sdz)
-        # Group means of dxhat = dz * gamma and of dxhat * xhat.
-        m1 = tl.sum(tl.where(same, (sdz * gamma)[:, None], 0.0), axis=0) * inv_n
-        m2 = tl.sum(tl.where(same, (sdzx * gamma)[:, None], 0.0), axis=0) * inv_n
-
-        # Pass 3: dx.
-        for r0 in range(0, rows, BLOCK_R):
-            r = r0 + tl.arange(0, BLOCK_R)
-            mask = (r < rows)[:, None]
-            x = tl.load(x_base + r[:, None] * C, mask=mask, other=0.0).to(tl.float32)
-            go = tl.load(g_base + r[:, None].to(tl.int64) * g_sr, mask=mask, other=0.0).to(tl.float32)
-            xhat = (x - mean[None, :]) * rstd[None, :]
-            z = xhat * gamma[None, :] + beta[None, :]
-            sig = 1.0 / (1.0 + tl.exp(-z))
-            dxhat = go * (sig * (1.0 + z * (1.0 - sig))) * gamma[None, :]
-            dx = rstd[None, :] * (dxhat - m1[None, :] - xhat * m2[None, :])
-            tl.store(dx_base + r[:, None] * C, dx.to(dx_ptr.dtype.element_ty), mask=mask)
-
-    return gn_silu_bwd
+def plan(batch: int, rows: int, c: int, groups: int, dtype: torch.dtype, backward: bool = False) -> Plan:
+    """The kernels' plan for ``[batch, rows, c]`` in ``dtype``: the least
+    cluster whose CTAs' shares of a slab fit ``_CTA_SHARE``, doubled while
+    the slabs' CTAs would leave more than half the SMs idle. Raises
+    ``ValueError`` where the kernels cannot take the shape: a row stride
+    that is not a multiple of 16 bytes (TMA), a slab that does not hold
+    whole groups, or a slab larger than 8 CTAs' shared memory."""
+    name = "groupnorm_silu_bwd_cuda" if backward else "groupnorm_silu_cuda"
+    size = dtype.itemsize
+    if batch < 1 or rows < 1 or groups < 1 or c % groups:
+        raise ValueError(f"{name}: bad shape [{batch}, {rows}, {c}] for {groups} groups")
+    if c * size % 16:
+        raise ValueError(f"{name}: the row stride C x element size = {c * size} bytes is not a multiple of "
+                         f"16 bytes, which TMA needs")
+    width = min(c, _ROW_BYTES // size)
+    row_bytes = width * size
+    if c % width or width % (c // groups) or row_bytes & (row_bytes - 1):
+        raise ValueError(f"{name}: C={c} with {groups} groups has no slab of whole groups in "
+                         f"{_ROW_BYTES} bytes of a row or a power of two below it")
+    chunk_rows = min(_CHUNK_BYTES // row_bytes, 256, -(-rows // 8) * 8)
+    chunks = -(-rows // chunk_rows)
+    slabs = batch * c // width
+    share = lambda n: -(-chunks // n) * chunk_rows * row_bytes * (2 if backward else 1)
+    cluster = 1
+    while cluster < min(_MAX_CLUSTER, chunks) and (share(cluster) > _CTA_SHARE or 2 * slabs * cluster < _SMS):
+        cluster *= 2
+    smem = _smem_bytes(backward, size, chunks, cluster, chunk_rows, width)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: a slab of {rows} rows x {width} channels needs {smem} bytes of shared "
+                         f"memory a CTA in a cluster of {cluster}, over the limit of {SMEM_LIMIT}")
+    return Plan(width, chunk_rows, chunks, cluster, slabs, smem)
 
 
-def _next_pow2(n: int) -> int:
-    return 1 << (n - 1).bit_length()
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    lib.bsi_groupnorm_silu_fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                                           + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    lib.bsi_groupnorm_silu_fwd.restype = ctypes.c_int
+    lib.bsi_groupnorm_silu_bwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                                           + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    lib.bsi_groupnorm_silu_bwd.restype = ctypes.c_int
+    lib.bsi_groupnorm_silu_max_clusters.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.bsi_groupnorm_silu_max_clusters.restype = ctypes.c_int
+    return lib
 
 
-def _block_c(rows: int, c: int, groups: int) -> int:
-    """Channels per program: whole groups, a power of two dividing C, about
-    ``_TILE_ELEMS`` elements per program. Raises where none exists."""
-    cg = c // groups
-    block = max(_TILE_ELEMS // _next_pow2(rows), 1)
-    block = min(block, c)
-    while block % cg or c % block:
-        if block >= c:
-            raise ValueError(f"groupnorm_silu_cuda: no channel block for C={c}, groups={groups}")
-        block *= 2
-    if block & (block - 1):
-        raise ValueError(f"groupnorm_silu_cuda: channel block {block} is not a power of two")
-    return block
+def max_active_clusters(p: Plan, dtype: torch.dtype, backward: bool = False) -> int:
+    """How many clusters of plan ``p`` the card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    lib = _lib()
+    out = ctypes.c_int(0)
+    code = lib.bsi_groupnorm_silu_max_clusters(int(backward), int(dtype == torch.bfloat16), p.cluster,
+                                               p.smem_bytes, ctypes.byref(out))
+    _build.check(lib, code, "cudaOccupancyMaxActiveClusters")
+    return out.value
 
 
 def _check_cuda_args(name, x3, gamma, beta, groups):
-    """Raise unless x is a contiguous CUDA ``[B, rows, C]`` (bf16 or f32) and
-    gamma, beta are contiguous ``[C]`` in x's dtype on its device."""
+    """Raise unless x is a contiguous, 16-byte aligned CUDA ``[B, rows, C]``
+    (bf16 or f32) and gamma, beta are contiguous ``[C]`` in x's dtype on its
+    device."""
     if not (x3.is_cuda and gamma.device == x3.device and beta.device == x3.device):
         raise ValueError(f"{name} needs x, gamma, beta on one CUDA device")
     if x3.dtype not in (torch.bfloat16, torch.float32) or gamma.dtype != x3.dtype or beta.dtype != x3.dtype:
@@ -237,6 +213,8 @@ def _check_cuda_args(name, x3, gamma, beta, groups):
                          f"{tuple(gamma.shape)}, beta {tuple(beta.shape)}, groups {groups}")
     if not (x3.is_contiguous() and gamma.is_contiguous() and beta.is_contiguous()):
         raise ValueError(f"{name} needs contiguous x, gamma, beta")
+    if x3.data_ptr() % 16:
+        raise ValueError(f"{name} needs x 16-byte aligned (TMA)")
 
 
 def groupnorm_silu_cuda(x3, gamma, beta, groups: int):
@@ -244,49 +222,55 @@ def groupnorm_silu_cuda(x3, gamma, beta, groups: int):
     with ``gamma``, ``beta`` of shape ``[C]`` in x's dtype. Raises on anything else."""
     _check_cuda_args("groupnorm_silu_cuda", x3, gamma, beta, groups)
     b, rows, c = x3.shape
-    block_c = _block_c(rows, c, groups)
+    p = plan(b, rows, c, groups, x3.dtype)
     out = torch.empty_like(x3)
-    kernel = _kernel()
+    lib = _lib()
     with torch.cuda.device(x3.device):
-        groupnorm_silu_cuda.compiled = kernel[(b, c // block_c)](
-            x3, gamma, beta, out, rows, c, 1.0 / (rows * (c // groups)), _EPS,
-            CG=c // groups, BLOCK_R=_next_pow2(rows), BLOCK_C=block_c, num_warps=8,
+        code = lib.bsi_groupnorm_silu_fwd(
+            x3.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), b, rows, c, groups,
+            int(x3.dtype == torch.bfloat16), p.width, p.chunk_rows, p.cluster, p.smem_bytes,
+            1.0 / (rows * (c // groups)), _EPS, x3.device.index, torch.cuda.current_stream(x3.device).cuda_stream,
         )
+    _build.check(lib, code, "groupnorm_silu_fwd kernel")
     groupnorm_silu_cuda.launches += 1
     return out
 
 
 groupnorm_silu_cuda.launches = 0
-groupnorm_silu_cuda.compiled = None  # the last launch's compiled kernel (registers, spills)
 
 
 def groupnorm_silu_bwd_cuda(x3, gamma, beta, g, groups: int):
     """Launch K7's backward (K7b): x, gamma, beta as the forward takes them and
-    the output gradient ``g`` of x's shape and dtype in any strides. Returns
-    ``(dx, dgamma, dbeta)`` as ``_bwd_math`` does. Raises on anything else."""
+    the output gradient ``g`` of x's shape and dtype in any strides (a ``g``
+    that is not contiguous is copied first, and ``g_copies`` counts it).
+    Returns ``(dx, dgamma, dbeta)`` as ``_bwd_math`` does. Raises on anything else."""
     _check_cuda_args("groupnorm_silu_bwd_cuda", x3, gamma, beta, groups)
     if g.shape != x3.shape or g.dtype != x3.dtype or g.device != x3.device:
         raise ValueError(f"groupnorm_silu_bwd_cuda: g {tuple(g.shape)} {g.dtype} on {g.device} "
                          f"does not match x {tuple(x3.shape)} {x3.dtype} on {x3.device}")
+    if not g.is_contiguous() or g.data_ptr() % 16:
+        g = g.contiguous()
+        groupnorm_silu_bwd_cuda.g_copies += 1
     b, rows, c = x3.shape
-    block_c = _block_c(rows, c, groups)
-    block_r = min(max(_BWD_CHUNK_ELEMS // block_c, 1), _next_pow2(rows))
+    p = plan(b, rows, c, groups, x3.dtype, backward=True)
     dx = torch.empty_like(x3)
-    dgamma_b = torch.empty(b, c, dtype=torch.float32, device=x3.device)
-    dbeta_b = torch.empty(b, c, dtype=torch.float32, device=x3.device)
-    kernel = _bwd_kernel()
+    partials = torch.empty(2, b, c, dtype=torch.float32, device=x3.device)  # dgamma_b, dbeta_b
+    lib = _lib()
     with torch.cuda.device(x3.device):
-        groupnorm_silu_bwd_cuda.compiled = kernel[(b, c // block_c)](
-            x3, gamma, beta, g, dx, dgamma_b, dbeta_b, rows, c, *g.stride(),
-            1.0 / (rows * (c // groups)), _EPS,
-            CG=c // groups, BLOCK_R=block_r, BLOCK_C=block_c, num_warps=4,
+        code = lib.bsi_groupnorm_silu_bwd(
+            x3.data_ptr(), gamma.data_ptr(), beta.data_ptr(), g.data_ptr(), dx.data_ptr(), partials[0].data_ptr(),
+            partials[1].data_ptr(), b, rows, c, groups, int(x3.dtype == torch.bfloat16), p.width, p.chunk_rows,
+            p.cluster, p.smem_bytes, 1.0 / (rows * (c // groups)), _EPS, x3.device.index,
+            torch.cuda.current_stream(x3.device).cuda_stream,
         )
+    _build.check(lib, code, "groupnorm_silu_bwd kernel")
     groupnorm_silu_bwd_cuda.launches += 1
-    return dx, dgamma_b.sum(0).to(gamma.dtype), dbeta_b.sum(0).to(beta.dtype)
+    dgamma, dbeta = partials.sum(1).to(gamma.dtype)
+    return dx, dgamma, dbeta
 
 
 groupnorm_silu_bwd_cuda.launches = 0
-groupnorm_silu_bwd_cuda.compiled = None  # the last launch's compiled kernel
+groupnorm_silu_bwd_cuda.g_copies = 0  # gradients copied to contiguous before a launch
 
 
 def _forward(x3, gamma, beta, groups):

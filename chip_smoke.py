@@ -407,46 +407,42 @@ def main() -> int:
     def reset_counts():
         for wrapper in counters.values():
             wrapper.launches = 0
+        gn.groupnorm_silu_bwd_cuda.g_copies = 0
 
     def read_counts() -> dict:
         return {name: wrapper.launches for name, wrapper in counters.items()}
 
     def expect_counts(what: str, **want) -> dict:
         """The counts, which must be ``want`` for the kernels named and 0 for
-        every other."""
+        every other; and no gradient K7b was given may have been copied to
+        a contiguous one first (``g_copies``)."""
         got = read_counts()
         want = {name: want.get(name, 0) for name in counters}
         if got != want:
             raise AssertionError(f"kernel launches in {what}: {got}, want {want}")
+        if gn.groupnorm_silu_bwd_cuda.g_copies:
+            raise AssertionError(f"{what}: K7b copied {gn.groupnorm_silu_bwd_cuda.g_copies} strided gradients")
         return got
 
     # --------------------------------------------------------------- build
-    # nvcc builds K1, K5f, K5b, K2/K6f and K3/K6b, one process each, while
-    # Triton compiles K7f, K7b, K4f and K4b on their first launches.
+    # nvcc builds K1, K5f, K5b, K2/K6f, K3/K6b and K7f/K7b, one process each,
+    # while Triton compiles K4f and K4b on their first launches.
     start = time.perf_counter()
-    sources = (fa.SOURCE, fa.DROPOUT_SOURCE, fa.BWD_SOURCE, fap.SOURCE, fap.BWD_SOURCE)
+    sources = (fa.SOURCE, fa.DROPOUT_SOURCE, fa.BWD_SOURCE, fap.SOURCE, fap.BWD_SOURCE, gn.SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         nvcc = {src: pool.submit(_build.build, src) for src in sources}
         x = torch.randn(2, 64, 64, device=dev)
-        gamma, beta = torch.ones(64, device=dev), torch.zeros(64, device=dev)
-        gn.groupnorm_silu_cuda(x, gamma, beta, 32)
-        torch.cuda.synchronize()
-        triton_s = time.perf_counter() - start
-        gn.groupnorm_silu_bwd_cuda(x, gamma, beta, x, 32)
-        torch.cuda.synchronize()
-        triton_bwd_s = time.perf_counter() - start - triton_s
         x4 = torch.randn(2, 8, 1024, device=dev)
         lm.layernorm_modulate_cuda(x4, x[:, 0, :1].expand(2, 1024), x[:, 1, :1].expand(2, 1024))
         torch.cuda.synchronize()
-        triton_k4f_s = time.perf_counter() - start - triton_s - triton_bwd_s
+        triton_k4f_s = time.perf_counter() - start
         lm.layernorm_modulate_bwd_cuda(x4, x[:, 1, :1].expand(2, 1024), x4)
         torch.cuda.synchronize()
-        triton_k4b_s = time.perf_counter() - start - triton_s - triton_bwd_s - triton_k4f_s
+        triton_k4b_s = time.perf_counter() - start - triton_k4f_s
         built = {src: future.result() for src, future in nvcc.items()}
     phase("build", k1_nvcc_s=f"{built[fa.SOURCE][1]:.2f}", k5f_nvcc_s=f"{built[fa.DROPOUT_SOURCE][1]:.2f}",
           k5b_nvcc_s=f"{built[fa.BWD_SOURCE][1]:.2f}", k2_nvcc_s=f"{built[fap.SOURCE][1]:.2f}",
-          k3_nvcc_s=f"{built[fap.BWD_SOURCE][1]:.2f}",
-          k7_triton_first_launch_s=f"{triton_s:.2f}", k7b_triton_first_launch_s=f"{triton_bwd_s:.2f}",
+          k3_nvcc_s=f"{built[fap.BWD_SOURCE][1]:.2f}", k7_nvcc_s=f"{built[gn.SOURCE][1]:.2f}",
           k4f_triton_first_launch_s=f"{triton_k4f_s:.2f}", k4b_triton_first_launch_s=f"{triton_k4b_s:.2f}",
           total_s=f"{time.perf_counter() - start:.2f}", libraries=[path.name for path, _, _ in built.values()])
     for source, (_, _, log) in built.items():
@@ -454,17 +450,21 @@ def main() -> int:
             phase("build.ptxas", source=source, kernel=kernel, **info)
     # K1's, K5f's, K2's and K6f's bf16 bodies at head_dim 64 and 128, and
     # K5b's, K3's and K6b's, must be the Hopper design: wgmma (SASS HGMMA)
-    # fed by TMA loads (UTMALDG).
+    # fed by TMA loads (UTMALDG); K7f and K7b, in both dtypes, TMA loads.
     for source in (fa.SOURCE, fa.DROPOUT_SOURCE, fap.SOURCE, fa.BWD_SOURCE, fap.BWD_SOURCE):
         sass = sass_instructions(built[source][0], ("HGMMA", "UTMALDG"))
         hopper = {name: counts for name, counts in sass.items() if "bf16_sm90" in name}
         if not hopper or not all(counts["HGMMA"] and counts["UTMALDG"] for counts in hopper.values()):
             raise AssertionError(f"{source}: no bf16 kernel with HGMMA and UTMALDG in its SASS: {sass}")
         phase("build.sass", source=source, **{name: counts for name, counts in hopper.items()})
+    sass = sass_instructions(built[gn.SOURCE][0], ("UTMALDG", "UTMASTG"))
+    k7_sass = {name: counts for name, counts in sass.items() if "gn_silu" in name}
+    if len(k7_sass) != 4 or not all(counts["UTMALDG"] for counts in k7_sass.values()):
+        raise AssertionError(f"{gn.SOURCE}: not four K7 kernels with UTMALDG in their SASS: {sass}")
+    phase("build.sass", source=gn.SOURCE, **k7_sass)
     # Triton's compiled kernels carry their register and spill counts (the
     # ptxas report of the CUDA route); older Triton may lack the fields.
-    for name, wrapper in (("k7f", gn.groupnorm_silu_cuda), ("k7b", gn.groupnorm_silu_bwd_cuda),
-                          ("k4f", lm.layernorm_modulate_cuda), ("k4b", lm.layernorm_modulate_bwd_cuda)):
+    for name, wrapper in (("k4f", lm.layernorm_modulate_cuda), ("k4b", lm.layernorm_modulate_bwd_cuda)):
         compiled = wrapper.compiled
         phase("build.triton", kernel=name, registers=getattr(compiled, "n_regs", "unknown"),
               spills=getattr(compiled, "n_spills", "unknown"),
@@ -524,93 +524,137 @@ def main() -> int:
     phase("k1.time", **{key: k1[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
     kernels.append(k1)
 
+    # ------------------------------------------------------- K7f, K7b plans
+    # The plan each of K7f's and K7b's shapes takes (csrc/groupnorm_silu.cu:
+    # a slab of 128 bytes of every row, split across a cluster), with how
+    # many of its clusters the card holds at once: the 32x32 UNet (1,024
+    # rows: b64 sampling, b128 training), the 16x16 (256 rows, with the f32
+    # eval step) and a UNet on 64x64 images (4,096 rows).
+    bf16, f32 = torch.bfloat16, torch.float32
+    for shape, dtype, backward in (((BATCH, 1024, 128), bf16, False), ((BATCH, 1024, 256), bf16, False),
+                                   ((BATCH, 256, 128), bf16, False), ((BATCH, 256, 256), bf16, False),
+                                   ((EVAL_BATCH, 256, 128), f32, False), ((EVAL_BATCH, 256, 256), f32, False),
+                                   ((BATCH, 4096, 128), bf16, False), ((TRAIN_BATCH, 1024, 128), bf16, True),
+                                   ((TRAIN_BATCH, 1024, 256), bf16, True), ((TRAIN_BATCH, 256, 128), bf16, True),
+                                   ((TRAIN_BATCH, 256, 256), bf16, True), ((BATCH, 4096, 128), bf16, True)):
+        plan = gn.plan(*shape, 32, dtype, backward)
+        phase("k7.plan", kernel="k7b" if backward else "k7f", shape=shape, dtype=str(dtype), width=plan.width,
+              chunk_rows=plan.chunk_rows, chunks=plan.chunks, cluster=plan.cluster,
+              ctas=plan.slabs * plan.cluster, smem_bytes=plan.smem_bytes,
+              clusters_held=gn.max_active_clusters(plan, dtype, backward))
+
     # ------------------------------------------------------ K7 vs its twin
     # bf16: both sides round z to bf16 before the SiLU and the product after it;
     # f32 statistics summed in another order can move either rounding by one
-    # bf16 ulp (2^-7 relative at most), beside 2e-2 absolute.
-    k7_times = {}
-    for c in (128, 256):
-        for dtype, atol, rtol in ((torch.bfloat16, 2e-2, 2**-7), (torch.float32, 1e-5, 0.0)):
-            x = randn(BATCH, 1024, c, dtype=dtype)
-            gamma = (1.0 + 0.1 * randn(c)).to(dtype)
-            beta = (0.1 * randn(c)).to(dtype)
-            got = gn.groupnorm_silu_cuda(x, gamma, beta, 32)
-            want = gn._reference_math(x, gamma, beta, 32)
-            torch.cuda.synchronize()
-            err = check_close(f"K7 C={c} {dtype}", got, want, atol, rtol)
-            phase("k7.check", shape=(BATCH, 1024, c), dtype=str(dtype), max_abs_err=f"{err:.3e}",
-                  atol=atol, rtol=rtol)
-            if dtype != torch.bfloat16:
-                continue
-            x_nchw = x.permute(0, 2, 1).contiguous()
-            elems = x.numel()
-            # per element: x*x, two sums, x - mean, one FMA for the affine,
-            # negate, exp, add, divide, the final product: 11 f32 operations
-            k7_times[c] = dict(
-                max_abs_err=err,
-                ms=time_ms(lambda: gn.groupnorm_silu_cuda(x, gamma, beta, 32), flush=flush),
-                plain_ms=time_ms(lambda: gn._reference_math(x, gamma, beta, 32), flush=flush),
-                library_ms=time_ms(
-                    lambda: F.silu(F.group_norm(x_nchw, 32, gamma, beta, 1e-6)), flush=flush),
-                **bound(2 * elems * x.element_size() + 2 * c * x.element_size(), 11 * elems, F32_FLOPS),
-            )
-            phase("k7.time", shape=(BATCH, 1024, c), **{
-                key: k7_times[c][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
-    kernels.append(dict(
-        name="groupnorm_silu_fwd", route="triton", source="bsi_torch/ops/groupnorm_silu.py",
-        replaces="bsi_tpu/ops/groupnorm_silu.py:133", shape=[BATCH, 1024, 256], dtype="bfloat16",
-        **k7_times[256], at_c128=k7_times[128],
-    ))
+    # bf16 ulp (2^-7 relative at most), beside 2e-2 absolute. At 1,024 rows
+    # (32x32), 256 (16x16) and 4,096 (64x64); two launches the same bits.
+    k7_times, k7_inputs = {}, {}
+    for rows in (1024, 256, 4096):
+        for c in (128, 256):
+            for dtype, atol, rtol in ((bf16, 2e-2, 2**-7), (f32, 1e-5, 0.0)):
+                x = randn(BATCH, rows, c, dtype=dtype)
+                gamma = (1.0 + 0.1 * randn(c)).to(dtype)
+                beta = (0.1 * randn(c)).to(dtype)
+                got = gn.groupnorm_silu_cuda(x, gamma, beta, 32)
+                want = gn._reference_math(x, gamma, beta, 32)
+                torch.cuda.synchronize()
+                err = check_close(f"K7 {(BATCH, rows, c)} {dtype}", got, want, atol, rtol)
+                if not torch.equal(gn.groupnorm_silu_cuda(x, gamma, beta, 32), got):
+                    raise AssertionError(f"K7 {(BATCH, rows, c)} {dtype}: two launches differ")
+                phase("k7.check", shape=(BATCH, rows, c), dtype=str(dtype), max_abs_err=f"{err:.3e}",
+                      atol=atol, rtol=rtol, two_launches_bit_for_bit=True)
+                del got, want
+                # times at the 32x32 sampling shapes, bf16, and the 16x16
+                # ones: sampling bf16, the eval step f32
+                if rows == 4096 or (rows == 1024 and dtype != bf16):
+                    continue
+                x_nchw = x.permute(0, 2, 1).contiguous()
+                elems = x.numel()
+                # per element: x*x, two sums, x - mean, one FMA for the
+                # affine, negate, exp, add, divide, the final product: 11 f32
+                # operations
+                k7_times[rows, c, dtype] = dict(
+                    shape=[BATCH, rows, c], dtype=str(dtype).split(".")[1], max_abs_err=err,
+                    ms=time_ms(lambda: gn.groupnorm_silu_cuda(x, gamma, beta, 32), flush=flush),
+                    plain_ms=time_ms(lambda: gn._reference_math(x, gamma, beta, 32), flush=flush),
+                    library_ms=time_ms(
+                        lambda: F.silu(F.group_norm(x_nchw, 32, gamma, beta, 1e-6)), flush=flush),
+                    **bound(2 * elems * x.element_size() + 2 * c * x.element_size(), 11 * elems, F32_FLOPS),
+                )
+                phase("k7.time", shape=(BATCH, rows, c), dtype=str(dtype), **{
+                    key: k7_times[rows, c, dtype][key]
+                    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+                if rows == 1024:
+                    k7_inputs[c] = x, gamma, beta
+    k7 = dict(name="groupnorm_silu_fwd", route="cuda", source="bsi_torch/ops/csrc/groupnorm_silu.cu",
+              device_code="bsi_torch/ops/csrc/tma_sm90.cuh", replaces="bsi_tpu/ops/groupnorm_silu.py:133",
+              **k7_times[1024, 256, bf16], at_c128=k7_times[1024, 128, bf16],
+              at_16x16={f"c{c}_{str(dtype).split('.')[1]}": k7_times[256, c, dtype] for c in (128, 256)
+                        for dtype in (bf16, f32)})
+    kernels.append(k7)
+    for c, entry in ((256, k7), (128, k7["at_c128"])):
+        device_times.append((f"k7f at C={c}", entry,
+                             functools.partial(gn.groupnorm_silu_cuda, *k7_inputs[c], 32)))
 
     # ----------------------------------------------------- K7b vs its twin
-    # At the train step's shapes: [128, 1024, C], gamma and beta in x's dtype.
+    # At the train steps' shapes, [128, rows, C] at 1,024 and 256 rows, and
+    # [16, 4096, C]; gamma and beta in x's dtype; two launches the same bits.
     k7b_times = {}
-    for c in (128, 256):
-        for dtype in (torch.bfloat16, torch.float32):
-            x = randn(TRAIN_BATCH, 1024, c, dtype=dtype)
-            g = randn(TRAIN_BATCH, 1024, c, dtype=dtype)
-            gamma = (1.0 + 0.1 * randn(c)).to(dtype)
-            beta = (0.1 * randn(c)).to(dtype)
-            got = gn.groupnorm_silu_bwd_cuda(x, gamma, beta, g, 32)
-            want = gn._bwd_math(x, gamma, beta, g, 32)
-            torch.cuda.synchronize()
-            errs = check_bwd(f"K7b C={c} {dtype}", got, want, dtype)
-            phase("k7b.check", shape=(TRAIN_BATCH, 1024, c), dtype=str(dtype),
-                  max_abs_err_dx=f"{errs[0]:.3e}", max_abs_err_dgamma=f"{errs[1]:.3e}",
-                  max_abs_err_dbeta=f"{errs[2]:.3e}")
-            del got, want
-            if dtype != torch.bfloat16:
-                continue
-            elems = x.numel()
-            k7b_times[c] = dict(
-                max_abs_err=errs[0],
-                ms=time_ms(lambda: gn.groupnorm_silu_bwd_cuda(x, gamma, beta, g, 32), flush=flush),
-                plain_ms=time_ms(lambda: gn._bwd_math(x, gamma, beta, g, 32), flush=flush),
-                library="autograd through group_norm + silu on channels-first [B, C, L], graph kept",
-                **bound(3 * elems * x.element_size() + 4 * c * x.element_size(), K7B_OPS_PER_ELEM * elems,
-                        F32_FLOPS),
-            )
-            phase("k7b.time", shape=(TRAIN_BATCH, 1024, c), **{
-                key: k7b_times[c][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
-    k7b = dict(
-        name="groupnorm_silu_bwd", route="triton", source="bsi_torch/ops/groupnorm_silu.py",
-        replaces="bsi_tpu/ops/groupnorm_silu.py:149", shape=[TRAIN_BATCH, 1024, 256], dtype="bfloat16",
-        **k7b_times[256], at_c128=k7b_times[128],
-    )
+    for rows, batch in ((1024, TRAIN_BATCH), (256, TRAIN_BATCH), (4096, TRAIN_BATCH // 8)):
+        for c in (128, 256):
+            for dtype in (bf16, f32):
+                x = randn(batch, rows, c, dtype=dtype)
+                g = randn(batch, rows, c, dtype=dtype)
+                gamma = (1.0 + 0.1 * randn(c)).to(dtype)
+                beta = (0.1 * randn(c)).to(dtype)
+                got = gn.groupnorm_silu_bwd_cuda(x, gamma, beta, g, 32)
+                want = gn._bwd_math(x, gamma, beta, g, 32)
+                torch.cuda.synchronize()
+                errs = check_bwd(f"K7b {(batch, rows, c)} {dtype}", got, want, dtype)
+                if not all(map(torch.equal, gn.groupnorm_silu_bwd_cuda(x, gamma, beta, g, 32), got)):
+                    raise AssertionError(f"K7b {(batch, rows, c)} {dtype}: two launches differ")
+                phase("k7b.check", shape=(batch, rows, c), dtype=str(dtype),
+                      max_abs_err_dx=f"{errs[0]:.3e}", max_abs_err_dgamma=f"{errs[1]:.3e}",
+                      max_abs_err_dbeta=f"{errs[2]:.3e}", two_launches_bit_for_bit=True)
+                del got, want
+                if rows == 4096 or dtype != bf16:
+                    continue
+                elems = x.numel()
+                k7b_times[rows, c] = dict(
+                    shape=[batch, rows, c], dtype="bfloat16", max_abs_err=errs[0],
+                    ms=time_ms(lambda: gn.groupnorm_silu_bwd_cuda(x, gamma, beta, g, 32), flush=flush),
+                    plain_ms=time_ms(lambda: gn._bwd_math(x, gamma, beta, g, 32), flush=flush),
+                    library="autograd through group_norm + silu on channels-first [B, C, L], graph kept",
+                    **bound(3 * elems * x.element_size() + 4 * c * x.element_size(), K7B_OPS_PER_ELEM * elems,
+                            F32_FLOPS),
+                )
+                phase("k7b.time", shape=(batch, rows, c), **{
+                    key: k7b_times[rows, c][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
+                if rows == 1024:
+                    k7_inputs[c] = x, gamma, beta, g
+    k7b = dict(name="groupnorm_silu_bwd", route="cuda", source="bsi_torch/ops/csrc/groupnorm_silu.cu",
+               device_code="bsi_torch/ops/csrc/tma_sm90.cuh", replaces="bsi_tpu/ops/groupnorm_silu.py:149",
+               **k7b_times[1024, 256], at_c128=k7b_times[1024, 128],
+               at_16x16={f"c{c}": k7b_times[256, c] for c in (128, 256)})
     kernels.append(k7b)
+    # the kernel with the wrapper's sum over the batch, as a step calls it
+    for c, entry in ((256, k7b), (128, k7b["at_c128"])):
+        device_times.append((f"k7b at C={c}", entry,
+                             functools.partial(gn.groupnorm_silu_bwd_cuda, *k7_inputs[c], 32)))
 
-    def norm_library_bwd(c):
+    def norm_library_bwd(rows, c):
         def make():
-            x_lib = randn(TRAIN_BATCH, c, 1024, dtype=torch.bfloat16).requires_grad_()
-            g_lib = randn(TRAIN_BATCH, c, 1024, dtype=torch.bfloat16)
+            x_lib = randn(TRAIN_BATCH, c, rows, dtype=torch.bfloat16).requires_grad_()
+            g_lib = randn(TRAIN_BATCH, c, rows, dtype=torch.bfloat16)
             gamma_lib = (1.0 + 0.1 * randn(c)).to(torch.bfloat16).requires_grad_()
             beta_lib = (0.1 * randn(c)).to(torch.bfloat16).requires_grad_()
             out_lib = F.silu(F.group_norm(x_lib, 32, gamma_lib, beta_lib, 1e-6))
             return lambda: torch.autograd.grad(out_lib, (x_lib, gamma_lib, beta_lib), g_lib, retain_graph=True)
         return make
 
-    library_backwards.append(("k7b", k7b, norm_library_bwd(256)))
-    library_backwards.append(("k7b at C=128", k7b["at_c128"], norm_library_bwd(128)))
+    for rows, c, entry in ((1024, 256, k7b), (1024, 128, k7b["at_c128"]), (256, 128, k7b["at_16x16"]["c128"]),
+                           (256, 256, k7b["at_16x16"]["c256"])):
+        library_backwards.append((f"k7b at {(TRAIN_BATCH, rows, c)}", entry, norm_library_bwd(rows, c)))
 
     # ------------------------------------------------ K2, K6f vs their twin
     # bf16: the kernel's online softmax rounds unnormalised probabilities to

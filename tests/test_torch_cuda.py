@@ -137,8 +137,10 @@ def test_groupnorm_silu_bwd_kernel_takes_strided_gradients(cuda):
     x, gamma, beta, g = _gn_bwd_inputs(gen, (2, 256, 64), torch.float32, cuda)
     g_strided = g.permute(0, 2, 1).contiguous().permute(0, 2, 1)
     assert not g_strided.is_contiguous()
+    copies = gn.groupnorm_silu_bwd_cuda.g_copies
     assert_bwd_close(gn.groupnorm_silu_bwd_cuda(x, gamma, beta, g_strided, 32),
                      gn._bwd_math(x, gamma, beta, g, 32), torch.float32)
+    assert gn.groupnorm_silu_bwd_cuda.g_copies == copies + 1
 
 
 def test_cuda_groupnorm_silu_backward_launches_k7b_only(cuda, monkeypatch):
@@ -153,6 +155,56 @@ def test_cuda_groupnorm_silu_backward_launches_k7b_only(cuda, monkeypatch):
     torch.autograd.grad(gn.groupnorm_silu(*leaves, 32), leaves, g)
     assert gn.groupnorm_silu_cuda.launches == fwd + 1
     assert gn.groupnorm_silu_bwd_cuda.launches == bwd + 1
+
+
+# K7f and K7b at every kind of plan: rows ragged (100, 1,000) and whole (256,
+# 4,096), C 32 to 256 (1 to 8 channels a group), bf16 and f32, at batch 2,
+# where the plan grows clusters to fill the card: clusters of 1, 2, 4 and 8
+# CTAs.
+GN_PLANS = [(2, rows, c) for rows in (100, 256, 1000, 4096) for c in (32, 64, 128, 256)]
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("shape", GN_PLANS)
+def test_groupnorm_silu_kernel_matches_twin_over_plans(cuda, shape, dtype, atol):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x, gamma, beta, _ = _gn_bwd_inputs(gen, shape, dtype, cuda)
+    got = gn.groupnorm_silu_cuda(x, gamma, beta, 32)
+    want = gn._reference_math(x, gamma, beta, 32).float()
+    rtol = 2**-7 if dtype == torch.bfloat16 else 0.0
+    assert ((got.float() - want).abs() <= atol + rtol * want.abs()).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", GN_PLANS)
+def test_groupnorm_silu_bwd_kernel_matches_plain_over_plans(cuda, shape, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x, gamma, beta, g = _gn_bwd_inputs(gen, shape, dtype, cuda)
+    assert_bwd_close(gn.groupnorm_silu_bwd_cuda(x, gamma, beta, g, 32), gn._bwd_math(x, gamma, beta, g, 32), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(64, 1024, 128), (128, 1024, 256), (2, 1000, 128), (2, 4096, 64), (3, 100, 32)])
+def test_groupnorm_silu_kernels_repeat_bit_for_bit(cuda, shape, dtype):
+    # the cluster's ranks sum their partials in rank order, without atomics
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x, gamma, beta, g = _gn_bwd_inputs(gen, shape, dtype, cuda)
+    assert torch.equal(gn.groupnorm_silu_cuda(x, gamma, beta, 32), gn.groupnorm_silu_cuda(x, gamma, beta, 32))
+    first = gn.groupnorm_silu_bwd_cuda(x, gamma, beta, g, 32)
+    assert all(map(torch.equal, first, gn.groupnorm_silu_bwd_cuda(x, gamma, beta, g, 32)))
+
+
+def test_groupnorm_silu_kernels_refuse_slabs_beyond_a_cluster(cuda):
+    # 8 CTAs hold 16,384 rows of a forward slab (2 MB) or 8,192 of a backward
+    # one (x and g, 2 MB) in no way: 256 KB a CTA
+    x = torch.zeros(1, 16384, 64, dtype=torch.bfloat16, device=cuda)
+    ones, zeros = torch.ones(64, dtype=torch.bfloat16, device=cuda), torch.zeros(64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        gn.groupnorm_silu_cuda(x, ones, zeros, 32)
+    with pytest.raises(ValueError, match="shared memory"):
+        gn.groupnorm_silu_bwd_cuda(x[:, :8192], ones, zeros, x[:, :8192], 32)
+    # one under the limits runs
+    assert torch.isfinite(gn.groupnorm_silu_cuda(x[:, :8192], ones, zeros, 32)).all()
 
 
 # ------------------------------------------------ K2, K6f: packed attention

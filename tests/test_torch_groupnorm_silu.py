@@ -128,14 +128,59 @@ def test_cpu_backward_takes_the_plain_vjp(monkeypatch):
         gn._backward(*(t.detach().to("meta") for t in (x, gamma, beta, x)), 32)
 
 
-def test_channel_blocks_hold_whole_groups():
-    # 16 channels of all 1,024 rows per program at the UNet's shapes
-    assert gn._block_c(1024, 128, 32) == 16
-    assert gn._block_c(1024, 256, 32) == 16
-    assert gn._block_c(4096, 128, 32) == 4
-    assert gn._block_c(100, 64, 32) == 64
-    with pytest.raises(ValueError):
-        gn._block_c(1024, 96, 32)  # 3 channels per group: no power-of-two block
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", [64, 256, 1024, 4096])
+@pytest.mark.parametrize("c", [32, 64, 128, 256])
+def test_plan_cuts_slabs_of_whole_groups(c, rows, dtype, backward):
+    b, size = 64, dtype.itemsize
+    p = gn.plan(b, rows, c, 32, dtype, backward)
+    # a slab is 128 bytes of every row (or the whole row), whole groups
+    assert p.width == min(c, 128 // size)
+    assert c % p.width == 0 and p.width % (c // 32) == 0
+    assert p.slabs == b * c // p.width
+    # TMA boxes of at most 256 rows and 8 KB, rows past the end zero-filled
+    assert p.chunk_rows % 8 == 0 and p.chunk_rows <= 256 and p.chunk_rows * p.width * size <= 8192
+    assert p.chunks == -(-rows // p.chunk_rows)
+    assert p.cluster in (1, 2, 4, 8) and p.cluster <= p.chunks
+    # a CTA's share of the slab: its chunks of x, and of g backward
+    share = lambda n: -(-p.chunks // n) * p.chunk_rows * p.width * size * (2 if backward else 1)
+    assert share(p.cluster) < p.smem_bytes <= gn.SMEM_LIMIT
+    # the least cluster whose share fits 64 KB and whose CTAs fill half the
+    # card
+    assert share(p.cluster) <= 65536 or p.cluster == min(8, p.chunks)
+    if p.cluster > 1:
+        assert share(p.cluster // 2) > 65536 or p.slabs * p.cluster < 132
+
+
+@pytest.mark.parametrize("shape,dtype,backward,want", [
+    # the 32x32 UNet's sampling forwards: 128 KB slabs over 2 CTAs, three an SM
+    ((64, 1024, 128), torch.bfloat16, False, (64, 64, 16, 2, 128, 72320)),
+    ((64, 1024, 256), torch.bfloat16, False, (64, 64, 16, 2, 256, 72320)),
+    # its train step's backwards: x and g, 256 KB a slab over 4 CTAs
+    ((128, 1024, 128), torch.bfloat16, True, (64, 64, 16, 4, 256, 72832)),
+    ((128, 1024, 256), torch.bfloat16, True, (64, 64, 16, 4, 512, 72832)),
+    # the 16x16 eval step's f32 forward: 32 channels a slab
+    ((64, 256, 128), torch.float32, False, (32, 64, 4, 1, 256, 36736)),
+    # a 64x64 UNet's backward: 1 MB a slab over 8 CTAs
+    ((64, 4096, 128), torch.bfloat16, True, (64, 64, 64, 8, 128, 138368)),
+    # one ragged box of 104 rows of 64 bytes
+    ((2, 100, 32), torch.bfloat16, False, (32, 104, 1, 1, 2, 10624)),
+])
+def test_plan_at_the_paths_shapes(shape, dtype, backward, want):
+    # (width, chunk_rows, chunks, cluster, slabs, smem_bytes)
+    assert tuple(gn.plan(*shape, 32, dtype, backward)) == want
+
+
+@pytest.mark.parametrize("shape,groups,backward,match", [
+    ((2, 64, 36), 4, False, "16 bytes"),  # 72-byte rows: no TMA row stride
+    ((2, 64, 96), 32, False, "whole groups"),  # 3 channels a group
+    ((1, 16384, 64), 32, False, "shared memory"),  # 2 MB a slab: 256 KB a CTA of 8
+    ((1, 8192, 128), 32, True, "shared memory"),
+])
+def test_plan_refuses_what_the_kernels_cannot_take(shape, groups, backward, match):
+    with pytest.raises(ValueError, match=match):
+        gn.plan(*shape, groups, torch.bfloat16, backward)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
