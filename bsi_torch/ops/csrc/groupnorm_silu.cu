@@ -66,9 +66,11 @@
 #include <cstdint>
 
 #include "tma_sm90.cuh"
+#include "vec16.cuh"
 
 namespace {
 
+using bsi::Vec;
 using namespace bsi::sm90;
 
 constexpr int THREADS = 256;
@@ -109,82 +111,6 @@ struct Params {
   int c, cg, width, chunk_rows, chunks, cluster, slabs_per_image;
   float inv_n, eps;
 };
-
-// 16 bytes of a row: N channels of T, unpacked to f32 and packed back
-// (rounding to nearest even); round2 rounds two f32 to T's precision.
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ static void unpack(const uint4& r, float (&f)[N]) {
-    f[0] = __uint_as_float(r.x);
-    f[1] = __uint_as_float(r.y);
-    f[2] = __uint_as_float(r.z);
-    f[3] = __uint_as_float(r.w);
-  }
-  __device__ static uint4 pack(const float (&f)[N]) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]), __float_as_uint(f[3]));
-  }
-  __device__ static void round2(float&, float&) {}
-  __device__ static float load(const void* p, int i) { return static_cast<const float*>(p)[i]; }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void unpack(const uint4& r, float (&f)[N]) {
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-  __device__ static uint32_t pack2(float lo, float hi) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&h);
-  }
-  __device__ static uint4 pack(const float (&f)[N]) {
-    return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]), pack2(f[6], f[7]));
-  }
-  // One cvt.rn.bf16x2.f32 for the pair, then two integer ops to widen.
-  __device__ static void round2(float& a, float& b) {
-    const uint32_t w = pack2(a, b);
-    a = __uint_as_float(w << 16);
-    b = __uint_as_float(w & 0xffff0000u);
-  }
-  __device__ static float load(const void* p, int i) {
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// Every thread of the cluster: its writes released to, and every other
-// thread's acquired from, the whole cluster.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// Two f32 at shared address `addr` of the cluster's CTA `rank`.
-__device__ __forceinline__ float2 load_peer(uint32_t addr, uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
-  float2 v;
-  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(remote) : "memory");
-  return v;
-}
 
 // 1 / (1 + 2^(-z log2 e)) on the MUFU (ex2, rcp), denormals flushed: a few
 // ulp of f32, 4 issue slots. z past +-88 gives exactly 1 or 0.

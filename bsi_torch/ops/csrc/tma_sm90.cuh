@@ -1,10 +1,12 @@
 // Hopper's Tensor Memory Accelerator (TMA) and its mbarriers, shared by the
 // port's kernels: the attention forwards and backwards
 // (bh_attention_fwd_sm90.cuh, bh_attention_bwd_sm90.cuh) and GroupNorm+SiLU
-// (groupnorm_silu.cu). Device side: mbarrier initialisation, arrival,
-// expected transaction bytes and waits, and 3-D tensor-map loads into and
-// stores from shared memory. Host side: cuTensorMapEncodeTiled, which
-// builds the tensor maps, taken from the driver through the runtime.
+// (groupnorm_silu.cu) and the LayerNorm+modulate backward (ln_modulate.cu).
+// Device side: mbarrier initialisation, arrival, expected transaction bytes
+// and waits, 3-D tensor-map loads into and stores from shared memory, and a
+// thread block cluster's rank, barrier and shared-memory reads of a peer.
+// Host side: cuTensorMapEncodeTiled, which builds the tensor maps, taken
+// from the driver through the runtime.
 
 #pragma once
 
@@ -62,6 +64,32 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, 
                    reinterpret_cast<uint64_t>(map)),
                "r"(src), "r"(c0), "r"(c1), "r"(c2)
                : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of the cluster: its writes released to, and every other
+// thread's acquired from, the whole cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Two f32 at shared address `addr` of the cluster's CTA `rank`.
+__device__ __forceinline__ float2 load_peer(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(remote) : "memory");
+  return v;
 }
 
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);

@@ -1,5 +1,5 @@
 """K4f and K4b: fused LayerNorm + adaLN modulate, forward and backward,
-Triton kernels for Hopper.
+kernels for Hopper (K4f in Triton, K4b in CUDA C++).
 
 Counterpart of ``bsi_tpu/ops/ln_modulate.py`` (the ``pallas_call``s of
 ``_fwd_kernel`` in ``_fwd_pallas`` and of ``_bwd_kernel`` in
@@ -29,24 +29,42 @@ once (67.4 MB at DiT-L/2's [64, 256, 1024] bf16, 20 us at 3.35 TB/s): a
 program holds ``ROWS`` whole token rows of one image in registers, reduces
 their statistics there, and reads that image's shift and scale once, at any
 strides (the DiT passes column slices of its adaLN output). K4b reads x and
-g and writes dx once (100.7 MB, 30 us): a program walks ``_BWD_CHUNKS``
-blocks of ``ROWS`` rows of one image, two-pass f32 statistics per row as
-``_ln``, and sums its rows' g and g * n into per-program f32 partials of
-dshift and dscale, which the wrapper adds up (no atomics, as K7b does).
+g and writes dx once (100.7 MB, 30 us); ``csrc/ln_modulate.cu`` streams an
+image's rows through a TMA ring to warps that take one row each, and sums
+dshift and dscale over the image inside the same launch, across a thread
+block cluster (``plan`` cuts the work; the source says how).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
+from . import _build
+
+SOURCE = "ln_modulate.cu"
 _EPS = 1e-6
-# Elements of x one program holds.
+# Elements of x one K4f program holds.
 _TILE_ELEMS = 4096
-# Row blocks one K4b program walks: its partial sums of dshift and dscale
-# cover ROWS * _BWD_CHUNKS rows (32 at D = 1024).
-_BWD_CHUNKS = 8
+# K4b's CTA, as csrc/ln_modulate.cu has it: eight warps, in the TMA body
+# seven consumers (one row each a tile) and one producer; the plain body's
+# tiles are 32 rows.
+_CWARPS = 7
+_PLAIN_ROWS = 32
+# The dynamic shared memory one block may take on an H100 (227 KB).
+SMEM_LIMIT = 232448
+_MAX_CLUSTER = 8
+# A TMA box (32 lanes x 16 bytes of a row), and the widest row whose
+# columns' partials and scale a lane holds in registers.
+_BOX_BYTES = 512
+_MAX_TMA_D = 1024
+# The ring's room a CTA (one CTA an SM), and its most stages.
+_RING_BYTES = 96 * 1024
+_MAX_STAGES = 8
+_SMS = 132  # an H100 SXM's
 
 
 def _ln(x: torch.Tensor) -> torch.Tensor:
@@ -121,45 +139,92 @@ def _kernel():
     return ln_mod_fwd
 
 
+class Plan(NamedTuple):
+    """How K4b cuts ``[B, S, D]``: each image's rows in ``tiles`` tiles of
+    ``rows`` rows, split across a cluster of ``cluster`` CTAs; ``tma``
+    says which body runs (``lane_vectors`` 16-byte column vectors a lane of
+    a row, 0 for the plain body), with ``stages`` ring stages, each CTA
+    taking ``smem_bytes`` of dynamic shared memory."""
+
+    tma: bool
+    lane_vectors: int
+    rows: int
+    tiles: int
+    stages: int
+    cluster: int
+    smem_bytes: int
+
+
+def _tile_bytes(size: int, d: int) -> int:
+    """A ring tile of one tensor: boxes of 512 bytes of each of its rows,
+    enough to cover a row (TMA reads columns past D as zero)."""
+    return -(-d * size // _BOX_BYTES) * _CWARPS * _BOX_BYTES
+
+
+def _smem_bytes(tma: bool, size: int, d: int, stages: int) -> int:
+    """A CTA's dynamic shared memory, as ``csrc/ln_modulate.cu``'s ``Layout``
+    lays it out. TMA body: the ring (each stage a tile of x and one of g),
+    which then holds the consumer warps' column partials (8 bytes a column
+    a warp), whichever is larger, and two mbarriers a stage. Plain body: the
+    column partials and a tile's row statistics. Both: 128 bytes to align
+    the base."""
+    if not tma:
+        return d * 8 + _PLAIN_ROWS * 8 + 128
+    return max(2 * stages * _tile_bytes(size, d), _CWARPS * d * 8) + 16 * stages + 128
+
+
 @functools.cache
-def _bwd_kernel():
-    import triton
-    import triton.language as tl
+def plan(batch: int, seq: int, d: int, dtype: torch.dtype) -> Plan:
+    """K4b's plan for ``[batch, seq, d]`` in ``dtype``. Rows of a stride TMA
+    takes (a multiple of 16 bytes) and at most 1,024 wide run the TMA body,
+    in tiles of one row a consumer warp, with as many ring stages as 96 KB
+    hold (at least 2, at most 8 and a CTA's tiles); other rows the plain
+    body, in tiles of 32. The cluster of an image's CTAs doubles, up to 8
+    and the image's tiles, while the doubled grid would still hold at most
+    one CTA an SM. Raises ``ValueError`` on an empty shape and where the
+    plain body's column partials (8 bytes a column) pass the shared
+    memory."""
+    size = dtype.itemsize
+    if batch < 1 or seq < 1 or d < 1:
+        raise ValueError(f"layernorm_modulate_bwd_cuda: bad shape [{batch}, {seq}, {d}]")
+    tma = d * size % 16 == 0 and d <= _MAX_TMA_D
+    rows = _CWARPS if tma else _PLAIN_ROWS
+    tiles = -(-seq // rows)
+    cluster = 1
+    while 2 * cluster <= min(_MAX_CLUSTER, tiles) and 2 * batch * cluster <= _SMS:
+        cluster *= 2
+    lane_vectors, stages = 0, 0
+    if tma:
+        lane_vectors = 1 << (-(-d * size // _BOX_BYTES) - 1).bit_length()
+        fit = max(2, _RING_BYTES // (2 * _tile_bytes(size, d)))
+        stages = max(1, min(_MAX_STAGES, -(-tiles // cluster), fit))
+    smem = _smem_bytes(tma, size, d, stages)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"layernorm_modulate_bwd_cuda: rows of {d} columns need {smem} bytes of shared memory "
+                         f"a CTA, over the limit of {SMEM_LIMIT}")
+    return Plan(tma, lane_vectors, rows, tiles, stages, cluster, smem)
 
-    @triton.jit
-    def ln_mod_bwd(
-        x_ptr, scale_ptr, g_ptr, dx_ptr, dshift_ptr, dscale_ptr, S, D, sc_b, sc_d, inv_d, eps,
-        ROWS: tl.constexpr, CHUNKS: tl.constexpr, BLOCK_D: tl.constexpr,
-    ):
-        pid = tl.program_id(0)
-        b = tl.program_id(1).to(tl.int64)
-        c = tl.arange(0, BLOCK_D)
-        cmask = c < D
-        scale1 = tl.load(scale_ptr + b * sc_b + c * sc_d, mask=cmask, other=0.0).to(tl.float32) + 1.0
-        dshift = tl.zeros([BLOCK_D], dtype=tl.float32)
-        dscale = tl.zeros([BLOCK_D], dtype=tl.float32)
-        for chunk in range(CHUNKS):
-            r = (pid * CHUNKS + chunk) * ROWS + tl.arange(0, ROWS)
-            mask = (r < S)[:, None] & cmask[None, :]
-            offs = (b * S + r[:, None]) * D + c[None, :]
-            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            mean = tl.sum(x, axis=1) * inv_d
-            xc = tl.where(mask, x - mean[:, None], 0.0)
-            rstd = 1.0 / tl.sqrt(tl.sum(xc * xc, axis=1) * inv_d + eps)
-            norm = xc * rstd[:, None]
-            dshift += tl.sum(g, axis=0)
-            dscale += tl.sum(g * norm, axis=0)
-            dn = g * scale1[None, :]
-            m1 = tl.sum(dn, axis=1) * inv_d
-            m2 = tl.sum(dn * norm, axis=1) * inv_d
-            dx = rstd[:, None] * (dn - m1[:, None] - norm * m2[:, None])
-            tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=mask)
-        part = (pid * tl.num_programs(1) + b) * D + c
-        tl.store(dshift_ptr + part, dshift, mask=cmask)
-        tl.store(dscale_ptr + part, dscale, mask=cmask)
 
-    return ln_mod_bwd
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    lib.bsi_ln_modulate_bwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2
+                                        + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.bsi_ln_modulate_bwd.restype = ctypes.c_int
+    lib.bsi_ln_modulate_bwd_max_clusters.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.bsi_ln_modulate_bwd_max_clusters.restype = ctypes.c_int
+    return lib
+
+
+def max_active_clusters(p: Plan, d: int, dtype: torch.dtype) -> int:
+    """How many clusters of K4b's plan ``p`` for rows of ``d`` the card holds
+    at once (``cudaOccupancyMaxActiveClusters``)."""
+    lib = _lib()
+    out = ctypes.c_int(0)
+    code = lib.bsi_ln_modulate_bwd_max_clusters(int(dtype == torch.bfloat16), int(p.tma), d, p.cluster,
+                                                p.smem_bytes, ctypes.byref(out))
+    _build.check(lib, code, "cudaOccupancyMaxActiveClusters")
+    return out.value
 
 
 def _next_pow2(n: int) -> int:
@@ -204,32 +269,33 @@ layernorm_modulate_cuda.compiled = None  # the last launch's compiled kernel (re
 
 def layernorm_modulate_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor):
     """Launch K4b: x as K4f takes it, ``scale`` ``[B, D]`` at any strides and
-    the output gradient ``g`` of x's shape and dtype. Returns ``(dx, dshift,
-    dscale)`` as ``_bwd_math`` does. Raises on anything else."""
+    the output gradient ``g`` of x's shape and dtype (x and g 16-byte aligned
+    where the plan's body is TMA's). Returns ``(dx, dshift, dscale)`` as
+    ``_bwd_math`` does, from one kernel. Raises on anything else."""
     _check_cuda("layernorm_modulate_bwd_cuda", x, scale, scale)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device or not g.is_contiguous():
         raise ValueError(f"layernorm_modulate_bwd_cuda: g {tuple(g.shape)} {g.dtype} on {g.device} "
                          f"is not a contiguous match of x {tuple(x.shape)} {x.dtype}")
     b, seq, d = x.shape
-    block_d = _next_pow2(d)
-    rows = max(1, _TILE_ELEMS // block_d)
-    chunks = min(_BWD_CHUNKS, -(-seq // rows))
-    n_prog = -(-seq // (rows * chunks))
+    p = plan(b, seq, d, x.dtype)
+    if p.tma and (x.data_ptr() % 16 or g.data_ptr() % 16):
+        raise ValueError("layernorm_modulate_bwd_cuda needs x and g 16-byte aligned (TMA)")
     dx = torch.empty_like(x)
-    dshift_p = torch.empty(n_prog, b, d, dtype=torch.float32, device=x.device)
-    dscale_p = torch.empty(n_prog, b, d, dtype=torch.float32, device=x.device)
-    kernel = _bwd_kernel()
+    dshift = torch.empty(b, d, dtype=scale.dtype, device=x.device)
+    dscale = torch.empty_like(dshift)
+    lib = _lib()
     with torch.cuda.device(x.device):
-        layernorm_modulate_bwd_cuda.compiled = kernel[(n_prog, b)](
-            x, scale, g, dx, dshift_p, dscale_p, seq, d, *scale.stride(), 1.0 / d, _EPS,
-            ROWS=rows, CHUNKS=chunks, BLOCK_D=block_d, num_warps=8,
+        code = lib.bsi_ln_modulate_bwd(
+            x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(), dshift.data_ptr(), dscale.data_ptr(),
+            b, seq, d, *scale.stride(), int(x.dtype == torch.bfloat16), int(p.tma), p.rows, p.stages, p.cluster,
+            p.smem_bytes, _EPS, x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
         )
+    _build.check(lib, code, "ln_modulate_bwd kernel")
     layernorm_modulate_bwd_cuda.launches += 1
-    return dx, dshift_p.sum(0).to(scale.dtype), dscale_p.sum(0).to(scale.dtype)
+    return dx, dshift, dscale
 
 
 layernorm_modulate_bwd_cuda.launches = 0
-layernorm_modulate_bwd_cuda.compiled = None  # the last launch's compiled kernel (registers, spills)
 
 
 class _LayerNormModulate(torch.autograd.Function):

@@ -425,10 +425,10 @@ def main() -> int:
         return got
 
     # --------------------------------------------------------------- build
-    # nvcc builds K1, K5f, K5b, K2/K6f, K3/K6b and K7f/K7b, one process each,
-    # while Triton compiles K4f and K4b on their first launches.
+    # nvcc builds K1, K5f, K5b, K2/K6f, K3/K6b, K7f/K7b and K4b, one process
+    # each, while Triton compiles K4f on its first launch.
     start = time.perf_counter()
-    sources = (fa.SOURCE, fa.DROPOUT_SOURCE, fa.BWD_SOURCE, fap.SOURCE, fap.BWD_SOURCE, gn.SOURCE)
+    sources = (fa.SOURCE, fa.DROPOUT_SOURCE, fa.BWD_SOURCE, fap.SOURCE, fap.BWD_SOURCE, gn.SOURCE, lm.SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         nvcc = {src: pool.submit(_build.build, src) for src in sources}
         x = torch.randn(2, 64, 64, device=dev)
@@ -436,14 +436,11 @@ def main() -> int:
         lm.layernorm_modulate_cuda(x4, x[:, 0, :1].expand(2, 1024), x[:, 1, :1].expand(2, 1024))
         torch.cuda.synchronize()
         triton_k4f_s = time.perf_counter() - start
-        lm.layernorm_modulate_bwd_cuda(x4, x[:, 1, :1].expand(2, 1024), x4)
-        torch.cuda.synchronize()
-        triton_k4b_s = time.perf_counter() - start - triton_k4f_s
         built = {src: future.result() for src, future in nvcc.items()}
     phase("build", k1_nvcc_s=f"{built[fa.SOURCE][1]:.2f}", k5f_nvcc_s=f"{built[fa.DROPOUT_SOURCE][1]:.2f}",
           k5b_nvcc_s=f"{built[fa.BWD_SOURCE][1]:.2f}", k2_nvcc_s=f"{built[fap.SOURCE][1]:.2f}",
           k3_nvcc_s=f"{built[fap.BWD_SOURCE][1]:.2f}", k7_nvcc_s=f"{built[gn.SOURCE][1]:.2f}",
-          k4f_triton_first_launch_s=f"{triton_k4f_s:.2f}", k4b_triton_first_launch_s=f"{triton_k4b_s:.2f}",
+          k4b_nvcc_s=f"{built[lm.SOURCE][1]:.2f}", k4f_triton_first_launch_s=f"{triton_k4f_s:.2f}",
           total_s=f"{time.perf_counter() - start:.2f}", libraries=[path.name for path, _, _ in built.values()])
     for source, (_, _, log) in built.items():
         for kernel, info in ptxas_report(log).items():
@@ -462,13 +459,20 @@ def main() -> int:
     if len(k7_sass) != 4 or not all(counts["UTMALDG"] for counts in k7_sass.values()):
         raise AssertionError(f"{gn.SOURCE}: not four K7 kernels with UTMALDG in their SASS: {sass}")
     phase("build.sass", source=gn.SOURCE, **k7_sass)
-    # Triton's compiled kernels carry their register and spill counts (the
-    # ptxas report of the CUDA route); older Triton may lack the fields.
-    for name, wrapper in (("k4f", lm.layernorm_modulate_cuda), ("k4b", lm.layernorm_modulate_bwd_cuda)):
-        compiled = wrapper.compiled
-        phase("build.triton", kernel=name, registers=getattr(compiled, "n_regs", "unknown"),
-              spills=getattr(compiled, "n_spills", "unknown"),
-              shared_bytes=getattr(compiled, "shared", "unknown"))
+    # K4b's TMA bodies load by TMA, the one DiT-L/2's bf16 rows take (its
+    # lane vectors in the template's name) first of all.
+    sass = sass_instructions(built[lm.SOURCE][0], ("UTMALDG",))
+    k4b_sass = {name: counts for name, counts in sass.items() if "ln_mod_bwd_tma" in name}
+    main_plan = lm.plan(BATCH, (DATA_SHAPE[0] // DIT_L2["patch_size"]) ** 2, DIT_L2["dim"], torch.bfloat16)
+    main_body = [name for name in k4b_sass if "nv_bfloat16" in name and f"Li{main_plan.lane_vectors}E" in name]
+    if len(main_body) != 1 or not all(counts["UTMALDG"] for counts in k4b_sass.values()):
+        raise AssertionError(f"{lm.SOURCE}: no TMA body for DiT-L/2's rows, or one without UTMALDG: {sass}")
+    phase("build.sass", source=lm.SOURCE, main_body=main_body[0], **k4b_sass)
+    # Triton's compiled K4f carries its register and spill counts (the ptxas
+    # report of the CUDA route); older Triton may lack the fields.
+    compiled = lm.layernorm_modulate_cuda.compiled
+    phase("build.triton", kernel="k4f", registers=getattr(compiled, "n_regs", "unknown"),
+          spills=getattr(compiled, "n_spills", "unknown"), shared_bytes=getattr(compiled, "shared", "unknown"))
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     randn = lambda *shape, dtype=torch.float32: torch.randn(
@@ -1008,26 +1012,43 @@ def main() -> int:
     kernels.append(k4f)
 
     # ------------------------------------------------------ K4b vs its twin
-    # scale is a column slice of the adaLN output, as the DiT block passes it.
-    for dtype in (torch.bfloat16, torch.float32):
-        x = randn(b, seq, dim, dtype=dtype) * 2.0 + 0.5
-        g_out = randn(b, seq, dim, dtype=dtype)
-        mod = randn(b, 6 * dim, dtype=dtype)
-        scale = mod[:, dim:2 * dim]
+    # The plan of each shape K4b checks (csrc/ln_modulate.cu: an image's
+    # rows in tiles of 7 through a TMA ring, one warp a row, a cluster of
+    # CTAs an image; the plain body for rows TMA cannot take), with how many
+    # of its clusters the card holds at once.
+    k4b_shapes = (((b, seq, dim), torch.bfloat16), ((b, seq, dim), torch.float32),
+                  ((2, 300, 256), torch.bfloat16), ((2, 5, 100), torch.bfloat16))
+    for shape, dtype in k4b_shapes:
+        plan = lm.plan(*shape, dtype)
+        phase("k4b.plan", shape=shape, dtype=str(dtype), tma=plan.tma, lane_vectors=plan.lane_vectors,
+              rows=plan.rows, tiles=plan.tiles, stages=plan.stages, cluster=plan.cluster,
+              ctas=shape[0] * plan.cluster, smem_bytes=plan.smem_bytes,
+              clusters_held=lm.max_active_clusters(plan, shape[2], dtype))
+    # scale is a column slice of the adaLN output, as the DiT block passes it;
+    # two launches the same bits at DiT-L/2's shape and at ragged ones (300
+    # rows, not a whole number of tiles; 200-byte rows, the plain body).
+    for shape, dtype in k4b_shapes:
+        x = randn(*shape, dtype=dtype) * 2.0 + 0.5
+        g_out = randn(*shape, dtype=dtype)
+        mod = randn(shape[0], 6 * shape[2], dtype=dtype)
+        scale = mod[:, shape[2]:2 * shape[2]]
         got = lm.layernorm_modulate_bwd_cuda(x, scale, g_out)
         want = lm._bwd_math(x, scale, g_out)
         torch.cuda.synchronize()
-        errs = check_bwd(f"K4b {dtype}", got, want, dtype, parts=("dx", "dshift", "dscale"))
-        phase("k4b.check", shape=(b, seq, dim), dtype=str(dtype), scale_stride=scale.stride(),
+        errs = check_bwd(f"K4b {shape} {dtype}", got, want, dtype, parts=("dx", "dshift", "dscale"))
+        if not all(map(torch.equal, lm.layernorm_modulate_bwd_cuda(x, scale, g_out), got)):
+            raise AssertionError(f"K4b {shape} {dtype}: two launches differ")
+        phase("k4b.check", shape=shape, dtype=str(dtype), scale_stride=scale.stride(),
               max_abs_err_dx=f"{errs[0]:.3e}", max_abs_err_dshift=f"{errs[1]:.3e}",
-              max_abs_err_dscale=f"{errs[2]:.3e}")
+              max_abs_err_dscale=f"{errs[2]:.3e}", two_launches_bit_for_bit=True)
     x = randn(b, seq, dim, dtype=torch.bfloat16)
     g_out = randn(b, seq, dim, dtype=torch.bfloat16)
     mod = randn(b, 6 * dim, dtype=torch.bfloat16)
     shift, scale = mod[:, :dim], mod[:, dim:2 * dim]
     k4b = dict(
-        name="layernorm_modulate_bwd", route="triton", source="bsi_torch/ops/ln_modulate.py",
-        replaces="bsi_tpu/ops/ln_modulate.py:110", shape=[b, seq, dim], dtype="bfloat16",
+        name="layernorm_modulate_bwd", route="cuda", source="bsi_torch/ops/csrc/ln_modulate.cu",
+        device_code="bsi_torch/ops/csrc/tma_sm90.cuh", replaces="bsi_tpu/ops/ln_modulate.py:110",
+        shape=[b, seq, dim], dtype="bfloat16",
         max_abs_err=check_bwd("K4b main", lm.layernorm_modulate_bwd_cuda(x, scale, g_out),
                               lm._bwd_math(x, scale, g_out), torch.bfloat16, parts=("dx", "dshift", "dscale"))[0],
         ms=time_ms(lambda: lm.layernorm_modulate_bwd_cuda(x, scale, g_out), flush=flush),
@@ -1038,6 +1059,8 @@ def main() -> int:
     )
     phase("k4b.time", **{key: k4b[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
     kernels.append(k4b)
+    # the kernel alone, one launch a call
+    device_times.append(("k4b", k4b, functools.partial(lm.layernorm_modulate_bwd_cuda, x, scale, g_out)))
     del mod, shift, scale, g_out
 
     def ln_library_bwd(b=b, seq=seq, dim=dim):
@@ -1717,6 +1740,8 @@ def main() -> int:
               calls=f"{entry['library_calls']} of 30", kernels=entry["library_kernels"])
     for label, entry, call in device_times:
         entry["device_ms"], entry["device_kernels"], entry["device_calls"] = library_bwd_ms(call, scrub.bitwise_not_)
+        if label == "k4b" and len(entry["device_kernels"]) != 1:
+            raise AssertionError(f"K4b launched {entry['device_kernels']} a call, not one kernel")
         phase("kernel.device", kernel=repr(label), device_ms=entry["device_ms"],
               calls=f"{entry['device_calls']} of 30", kernels=entry["device_kernels"])
     del scrub, library_backwards, device_times

@@ -766,6 +766,27 @@ def test_ln_modulate_bwd_kernel_matches_plain(cuda, shape, dtype):
     assert_bwd_close(got, lm._bwd_math(x, scale, g), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(64, 256, 1024), (2, 300, 256)])
+def test_ln_modulate_bwd_kernel_repeats_bit_for_bit(cuda, shape, dtype):
+    # dshift and dscale are summed in warp order, then in cluster rank order,
+    # without atomics
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    b, s, d = shape
+    x = _randn(gen, *shape, dtype=dtype, device=cuda) * 2.0 + 0.5
+    g = _randn(gen, *shape, dtype=dtype, device=cuda)
+    scale = _randn(gen, b, 6 * d, dtype=dtype, device=cuda)[:, d:2 * d] * 0.1
+    first = lm.layernorm_modulate_bwd_cuda(x, scale, g)
+    assert all(map(torch.equal, lm.layernorm_modulate_bwd_cuda(x, scale, g), first))
+
+
+def test_ln_modulate_bwd_kernel_refuses_misaligned_rows(cuda):
+    x = torch.zeros(2 * 8 * 128 + 1, device=cuda)[1:].view(2, 8, 128)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        lm.layernorm_modulate_bwd_cuda(x, torch.zeros(2, 128, device=cuda), torch.zeros_like(x))
+
+
 def test_ln_modulate_dispatch_and_backward(cuda):
     gen = torch.Generator(device=cuda).manual_seed(14)
     x = _randn(gen, 2, 256, 1024, dtype=torch.bfloat16, device=cuda).requires_grad_()

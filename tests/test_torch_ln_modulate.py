@@ -128,3 +128,90 @@ def test_layernorm_matches_flax(dtype):
         got = ours(torch.from_numpy(x32))
         assert got.dtype == torch.bfloat16
         npt.assert_allclose(got.float().detach().numpy(), want, atol=1e-6, rtol=2**-8)
+
+
+# K4b's plan (csrc/ln_modulate.cu): the shapes the card tests run, DiT-L/2's
+# first; then wide rows (the plain body) and one tile's worth of rows.
+_PLAN_SHAPES = [(64, 256, 1024), (3, 16, 384), (2, 5, 100), (2, 300, 256), (2, 256, 1024), (1, 1, 8),
+                (7, 1000, 512), (4, 33, 1152), (1, 4, 8192)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", _PLAN_SHAPES)
+def test_bwd_plan_covers_every_row_once(shape, dtype):
+    b, seq, d = shape
+    p = lm.plan(b, seq, d, dtype)
+    # one cluster an image; rank r of it takes tiles [r T / n, (r + 1) T / n)
+    assert p.tiles == -(-seq // p.rows)
+    covered = []
+    for rank in range(p.cluster):
+        first, end = rank * p.tiles // p.cluster, (rank + 1) * p.tiles // p.cluster
+        assert end > first  # every CTA has a tile
+        covered += [r for r in range(first * p.rows, end * p.rows) if r < seq]
+    assert covered == list(range(seq))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", _PLAN_SHAPES)
+def test_bwd_plan_fits_the_card(shape, dtype):
+    b, seq, d = shape
+    p = lm.plan(b, seq, d, dtype)
+    assert p.cluster in (1, 2, 4, 8) and p.cluster <= p.tiles
+    assert p.smem_bytes <= lm.SMEM_LIMIT == 232448
+    # the TMA body takes rows of a multiple of 16 bytes and at most 1,024
+    # columns (a lane's 32 columns of partials and scale in registers), in
+    # tiles of one row a consumer warp; the plain body anything else
+    assert p.tma == (d * dtype.itemsize % 16 == 0 and d <= 1024)
+    if p.tma:
+        assert p.rows == 7 and 1 <= p.stages <= 8
+        assert p.lane_vectors in (1, 2, 4, 8) and 32 * 16 * p.lane_vectors >= d * dtype.itemsize
+    else:
+        assert p.rows == 32 and p.stages == 0 and p.lane_vectors == 0
+    # the cluster grows while the doubled grid holds at most a CTA an SM
+    if 2 * p.cluster <= min(8, p.tiles):
+        assert 2 * b * p.cluster > 132
+    if p.cluster > 1:
+        assert b * p.cluster <= 132
+
+
+@pytest.mark.parametrize("dtype,want", [
+    # DiT-L/2: 37 tiles of 7 rows an image over two CTAs, one an SM (128 of
+    # 132); 3 stages of 28 KB of x and g
+    (torch.bfloat16, (True, 4, 7, 37, 3, 2, 86192)),
+    # f32 rows of 4 KB: two stages of 56 KB
+    (torch.float32, (True, 8, 7, 37, 2, 2, 114848)),
+])
+def test_bwd_plan_at_dit_l2(dtype, want):
+    # (tma, lane_vectors, rows, tiles, stages, cluster, smem_bytes)
+    assert tuple(lm.plan(64, 256, 1024, dtype)) == want
+
+
+@pytest.mark.parametrize("shape,dtype,tma", [
+    ((64, 256, 1024), torch.bfloat16, True),
+    ((3, 16, 384), torch.bfloat16, True),
+    ((2, 5, 100), torch.bfloat16, False),  # 200-byte rows: no TMA stride
+    ((2, 5, 100), torch.float32, True),  # 400 bytes: 25 vectors
+    ((2, 300, 256), torch.float32, True),
+    ((4, 33, 1152), torch.bfloat16, False),  # 36 columns a lane
+])
+def test_bwd_plan_route(shape, dtype, tma):
+    assert lm.plan(*shape, dtype).tma is tma
+
+
+def test_bwd_plan_raises_only_past_what_the_kernel_holds():
+    # the plain body keeps 8 bytes a column and 8 a tile row
+    assert lm.plan(1, 64, 29000, torch.float32).smem_bytes == 29000 * 8 + 32 * 8 + 128
+    with pytest.raises(ValueError, match="shared memory"):
+        lm.plan(1, 64, 30000, torch.float32)
+    with pytest.raises(ValueError, match="bad shape"):
+        lm.plan(2, 0, 1024, torch.bfloat16)
+
+
+def test_bwd_smem_mirrors_the_layout():
+    # TMA body: the ring, or the 7 warps' column partials where larger, plus
+    # two mbarriers a stage and 128 bytes of alignment
+    assert lm._smem_bytes(True, 2, 1024, 3) == 3 * 2 * 4 * 7 * 512 + 48 + 128
+    assert lm._smem_bytes(True, 2, 1024, 1) == 7 * 1024 * 8 + 16 + 128
+    assert lm._smem_bytes(True, 4, 100, 1) == 2 * 7 * 512 + 16 + 128  # one box a row
+    assert lm._smem_bytes(False, 2, 100, 0) == 100 * 8 + 32 * 8 + 128
+
