@@ -18,10 +18,13 @@ host, so the learning rate and the bias corrections are host numbers and no
 update waits on the device.
 
 ``mu_dtype``/``nu_dtype`` store the moments in another dtype (bf16 for the
-DiT), as the JAX package's ``scale_by_adam_cast``: the new moments are
-computed in the gradient's dtype from the upcast stored ones, the update is
-taken from those unrounded moments, and only the stored copies are rounded.
-(An in-place update of bf16 moments would round them before the update.)
+DiT). With both set, as the JAX package's ``scale_by_adam_cast``: the new
+moments are computed in the gradient's dtype from the upcast stored ones,
+the update is taken from those unrounded moments, and only the stored copies
+are rounded. (An in-place update of bf16 moments would round them before
+the update.) With ``mu_dtype`` alone, as optax's own ``mu_dtype``:
+``b1 * m`` is computed and rounded in the stored dtype before ``(1 - b1) *
+g`` is added; the rest as above.
 """
 
 from __future__ import annotations
@@ -157,8 +160,16 @@ class Optimizer:
         state.count += 1
         c1 = 1 - self.b1 ** state.count
         c2 = 1 - self.b2 ** state.count
-        mu_w, nu_w = _working(mu, g), _working(nu, g)
-        torch._foreach_mul_(mu_w, self.b1)
+        nu_w = _working(nu, g)
+        if self.mu_dtype is not None and self.nu_dtype is None:
+            # optax.scale_by_adam(mu_dtype=...): b1 * m is taken in the stored
+            # dtype (the weak-typed b1 rounded to it) and rounded, then
+            # (1 - b1) * g is added in the gradient's dtype
+            mu_w = [m.to(gi.dtype) for m, gi in zip(torch._foreach_mul(
+                mu, torch.tensor(self.b1, dtype=self.mu_dtype, device=mu[0].device)), g)]
+        else:
+            mu_w = _working(mu, g)
+            torch._foreach_mul_(mu_w, self.b1)
         torch._foreach_add_(mu_w, g, alpha=1 - self.b1)
         torch._foreach_mul_(nu_w, self.b2)
         torch._foreach_addcmul_(nu_w, g, g, value=1 - self.b2)

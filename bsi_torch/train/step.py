@@ -1,10 +1,10 @@
 """The train step (loss -> grads -> clip/AdamW -> EMA -> switch-EMA), the
 ELBO eval step and the sampling function.
 
-Counterpart of ``bsi_tpu/train/step.py``: ``make_train_step`` with
-``accum_steps=1``, ``make_eval_step`` and ``make_sample_fn``. The JAX step is
-one jitted program over an immutable state; this one runs eagerly and
-updates the state's tensors in place.
+Counterpart of ``bsi_tpu/train/step.py``: ``make_train_step`` (with
+gradient accumulation), ``make_eval_step`` and ``make_sample_fn``. The JAX
+step is one jitted program over an immutable state; this one runs eagerly
+and updates the state's tensors in place.
 
 ``model_apply(params, mu, t)`` binds a parameter dict to a network, as the
 JAX package's ``model_apply`` does; :func:`module_apply` makes one from an
@@ -18,7 +18,9 @@ reseeds that generator for its forward from the state's ``dropout_seed``
 and its step, as JAX folds the step into ``state.rng``, inside
 ``torch.random.fork_rng``, which restores the generator's stream after: the
 masks of a step are a function of the state, and the caller's own draws are
-untouched. The algorithm's noise comes from the state's generator.
+untouched. The algorithm's noise comes from the state's generator. With
+gradient accumulation each micro-batch draws its own masks, from
+(``dropout_seed``, step, micro-batch index).
 """
 
 from __future__ import annotations
@@ -34,8 +36,9 @@ from .optim import Optimizer, global_norm
 from .state import TrainState
 
 ModelApply = Callable[[dict, torch.Tensor, torch.Tensor], torch.Tensor]
-# Noise of one step: (step, batch) -> (t [batch], eps of the batch's shape).
-StepNoise = Callable[[int, torch.Tensor], tuple]
+# Noise of one step: (step, batch) -> (t [batch], eps of the batch's shape);
+# with accumulation (step, micro-batch, its index) -> the same for it.
+StepNoise = Callable[..., tuple]
 # Draws of one eval step: batch -> BSI.elbo_noise's (recon eps, t, measure eps).
 EvalNoise = Callable[[torch.Tensor], tuple]
 
@@ -53,6 +56,12 @@ def step_seed(dropout_seed: int, step: int) -> int:
     """The 64-bit seed of step ``step``'s dropout draws under a state's
     ``dropout_seed``: distinct steps and distinct seeds give distinct seeds."""
     return _mix64((_mix64(dropout_seed & _MASK64) + step) & _MASK64)
+
+
+def micro_seed(dropout_seed: int, step: int, micro: int) -> int:
+    """The seed of micro-batch ``micro``'s dropout draws in step ``step``
+    of an accumulated step: distinct for distinct (seed, step, micro)."""
+    return _mix64((step_seed(dropout_seed, step) + micro) & _MASK64)
 
 
 @contextlib.contextmanager
@@ -84,6 +93,7 @@ def make_train_step(
     model_apply: ModelApply,
     tx: Optimizer,
     ema_cfg: EMAConfig,
+    accum_steps: int = 1,
     *,
     noise: Optional[StepNoise] = None,
 ):
@@ -95,23 +105,52 @@ def make_train_step(
     of step ``n`` comes from ``state.generator`` unless ``noise`` is given,
     which the tests use to feed the JAX package's draws; its dropout masks
     from (``state.dropout_seed``, ``n``).
+
+    ``accum_steps > 1`` accumulates gradients as the JAX step's scan does:
+    the batch arrives shaped ``[accum, micro, ...]``, each micro-batch takes
+    its own draws (``noise(n, micro_batch, i)`` when given) and its own
+    dropout masks (:func:`micro_seed`), the losses and gradients are summed
+    in micro-batch order and scaled by ``1 / accum_steps``, and the
+    optimizer, the EMA and the schedule advance once.
     """
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+
+    def loss_and_grads(state: TrainState, batch: torch.Tensor, t, eps, seed: int):
+        model_fn = lambda mu, tt: model_apply(state.params, mu, tt)
+        with _dropout_rng(batch.device, seed):
+            loss = algorithm._train_loss_on(model_fn, batch, t, eps).mean()
+        return loss.detach(), list(torch.autograd.grad(loss, list(state.params.values())))
+
+    def draws(state: TrainState, batch: torch.Tensor, *micro):
+        if noise is None:
+            return algorithm.train_noise(state.generator, batch)
+        return noise(state.step, batch, *micro)
 
     def train_step(state: TrainState, batch: torch.Tensor):
-        if noise is None:
-            t, eps = algorithm.train_noise(state.generator, batch)
+        if accum_steps == 1:
+            loss, grads = loss_and_grads(state, batch, *draws(state, batch),
+                                         step_seed(state.dropout_seed, state.step))
         else:
-            t, eps = noise(state.step, batch)
-        model_fn = lambda mu, tt: model_apply(state.params, mu, tt)
-        with _dropout_rng(batch.device, step_seed(state.dropout_seed, state.step)):
-            loss = algorithm._train_loss_on(model_fn, batch, t, eps).mean()
-        grads = torch.autograd.grad(loss, list(state.params.values()))
+            if batch.shape[0] != accum_steps:
+                raise ValueError(f"batch of shape {tuple(batch.shape)}: want [{accum_steps}, micro, ...]")
+            for i in range(accum_steps):
+                mloss, mgrads = loss_and_grads(state, batch[i], *draws(state, batch[i], i),
+                                               micro_seed(state.dropout_seed, state.step, i))
+                if i == 0:
+                    loss, grads = mloss, mgrads
+                else:
+                    loss = loss + mloss
+                    torch._foreach_add_(grads, mgrads)
+            inv = 1.0 / accum_steps
+            loss = loss * inv
+            torch._foreach_mul_(grads, inv)
         norm = global_norm(grads)
         tx.update(grads, state.opt_state, state.params, grad_norm=norm)
         ema_update(ema_cfg, state.step, state.ema_params, state.params)
         maybe_switch_ema(ema_cfg, state.step, state.ema_params, state.params)
         state.step += 1
-        return state, {"train/loss": loss.detach(), "train/grad_norm": norm}
+        return state, {"train/loss": loss, "train/grad_norm": norm}
 
     return train_step
 

@@ -25,6 +25,13 @@ forward's time. The bf16 dropout forwards (K2, K6f, K5f) also run a probe
 whose output reads their keep masks out, bit for bit (``[mask.probe]``),
 and the library's backwards (the yardsticks of K3, K6b, K5b, K4b and K7b)
 are timed last, from a profile of their kernels (``[library.bwd]``).
+Before those, the port's trainer runs end to end through its entry point
+(``python -m bsi_torch.train``'s ``main``) on the CIFAR-10 recipe at full
+width, f32, on synthetic 32x32 images: a fit of 6 steps with its
+validations, plots, checkpoints and test pass (``[trainer.fit]``), a run
+resumed from its checkpoint held bit for bit to a straight one
+(``[trainer.resume]``), gradient accumulation (``[trainer.accum]``) and a
+run on the CPU, asked for (``[trainer.cpu]``).
 Prints one line per phase, a JSON line
 with every kernel's numbers, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -112,6 +119,46 @@ K5_RATE = 0.1
 # an attention tail on each of the 66 residual blocks plus the centre's, all
 # over the image's pixels.
 TAIL_ATTENTIONS = 2 * UNET["levels"] + 2 + 1
+
+
+# The trainer path: the port's entry point (python -m bsi_torch.train) on the
+# CIFAR-10 recipe at its full width and precision (f32, TF32 off), fed
+# synthetic 32x32x3 images since no dataset can be fetched. Cut: 6 steps
+# (the recipe: 1e7), validation every 3 (1e5) over one eval batch of 512 a
+# split (the synthetic val split's 128 images padded to 512, and 512 of its
+# train images), the seed the recipe's sweep names.
+TRAINER_RECIPE = ["experiment=cifar10-vdm", "data=synthetic", "data.data_shape=[32,32,3]",
+                  "seed=1947925778702538666", "trainer.log_every_n_steps=1", "trainer.limit_eval_batches=1"]
+TRAINER_STEPS = 6
+TRAINER_VAL_EVERY = 3
+TRAINER_BATCH = 128
+TRAINER_EVAL_BATCH = 512
+
+
+def run_trainer(args: list[str], log: Path) -> tuple[Path, list[dict]]:
+    """``python -m bsi_torch.train`` in this process, its console to ``log``
+    (the tail printed if it fails); returns its run directory and its
+    metrics.jsonl records."""
+    import contextlib
+
+    from bsi_torch.train.__main__ import main as train_main
+
+    log.parent.mkdir(parents=True, exist_ok=True)
+    with open(log, "w") as out, contextlib.redirect_stdout(out):
+        try:
+            rc = train_main(args)
+        except BaseException:
+            out.flush()
+            print(log.read_text()[-4000:], file=sys.stderr)
+            raise
+    if rc != 0:
+        raise AssertionError(f"python -m bsi_torch.train {' '.join(args)} exited {rc}")
+    (run_dir,) = [p.parent for p in log.parent.glob("**/metrics.jsonl")]
+    return run_dir, [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+
+
+def metric(records: list[dict], key: str) -> list:
+    return [r[key] for r in records if key in r]
 
 
 def phase(name: str, **fields) -> None:
@@ -495,6 +542,9 @@ def main() -> int:
     for shape, dtype, atol in [
         ((BATCH, 1, 1024, 128), torch.bfloat16, 2e-2),
         ((BATCH, 1, 1024, 128), torch.float32, 1e-5),
+        # the trainer's f32 shapes: a train step's and a validation's
+        ((TRAINER_BATCH, 1, 1024, 128), torch.float32, 1e-5),
+        ((TRAINER_EVAL_BATCH, 1, 1024, 128), torch.float32, 1e-5),
         ((3, 2, 200, 64), torch.bfloat16, 2e-2),
         ((3, 2, 200, 64), torch.float32, 1e-5),
         ((2, 2, 384, 256), torch.bfloat16, 2e-2),
@@ -590,6 +640,18 @@ def main() -> int:
                     for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
                 if rows == 1024:
                     k7_inputs[c] = x, gamma, beta
+    # the trainer's f32 shapes: a train step's forward and a validation's
+    for batch in (TRAINER_BATCH, TRAINER_EVAL_BATCH):
+        for c in (128, 256):
+            x = randn(batch, 1024, c)
+            gamma, beta = 1.0 + 0.1 * randn(c), 0.1 * randn(c)
+            got = gn.groupnorm_silu_cuda(x, gamma, beta, 32)
+            want = gn._reference_math(x, gamma, beta, 32)
+            torch.cuda.synchronize()
+            err = check_close(f"K7 {(batch, 1024, c)} f32", got, want, 1e-5)
+            phase("k7.check", shape=(batch, 1024, c), dtype=str(f32), max_abs_err=f"{err:.3e}", atol=1e-5,
+                  rtol=0.0, path="trainer")
+            del x, got, want
     k7 = dict(name="groupnorm_silu_fwd", route="cuda", source="bsi_torch/ops/csrc/groupnorm_silu.cu",
               device_code="bsi_torch/ops/csrc/tma_sm90.cuh", replaces="bsi_tpu/ops/groupnorm_silu.py:133",
               **k7_times[1024, 256, bf16], at_c128=k7_times[1024, 128, bf16],
@@ -1722,6 +1784,173 @@ def main() -> int:
               bf16_batch=BATCH, bf16_forward_ms=f"{statistics.median(secs) * 1e3:.3f}",
               bf16_forward_ms_runs=[f"{x * 1e3:.3f}" for x in secs], finite=True)
         del tail_bf16, mu64, out64
+
+    # ------------------------------------------------ the trainer, end to end
+    # python -m bsi_torch.train on the CIFAR-10 recipe (TRAINER_RECIPE): every
+    # UNet forward there is f32 at 32x32, K1 once and K7f 66 times; a train
+    # step's backward runs K7b 66 times (K1's backward at S = 1024 is the
+    # plain VJP). fit: a sanity validation, 6 steps, validations after steps
+    # 3 and 6, the plots at each (k = 50 sampling of 64, filmstrips of 16,
+    # denoisings of 8), then the recipe's test pass on ckpt_best (with its
+    # plots).
+    import gc
+    import tempfile
+
+    trainer_root = Path(tempfile.mkdtemp(prefix="bsi_torch_trainer_"))
+    fit_args = TRAINER_RECIPE + [f"run_root={trainer_root / 'fit'}", f"trainer.max_steps={TRAINER_STEPS}",
+                                 f"trainer.val_check_interval={TRAINER_VAL_EVERY}", "trainer.num_sanity_val_steps=1",
+                                 "trainer.plots=yes"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    run_dir, records = run_trainer(fit_args, trainer_root / "fit" / "console.log")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_peak = torch.cuda.max_memory_allocated()
+    fit_counts = read_counts()
+    k1, k7f, k7b = (fit_counts[name] for name in ("flash_attention", "groupnorm_silu_fwd", "groupnorm_silu_bwd"))
+    others = {name: n for name, n in fit_counts.items()
+              if n and name not in ("flash_attention", "groupnorm_silu_fwd", "groupnorm_silu_bwd")}
+    if not (k1 > 0 and k7f == K7_PER_FORWARD * k1 and k7b == K7B_PER_STEP * TRAINER_STEPS) or others:
+        raise AssertionError(f"trainer.fit launches: {fit_counts}")
+    rates = metric(records, "train/steps_per_sec")
+    losses = metric(records, "train/loss")
+    val_bpd = metric(records, "val/bpd")
+    numbers = losses + val_bpd + metric(records, "train/bpd") + metric(records, "test/bpd")
+    if len(rates) != TRAINER_STEPS or len(val_bpd) != 3 or not all(math.isfinite(x) for x in numbers):
+        raise AssertionError(f"trainer.fit metrics: rates {rates}, losses {losses}, val/bpd {val_bpd}")
+    # the test pass plots at the step of ckpt_best, 3 or 6
+    kinds = ("samples", "histories", "denoisings")
+    pngs = sorted(str(p.relative_to(run_dir)) for p in run_dir.glob("plots/*/*.png"))
+    want_pngs = {f"plots/step_{step}/val_{kind}.png" for step in (3, 6) for kind in kinds}
+    tests = [p for p in pngs if p not in want_pngs]
+    if not want_pngs <= set(pngs) or sorted(p.rsplit("/", 1)[1] for p in tests) != sorted(
+            f"test_{kind}.png" for kind in kinds):
+        raise AssertionError(f"trainer.fit plots: {pngs}")
+    ckpt_bytes = {}
+    for tag in ("last", "best"):
+        ckpt = run_dir / f"ckpt_{tag}"
+        meta = json.loads((ckpt / "meta.json").read_text())
+        if not (ckpt / "state.pt").is_file() or meta["extra"]["best_bpd"] != min(val_bpd[1:]):
+            raise AssertionError(f"trainer.fit ckpt_{tag}: {meta['extra']}")
+        ckpt_bytes[tag] = (ckpt / "state.pt").stat().st_size
+    # 6 batches of 128 from 512 images: the second epoch, at 256
+    last_cursor = json.loads((run_dir / "ckpt_last" / "meta.json").read_text())["data_state"]["stream"]
+    if (last_cursor["epoch"], last_cursor["pos"]) != (1, 256):
+        raise AssertionError(f"trainer.fit data cursor in ckpt_last: {last_cursor}")
+    step_ms = [1e3 / r for r in rates]
+    phase("trainer.fit", recipe="cifar10-vdm", entry="bsi_torch.train.__main__.main", model="UNet dim 128, 32 "
+          "levels, 1 head, dropout 0.1", dtype="float32", tf32=False, batch=TRAINER_BATCH,
+          eval_batch=TRAINER_EVAL_BATCH,
+          optimizer="AdamW 2e-4 (0.9, 0.99) wd 1e-2, warmup 1000, clip 1.0", dropout_prng_impl="rbg (ignored)",
+          cut=f"data synthetic 32x32x3 (512 train, 128 val); {TRAINER_STEPS} steps; validation every "
+              f"{TRAINER_VAL_EVERY} over 1 eval batch a split", fit_wall_s=f"{fit_s:.3f}",
+          steps_per_s=[f"{r:.3f}" for r in rates], ms_per_step_median_2_6=f"{statistics.median(step_ms[1:]):.3f}",
+          loss=[f"{x:.6g}" for x in losses], val_bpd=[f"{x:.6g}" for x in val_bpd],
+          validate_s=[f"{x:.3f}" for x in metric(records, "time/val_s")],
+          test_s=[f"{x:.3f}" for x in metric(records, "time/test_s")],
+          plots_s=[f"{x:.3f}" for x in metric(records, "time/PlotsCallback_s")],
+          ckpt_bytes=ckpt_bytes, ckpt_copy_s=[f"{x:.3f}" for x in metric(records, "time/ckpt_last_copy_s")],
+          ckpt_write_s=[f"{x:.3f}" for x in metric(records, "time/ckpt_last_write_s")],
+          ckpt_best_write_s=[f"{x:.3f}" for x in metric(records, "time/ckpt_best_write_s")],
+          peak_mem_gib=f"{fit_peak / 2**30:.3f}", launches={"k1": k1, "k7f": k7f, "k7b": k7b}, pngs=len(pngs))
+    path_launches["trainer_fit"] = fit_counts
+
+    # resume: 3 steps, then from their ckpt_last to step 6, against 6 straight
+    # steps; bit for bit. cuDNN's deterministic algorithms (its convolutions'
+    # backward); the rest of the step is deterministic as it stands: cuBLAS
+    # on one stream, K1, K7f and K7b (no atomics), the dropout masks a
+    # function of (seed, step), the optimizer's foreach passes. Cut: eval
+    # batches of 128 (the recipe's 512 would take ~8 s a validation), no
+    # plots, no sanity validation, no test pass.
+    torch.backends.cudnn.deterministic = True
+    resume_args = TRAINER_RECIPE + [f"trainer.val_check_interval={TRAINER_VAL_EVERY}", "trainer.plots=no",
+                                    "trainer.num_sanity_val_steps=0", "eval_testset=no", "data.eval_batch_size=128"]
+    t0 = time.perf_counter()
+    reset_counts()
+    straight_dir, straight = run_trainer(resume_args + [f"run_root={trainer_root / 'straight'}",
+                                                        f"trainer.max_steps={TRAINER_STEPS}"],
+                                         trainer_root / "straight" / "console.log")
+    path_launches["trainer_resume"] = read_counts()
+    first_dir, _ = run_trainer(resume_args + [f"run_root={trainer_root / 'first'}", "trainer.max_steps=3"],
+                               trainer_root / "first" / "console.log")
+    resumed_dir, resumed = run_trainer(resume_args + [f"run_root={trainer_root / 'resumed'}",
+                                                      f"trainer.max_steps={TRAINER_STEPS}",
+                                                      f"from_ckpt={first_dir / 'ckpt_last'}"],
+                                       trainer_root / "resumed" / "console.log")
+    resume_s = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic = False
+    a = torch.load(straight_dir / "ckpt_last" / "state.pt", weights_only=True)
+    b = torch.load(resumed_dir / "ckpt_last" / "state.pt", weights_only=True)
+    differing = [f"{part}.{name}" for part in ("params", "ema_params") for name in a[part]
+                 if not torch.equal(a[part][name], b[part][name])]
+    differing += [f"opt_state.{m}.{name}" for m in ("mu", "nu") for name in a["opt_state"][m]
+                  if not torch.equal(a["opt_state"][m][name], b["opt_state"][m][name])]
+    meta_a, meta_b = (json.loads((d / "ckpt_last" / "meta.json").read_text()) for d in (straight_dir, resumed_dir))
+    same = {"step": a["step"] == b["step"] == TRAINER_STEPS,
+            "count": a["opt_state"]["count"] == b["opt_state"]["count"] == TRAINER_STEPS,
+            "generator": torch.equal(a["generator"], b["generator"]),
+            "data_cursor": meta_a["data_state"] == meta_b["data_state"],
+            "best_bpd": meta_a["extra"]["best_bpd"] == meta_b["extra"]["best_bpd"]}
+    n_tensors = 2 * len(a["params"]) + 2 * len(a["opt_state"]["mu"])
+    phase("trainer.resume", runs="6 straight; 3, then resumed from ckpt_last to 6", cudnn_deterministic=True,
+          cut="eval batch 128, no plots, no sanity validation, no test pass",
+          compared=f"{n_tensors} tensors (params, EMA, mu, nu)", bit_equal=not differing, **same,
+          val_bpd_straight=[f"{x:.9g}" for x in metric(straight, "val/bpd")],
+          val_bpd_resumed=[f"{x:.9g}" for x in metric(resumed, "val/bpd")], wall_s=f"{resume_s:.3f}")
+    if differing or not all(same.values()):
+        raise AssertionError(f"trainer.resume: {len(differing)} tensors differ ({differing[:5]}), {same}")
+    del a, b
+
+    # accumulation: trainer.accumulate_grad_batches=2, two steps of 2 x 64;
+    # each micro-batch runs a forward (K1 once) and a backward (K7b 66
+    # times); cut as the resume runs
+    accum_args = TRAINER_RECIPE + [f"run_root={trainer_root / 'accum'}", "trainer.max_steps=2",
+                                   "trainer.accumulate_grad_batches=2", "trainer.plots=no",
+                                   "trainer.num_sanity_val_steps=0", "eval_testset=no", "data.eval_batch_size=128"]
+    gc.collect()
+    reset_counts()
+    t0 = time.perf_counter()
+    _, accum = run_trainer(accum_args, trainer_root / "accum" / "console.log")
+    accum_s = time.perf_counter() - t0
+    # the one validation after step 2: two splits, two forwards each
+    accum_counts = expect_counts("trainer.accum", flash_attention=2 * 2 + 4,
+                                 groupnorm_silu_fwd=K7_PER_FORWARD * (2 * 2 + 4),
+                                 groupnorm_silu_bwd=K7B_PER_STEP * 2 * 2)
+    accum_loss = metric(accum, "train/loss")
+    if len(accum_loss) != 2 or not all(math.isfinite(x) for x in accum_loss):
+        raise AssertionError(f"trainer.accum losses {accum_loss}")
+    phase("trainer.accum", accumulate_grad_batches=2, micro_batch=64, steps=2, cut="eval batch 128, no plots",
+          loss=[f"{x:.6g}" for x in accum_loss],
+          k1_per_step_in_train=2, launches={k: n for k, n in accum_counts.items() if n}, wall_s=f"{accum_s:.3f}",
+          steps_per_s=[f"{x:.3f}" for x in metric(accum, "train/steps_per_sec")])
+    path_launches["trainer_accum"] = accum_counts
+
+    # the CPU, asked for: mode=debug (2 steps, validation after each) at a
+    # narrow width; no kernel may launch
+    cpu_args = ["mode=debug", "data=synthetic", "data.data_shape=[8,8,3]", "data.batch_size=8",
+                "task.model.dim=32", "task.model.levels=2", "seed=3", "+trainer.device=cpu",
+                f"run_root={trainer_root / 'cpu'}"]
+    reset_counts()
+    t0 = time.perf_counter()
+    cpu_dir, cpu = run_trainer(cpu_args, trainer_root / "cpu" / "console.log")
+    cpu_s = time.perf_counter() - t0
+    path_launches["trainer_cpu"] = expect_counts("trainer.cpu")
+    cpu_state = torch.load(cpu_dir / "ckpt_last" / "state.pt", weights_only=True)
+    cpu_bpd = metric(cpu, "val/bpd")
+    if not cpu_bpd or not all(math.isfinite(x) for x in cpu_bpd) or cpu_state["step"] != 2:
+        raise AssertionError(f"trainer.cpu: val/bpd {cpu_bpd}, step {cpu_state['step']}")
+    phase("trainer.cpu", overrides="mode=debug +trainer.device=cpu", width="UNet dim 32, 2 levels, 8x8x3",
+          steps=cpu_state["step"], val_bpd=[f"{x:.6g}" for x in cpu_bpd], kernel_launches=0,
+          wall_s=f"{cpu_s:.3f}", note="fit, resume and accum above ran on the card by default")
+    import shutil
+
+    shutil.rmtree(trainer_root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # Each kernel's launches on the main path that runs it (K6f, K6b: none does).
     for entry in kernels:
