@@ -7,9 +7,7 @@ keys are display metadata and are not passed to constructors.
 
 ``configs/`` names the JAX package's classes (``_target_`` paths inside the
 ``bsi_tpu`` package). Such a target is read as the same path inside
-``bsi_torch`` at call time, so one config tree serves both packages; a
-target the port does not have yet raises ``NotImplementedError`` naming the
-ROADMAP item it waits for.
+``bsi_torch`` at call time, so one config tree serves both packages.
 """
 
 from __future__ import annotations
@@ -20,14 +18,6 @@ from typing import Any
 _META_KEYS = {"_target_", "_recursive_", "name"}
 JAX_PACKAGE, PORT_PACKAGE = "bsi_tpu", "bsi_torch"
 
-# Targets of configs/ (paths inside the JAX package) that the port has not
-# ported yet, and what each waits for.
-NOT_PORTED = {
-    "core.VDM": "the baselines (ROADMAP.md, queue 1 item 2)",
-    "core.BFN": "the baselines (ROADMAP.md, queue 1 item 2)",
-    "data.ImageNetDataModule": "data/imagenet.py with the imagenet32 recipe (ROADMAP.md, queue 1 item 1)",
-}
-
 
 def port_target(dotted: str) -> str:
     """The port's path for a ``_target_`` inside the JAX package: the same
@@ -35,8 +25,6 @@ def port_target(dotted: str) -> str:
     package, _, inner = dotted.partition(".")
     if package != JAX_PACKAGE:
         return dotted
-    if inner in NOT_PORTED:
-        raise NotImplementedError(f"{dotted} is not ported yet; it waits for {NOT_PORTED[inner]}")
     return f"{PORT_PACKAGE}.{inner}"
 
 

@@ -1,3 +1,4 @@
+from .bfn import BFN
 from .bsi import BSI
 from .common import (
     ModelFn,
@@ -9,6 +10,8 @@ from .common import (
     sample_lds_t,
 )
 from .discretization import Discretization
+from .schedules import get_schedule
+from .vdm import VDM
 from .distributions import (
     LogUniform,
     discretized_normal_log_prob,
@@ -18,10 +21,13 @@ from .distributions import (
 
 __all__ = [
     "BSI",
+    "VDM",
+    "BFN",
     "Discretization",
     "LogUniform",
     "ModelFn",
     "broadcast_right",
+    "get_schedule",
     "lds_grid",
     "mc_var",
     "protect_const",

@@ -20,7 +20,8 @@ from typing import Callable, Optional
 
 import torch
 
-from .common import ModelFn, broadcast_right, mc_var, protect_const, resolve_device, sample_lds_t
+from .common import (ModelFn, broadcast_right, index_draws, mc_var, normal_draws, protect_const, quantile_draws,
+                     resolve_device, sample_lds_t)
 from .discretization import Discretization
 from .distributions import LogUniform, discretized_normal_log_prob, normal_log_prob
 
@@ -94,7 +95,7 @@ class BSI:
         """The draws of one ``elbo``: the reconstruction's standard normal
         ``(n_recon, batch, *data)``, then the measurement's time quantiles
         ``(n_measure, batch)`` and standard normal ``(n_measure, batch, *data)``."""
-        return (self._eps(generator, x, n_recon_samples),
+        return (normal_draws(generator, x, n_recon_samples),
                 *self._inf_measurement_noise(generator, x, n_measure_samples))
 
     def _elbo_on(self, model_fn: ModelFn, x: torch.Tensor, recon_eps: torch.Tensor, t: torch.Tensor,
@@ -134,7 +135,7 @@ class BSI:
         at t=1, and the data scored under a Normal(x_hat, 1/sqrt(alpha_R)),
         discretized into bins when a discretization is configured.
         """
-        return self._reconstruction_loss_on(model_fn, x, self._eps(generator, x, n_samples))
+        return self._reconstruction_loss_on(model_fn, x, normal_draws(generator, x, n_samples))
 
     def _reconstruction_loss_on(self, model_fn: ModelFn, x: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
         n, batch = eps.shape[:2]
@@ -155,8 +156,8 @@ class BSI:
         return self._inf_measurement_loss_on(model_fn, x, *self._inf_measurement_noise(generator, x, n_samples))
 
     def _inf_measurement_noise(self, generator: torch.Generator, x: torch.Tensor, n_samples: int):
-        t = self._quantiles(generator, x, n_samples)
-        return t, self._eps(generator, x, n_samples)
+        t = quantile_draws(generator, x, n_samples, self.low_discrepancy_sampling)
+        return t, normal_draws(generator, x, n_samples)
 
     def _inf_measurement_loss_on(self, model_fn: ModelFn, x: torch.Tensor, t: torch.Tensor,
                                  eps: torch.Tensor) -> torch.Tensor:
@@ -174,9 +175,8 @@ class BSI:
         batch)``: a uniformly drawn step ``i`` of the schedule ``t`` per
         sample."""
         k = self.k if t is None else t.shape[0] - 1
-        self._check_generator(generator, x)
-        i = torch.randint(0, k, (n_samples, x.shape[0]), generator=generator, device=x.device)
-        return self._finite_measurement_loss_on(model_fn, x, i, self._eps(generator, x, n_samples), t=t)
+        i = index_draws(generator, x, n_samples, k)
+        return self._finite_measurement_loss_on(model_fn, x, i, normal_draws(generator, x, n_samples), t=t)
 
     def _finite_measurement_loss_on(self, model_fn: ModelFn, x: torch.Tensor, i: torch.Tensor,
                                     eps: torch.Tensor, *, t: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -206,7 +206,7 @@ class BSI:
     def train_noise(self, generator: torch.Generator, x: torch.Tensor):
         """The draws of one ``train_loss``: the time quantiles ``t`` [batch]
         and the standard normal ``eps`` of x's shape."""
-        return self._quantiles(generator, x, 1)[0], self._eps(generator, x, 1)[0]
+        return quantile_draws(generator, x, 1, self.low_discrepancy_sampling)[0], normal_draws(generator, x, 1)[0]
 
     def _train_loss_on(self, model_fn: ModelFn, x: torch.Tensor, t: torch.Tensor,
                        eps: torch.Tensor) -> torch.Tensor:
@@ -218,21 +218,6 @@ class BSI:
         x_hat = self._predict_x(model_fn, mu, self.p_lambda.cdf(lambda_))
         decoding_error = ((x - x_hat) ** 2).reshape(x.shape[0], -1).mean(-1)
         return self.p_lambda.reciprocal_pdf(lambda_) * decoding_error
-
-    def _check_generator(self, generator: torch.Generator, x: torch.Tensor) -> None:
-        if generator.device.type != x.device.type:
-            raise ValueError(f"generator lives on {generator.device}, x on {x.device}")
-
-    def _quantiles(self, generator: torch.Generator, x: torch.Tensor, n_samples: int) -> torch.Tensor:
-        """Time quantiles ``(n_samples, batch)`` in x's dtype."""
-        self._check_generator(generator, x)
-        return sample_lds_t(generator, n_samples, x.shape[0], low_discrepancy=self.low_discrepancy_sampling,
-                            dtype=x.dtype)
-
-    def _eps(self, generator: torch.Generator, x: torch.Tensor, n_samples: int) -> torch.Tensor:
-        """Standard normal of shape ``(n_samples, *x.shape)`` in x's dtype."""
-        self._check_generator(generator, x)
-        return torch.randn((n_samples,) + tuple(x.shape), generator=generator, dtype=x.dtype, device=x.device)
 
     def _sample_lambda(self, generator: torch.Generator, n_samples: int, batch_size: int,
                        dtype) -> torch.Tensor:

@@ -83,6 +83,31 @@ def sample_lds_t(
     return torch.rand((n_samples, batch_size), generator=generator, dtype=dtype, device=device)
 
 
+def _check_generator(generator: torch.Generator, x: torch.Tensor) -> None:
+    if generator.device.type != x.device.type:
+        raise ValueError(f"generator lives on {generator.device}, x on {x.device}")
+
+
+def normal_draws(generator: torch.Generator, x: torch.Tensor, n_samples: int) -> torch.Tensor:
+    """Standard normal of shape ``(n_samples, *x.shape)`` in x's dtype, from
+    ``generator``, which lives on x's device."""
+    _check_generator(generator, x)
+    return torch.randn((n_samples,) + tuple(x.shape), generator=generator, dtype=x.dtype, device=x.device)
+
+
+def quantile_draws(generator: torch.Generator, x: torch.Tensor, n_samples: int,
+                   low_discrepancy: bool) -> torch.Tensor:
+    """Time quantiles ``(n_samples, batch)`` in x's dtype (:func:`sample_lds_t`)."""
+    _check_generator(generator, x)
+    return sample_lds_t(generator, n_samples, x.shape[0], low_discrepancy=low_discrepancy, dtype=x.dtype)
+
+
+def index_draws(generator: torch.Generator, x: torch.Tensor, n_samples: int, n_steps: int) -> torch.Tensor:
+    """Uniform step indices in ``[0, n_steps)``, shape ``(n_samples, batch)``."""
+    _check_generator(generator, x)
+    return torch.randint(0, n_steps, (n_samples, x.shape[0]), generator=generator, device=x.device)
+
+
 def mc_var(values: torch.Tensor, n_samples: int) -> torch.Tensor:
     """Variance of the Monte Carlo mean estimator from per-sample values.
 

@@ -2,9 +2,10 @@
 
 Counterpart of ``bsi_tpu/data/base.py``, with the same streams: hosts hold
 the dataset as numpy arrays (NHWC, normalized to [-1, 1], or uint8
-normalized on gather), and batches are vectorized gathers that the trainer
-copies to the device. The infinite train stream and the
-exact-coverage eval split live in :mod:`bsi_torch.data.sampler`.
+normalized on gather) or as a lazy row source (``npysource.py``), and
+batches are vectorized gathers that the trainer copies to the device. The
+infinite train stream and the exact-coverage eval split live in
+:mod:`bsi_torch.data.sampler`.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ class ArrayDataModule:
         shard_id: int = 0,
         num_shards: int = 1,
         preload: bool = True,  # accepted for config uniformity; in-memory
-        # array modules are always "preloaded"
+        # array modules are always "preloaded" (ImageNet's honours it)
     ):
         self._train = train
         self._val = val
@@ -111,6 +112,8 @@ class ArrayDataModule:
     # ------------------------------------------------------------------ eval
 
     def _train_eval_subset(self):
+        if hasattr(self._train, "subset"):  # a lazy row source stays lazy
+            return self._train.subset(self._train_eval_idx)
         return self._train[self._train_eval_idx]
 
     def eval_splits(self) -> dict[str, np.ndarray]:

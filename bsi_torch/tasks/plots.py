@@ -5,13 +5,16 @@ Counterpart of ``bsi_tpu/tasks/plots.py``: at each validation it renders
 - an 8x8 grid of fresh samples,
 - 16 sampling-trajectory filmstrips (x_hat over the k steps),
 - denoising panels: 8 fixed training images noised at 15 noise-level
-  quantiles, each shown as (mu, x_hat) row pairs,
+  quantiles, each shown as (mu, x_hat) row pairs, noised as each algorithm
+  noises: BSI's belief at lambda(t), VDM's forward marginal, BFN's flow
+  distribution,
 
 all drawn from a generator seeded with the fixed plot seed, on the EMA
 parameters, and checked to be finite: the de-facto NaN watchdog of
-training. The images are PNGs under ``<run_dir>/plots/step_<n>/``, written
-with ``zlib`` and ``struct`` from the standard library, and are logged to
-W&B when a run is attached.
+training. The 8 images are normalized as an eval batch is (the JAX
+package passes uint8 storage to the noiser as 0..255). The images are PNGs
+under ``<run_dir>/plots/step_<n>/``, written with ``zlib`` and ``struct``
+from the standard library, and are logged to W&B when a run is attached.
 """
 
 from __future__ import annotations
@@ -67,6 +70,15 @@ def _finite(x: torch.Tensor, what: str) -> None:
         raise FloatingPointError(f"non-finite {what}")
 
 
+def _noiser(algo):
+    """``(generator, x, t) -> noised x`` at times ``t`` of shape ``(q, batch)``."""
+    if hasattr(algo, "_sample_q_mu_lambda"):  # BSI: the belief at lambda(t)
+        return lambda g, x, t: algo._sample_q_mu_lambda(g, x, algo.p_lambda.icdf(t))
+    if hasattr(algo, "_sample_zt_given_x"):  # VDM: the forward marginal
+        return algo._sample_zt_given_x
+    return algo._sample_flow_distribution  # BFN: the flow distribution
+
+
 class PlotsCallback:
     """Callable hooked into ``Trainer.callbacks``; signature (trainer, stage, step)."""
 
@@ -89,21 +101,23 @@ class PlotsCallback:
         _finite(samples, "samples")
         images[f"{stage}/samples"] = _to_uint8_grid(to_8bit(samples), 8, self.n_samples // 8)
 
-        # trajectory filmstrips: rows = samples, columns = steps
+        # trajectory filmstrips: rows = samples, columns = steps; BSI and BFN
+        # return (mus, x_hats, ys), VDM the x_hats alone
         model_fn = lambda mu, t: trainer.eval_apply(state.ema_params, mu, t)
-        x_hats = algo.sample_history(model_fn, generator(), self.n_histories, device=device)[1]
+        history = algo.sample_history(model_fn, generator(), self.n_histories, device=device)
+        x_hats = history[1] if isinstance(history, tuple) else history
         _finite(x_hats, "sample history")
         hx = to_8bit(x_hats)  # [k+1, n, H, W, C]
         k1, n, h, w, c = hx.shape
         images[f"{stage}/histories"] = hx.transpose(1, 2, 0, 3, 4).reshape(n * h, k1 * w, c)
 
-        # denoising panels: 8 training images noised at lambda(t) for t at the quantiles
+        # denoising panels: 8 training images noised at the quantiles of t
         with torch.inference_mode():
             quantiles = torch.linspace(0.0, 1.0, self.n_quantiles, device=device)
-            base = torch.as_tensor(trainer.data.eval_splits()["train"][np.arange(8)], dtype=torch.float32,
-                                   device=device)
+            first, _ = next(trainer.data.eval_batches(trainer.data.eval_splits()["train"], 8))
+            base = torch.as_tensor(first, dtype=torch.float32, device=device)
             t_grid = quantiles[:, None].expand(self.n_quantiles, len(base))
-            mu = algo._sample_q_mu_lambda(generator(), base, algo.p_lambda.icdf(t_grid))
+            mu = _noiser(algo)(generator(), base, t_grid)
             flat_mu = mu.reshape((-1,) + mu.shape[2:])
             x_hat = algo._predict_x(model_fn, flat_mu, quantiles.repeat_interleave(len(base)))
         _finite(x_hat, "denoisings")

@@ -34,8 +34,8 @@ from bsi_torch.train import EMAConfig, make_optimizer, warmup_cosine_schedule, w
 from bsi_torch.train.loop import Trainer
 from bsi_torch.utils.logging import MetricLogger
 
-PARALLEL_ITEM = "parallel layouts, ROADMAP.md queue 1 item 4"
-FID_ITEM = "the eval suite, ROADMAP.md queue 1 item 3"
+PARALLEL_ITEM = "parallel layouts, ROADMAP.md queue 1 item 2"
+FID_ITEM = "the eval suite, ROADMAP.md queue 1 item 1"
 
 
 def build_model(model_cfg: dict, data_shape: tuple[int, ...], dtype=None, device=None):

@@ -31,7 +31,18 @@ width, f32, on synthetic 32x32 images: a fit of 6 steps with its
 validations, plots, checkpoints and test pass (``[trainer.fit]``), a run
 resumed from its checkpoint held bit for bit to a straight one
 (``[trainer.resume]``), gradient accumulation (``[trainer.accum]``) and a
-run on the CPU, asked for (``[trainer.cpu]``).
+run on the CPU, asked for (``[trainer.cpu]``); then the ImageNet recipes
+through the same entry point at full width, f32, on shards in the official
+format written from a seed: DiT-L/2 (``experiment=imagenet32``) at the
+recipe's batch 512 as 8 micro-batches of 64, with BSI (a sanity
+validation, 2 steps, a validation, the plots, checkpoints and the test
+pass, ``[imagenet32.fit]``), VDM and BFN at batch 256 as 4x64
+(``[imagenet32.vdm]``, ``[imagenet32.bfn]``), and DiT-L/4 (``experiment=imagenet64``) from the
+lazy ``.npy`` row source, its batches held to the preloaded rows
+(``[imagenet64.fit]``), each with the exact launches of K2, K3, K4f and K4b.
+VDM and BFN on DiT-L/2 are also held card vs CPU (``[baselines.check]``),
+and K2, K3, K4f and K4b to their twins at the recipes' f32 shapes
+(``[k2.check]``, ``[k3.check]``, ``[k4.check]``).
 Prints one line per phase, a JSON line
 with every kernel's numbers, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -133,6 +144,23 @@ TRAINER_STEPS = 6
 TRAINER_VAL_EVERY = 3
 TRAINER_BATCH = 128
 TRAINER_EVAL_BATCH = 512
+
+# The ImageNet recipes through the same entry point: experiment=imagenet32
+# (DiT-L/2, patch 2 on 32x32) for each task of its sweep, and
+# experiment=imagenet64 (DiT-L/4, patch 4 on 64x64, preload: no), at full
+# width, f32, TF32 off, the recipes' batch 512 as IMAGENET_ACCUM
+# micro-batches of 64 (one card), on shards in the official format written
+# from SEED: (train images, val images, train shards). Both give 256 tokens,
+# so every DiT kernel runs at the same shapes. Cut: 2 steps (the recipes:
+# 1e6), one validation after them over one eval batch a split (every 1e5);
+# VDM and BFN at batch 256 (4x64) with eval batch 128, imagenet64 without
+# plots.
+IMAGENET_SHARDS = {32: (20_000, 1_024, 2), 64: (4_000, 512, 1)}
+IMAGENET_ACCUM = 8
+IMAGENET_MICRO = 64
+IMAGENET_STEPS = 2
+IMAGENET_EVAL_BATCH = 512
+IMAGENET_K = 50  # configs/task/algorithm/*.yaml: the plots' sampling steps
 
 
 def run_trainer(args: list[str], log: Path) -> tuple[Path, list[dict]]:
@@ -358,14 +386,16 @@ def card_vs_cpu_grads(what: str, models, algo, x, t, eps):
     """The mean train-loss gradients of ``models`` (a CPU model, then its
     copy on the card) on the same draws, each of the card's leaves within
     1e-3 of the CPU's leaf's norm. Returns the CPU's gradients by name, the
-    worst relative error, its leaf, and whether the card's are finite."""
+    worst relative error, its leaf, whether the card's are finite, and the
+    two losses (CPU, card)."""
     import torch
 
-    grads = []
+    grads, losses = [], []
     for model in models:
         device = next(model.parameters()).device
         named = dict(model.named_parameters())
         loss = algo._train_loss_on(model, x.to(device), t.to(device), eps.to(device)).mean()
+        losses.append(loss.item())
         grads.append(dict(zip(named, (g.cpu() for g in torch.autograd.grad(loss, list(named.values()))))))
     worst, worst_name = 0.0, None
     for name, want in grads[0].items():
@@ -374,7 +404,7 @@ def card_vs_cpu_grads(what: str, models, algo, x, t, eps):
             raise AssertionError(f"{what} {name}: card vs CPU {rel:.3e} of its norm, limit 1e-3")
         if rel > worst:
             worst, worst_name = rel, name
-    return grads[0], worst, worst_name, all(bool(torch.isfinite(g).all()) for g in grads[1].values())
+    return grads[0], worst, worst_name, all(bool(torch.isfinite(g).all()) for g in grads[1].values()), losses
 
 
 def predicted_train_peak_gib(batch: int, pixels: int, dim: int, levels: int) -> float:
@@ -393,13 +423,17 @@ def predicted_train_peak_gib(batch: int, pixels: int, dim: int, levels: int) -> 
 def main() -> int:
     import torch
 
+    script_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import numpy as np
     from torch.nn import functional as F
 
-    from bsi_torch import BSI
+    from bsi_torch import BFN, BSI, VDM, Discretization
+    from bsi_torch.data import ImageNetDataModule, NpyRowSource
+    from bsi_torch.data.imagenet import write_synthetic_shards
     from bsi_torch.models import DenoisingDiT, DenoisingVDMUNet
     from bsi_torch.nn import FourierFeatures, NyquistPositionalEmbedding
     from bsi_torch.ops import _build
@@ -1125,6 +1159,52 @@ def main() -> int:
     device_times.append(("k4b", k4b, functools.partial(lm.layernorm_modulate_bwd_cuda, x, scale, g_out)))
     del mod, shift, scale, g_out
 
+    # -------------------------- K2, K3, K4f, K4b at the ImageNet recipes' shapes
+    # The trainer runs DiT-L/2 (and DiT-L/4: the same 256 tokens) in f32: a
+    # train micro-batch of 64 (K2 at rate 0.05, K3, K4f, K4b), validation
+    # batches of 512 (128 where cut) and the plots' 64, 16 and 120 (K2 at
+    # rate 0, K4f). K2
+    # and K4f within 1e-5 of their twins, the masks pinned by the Philox
+    # twin; K3 within 1e-5 of its largest element; K4b as [k4b.check] (dx
+    # 1e-5, dshift and dscale 1e-4 of their largest element).
+    f32 = torch.float32
+    for cb, rate in ((IMAGENET_MICRO, DIT_DROPOUT), (IMAGENET_MICRO, 0.0), (IMAGENET_EVAL_BATCH, 0.0), (128, 0.0),
+                     (120, 0.0), (16, 0.0)):
+        qkv = randn(cb, seq, 3 * heads * d)
+        sd = fap.draw_seeds(cb, heads, dev, gen) if rate else None
+        kp = fap._philox_keep_mask(sd, seq, 1.0 - rate) if rate else None
+        err = check_close(f"K2 f32 {cb} rate {rate}", fap.flash_attention_fused_cuda(qkv, heads, sd, rate),
+                          fap._fused_fwd_math(qkv, heads, kp, 1.0 - rate), 1e-5)
+        phase("k2.check", recipe="imagenet32", shape=(cb, seq, 3 * heads * d), heads=heads, dtype="float32",
+              rate=rate, max_abs_err=f"{err:.3e}", atol=1e-5)
+        del qkv, kp
+    qkv = randn(IMAGENET_MICRO, seq, 3 * heads * d)
+    g_out = randn(IMAGENET_MICRO, seq, heads * d)
+    sd = fap.draw_seeds(IMAGENET_MICRO, heads, dev, gen)
+    kp = fap._philox_keep_mask(sd, seq, keep_prob)
+    want3 = fap._fused_bwd_math(qkv, g_out, heads, kp, keep_prob)
+    err = check_attn_bwd("K3 f32 trainer", fap.flash_attention_fused_bwd_cuda(qkv, g_out, heads, sd, DIT_DROPOUT),
+                         want3, f32)
+    phase("k3.check", recipe="imagenet32", shape=tuple(qkv.shape), heads=heads, dtype="float32", rate=DIT_DROPOUT,
+          max_abs_err=f"{err:.3e}", atol=f"{1e-5 * want3.abs().max().item():.3e}", tol="1e-5 of the largest element")
+    del qkv, g_out, kp, want3
+    for cb in (IMAGENET_MICRO, IMAGENET_EVAL_BATCH, 128, 120, 16):
+        x4 = randn(cb, seq, dim) * 2.0 + 0.5
+        mod4 = randn(cb, 6 * dim)
+        shift4, scale4 = mod4[:, :dim], mod4[:, dim:2 * dim]
+        errs = {"k4f": check_close(f"K4f f32 {cb}", lm.layernorm_modulate_cuda(x4, shift4, scale4),
+                                   lm._reference_math(x4, shift4, scale4), 1e-5)}
+        if cb == IMAGENET_MICRO:
+            g4 = randn(cb, seq, dim)
+            errs.update(zip(("k4b_dx", "k4b_dshift", "k4b_dscale"), check_bwd(
+                f"K4b f32 {cb}", lm.layernorm_modulate_bwd_cuda(x4, scale4, g4), lm._bwd_math(x4, scale4, g4), f32,
+                parts=("dx", "dshift", "dscale"))))
+            del g4
+        phase("k4.check", recipe="imagenet32", shape=(cb, seq, dim), dtype="float32",
+              **{key: f"{err:.3e}" for key, err in errs.items()},
+              tol="k4f, k4b dx 1e-5; k4b dshift, dscale 1e-4 of the largest element")
+        del x4, mod4, shift4, scale4
+
     def ln_library_bwd(b=b, seq=seq, dim=dim):
         x_lib = randn(b, seq, dim, dtype=torch.bfloat16).requires_grad_()
         g_lib = randn(b, seq, dim, dtype=torch.bfloat16)
@@ -1343,7 +1423,7 @@ def main() -> int:
                      preconditioning="edm")
     x_small = torch.rand((2,) + DATA_SHAPE, generator=cpu_gen) * 2.0 - 1.0
     t_small, eps_small = algo_train.train_noise(cpu_gen, x_small)
-    grads, worst, worst_name, finite = card_vs_cpu_grads(
+    grads, worst, worst_name, finite, _ = card_vs_cpu_grads(
         "train gradient", (model_cpu, model_f32), algo_train, x_small, t_small, eps_small)
     phase("train.check", batch=2, dtype="float32", leaves=len(grads), worst_rel_err=f"{worst:.3e}",
           worst_leaf=worst_name, tol="1e-3 of each leaf's norm", finite=finite)
@@ -1469,7 +1549,7 @@ def main() -> int:
     x_small = torch.rand((2,) + DATA_SHAPE, generator=cpu_gen) * 2.0 - 1.0
     t_small, eps_small = algo_train.train_noise(cpu_gen, x_small)
     reset_counts()
-    grads, worst, worst_name, finite = card_vs_cpu_grads(
+    grads, worst, worst_name, finite, _ = card_vs_cpu_grads(
         "DiT train gradient", (dit_cpu, dit_f32), algo_train, x_small, t_small, eps_small)
     expect_counts("one f32 DiT-L/2 train-loss gradient", flash_attention_fused=K2_PER_FORWARD,
                   layernorm_modulate_fwd=K4F_PER_FORWARD, flash_attention_fused_bwd=K3_PER_STEP,
@@ -1480,6 +1560,41 @@ def main() -> int:
           block0_qkv_grad_max=f"{qkv_grad:.3e}", finite=finite)
     if not qkv_grad > 0:
         raise AssertionError("the attention's gradient is zero: adaLN-Zero hides the backward")
+    # The baselines of the imagenet32 recipe's sweep (configs/task/algorithm/
+    # {vdm,bfn}.yaml, 8-bit discretization) on the same DiT-L/2 weights and
+    # draws, card vs CPU, f32, batch 2: the train loss within 1e-4 of its
+    # scale, its gradients within 1e-3 of each leaf's norm (through K2, K3,
+    # K4f and K4b on the card), and the ELBO's bpd within 1e-4 (VDM's
+    # reconstruction does not call the model: one forward; BFN's two).
+    baselines = {"vdm": VDM(DATA_SHAPE, snr_min=6.73794699909e-3, snr_max=597195.613793, k=50,
+                            discretization=Discretization.image_8bit()),
+                 "bfn": BFN(DATA_SHAPE, sigma_1=1e-3, k=50, discretization=Discretization.image_8bit())}
+    for name, baseline in baselines.items():
+        t_b, eps_b = baseline.train_noise(cpu_gen, x_small)
+        reset_counts()
+        grads, worst, worst_name, finite, (loss_cpu, loss_card) = card_vs_cpu_grads(
+            f"{name} train gradient", (dit_cpu, dit_f32), baseline, x_small, t_b, eps_b)
+        expect_counts(f"one f32 DiT-L/2 {name} train-loss gradient", flash_attention_fused=K2_PER_FORWARD,
+                      layernorm_modulate_fwd=K4F_PER_FORWARD, flash_attention_fused_bwd=K3_PER_STEP,
+                      layernorm_modulate_bwd=K4B_PER_STEP)
+        loss_err = abs(loss_card - loss_cpu)
+        if not loss_err <= 1e-4 * max(abs(loss_cpu), 1e-30):
+            raise AssertionError(f"{name} train loss card vs CPU: {loss_card} vs {loss_cpu}")
+        draws = baseline.elbo_noise(cpu_gen, x_small)
+        forwards = 1 if name == "vdm" else 2
+        reset_counts()
+        with torch.inference_mode():
+            bpds = [baseline._elbo_on(model, x_small.to(device), *(d.to(device) for d in draws))[1].cpu()
+                    for model, device in ((dit_cpu, "cpu"), (dit_f32, dev))]
+        expect_counts(f"one f32 DiT-L/2 {name} ELBO", flash_attention_fused=forwards * K2_PER_FORWARD,
+                      layernorm_modulate_fwd=forwards * K4F_PER_FORWARD)
+        bpd_err = check_close(f"{name} ELBO bpd card vs CPU", bpds[1], bpds[0], 0.0, 1e-4)
+        phase("baselines.check", algorithm=name, model="DiT-L/2", batch=2, dtype="float32",
+              loss_cpu=f"{loss_cpu:.9g}", loss_card=f"{loss_card:.9g}", loss_abs_err=f"{loss_err:.3e}",
+              leaves=len(grads), worst_rel_err=f"{worst:.3e}", worst_leaf=worst_name,
+              bpd_cpu=[f"{x:.6f}" for x in bpds[0].tolist()], bpd_abs_err=f"{bpd_err:.3e}",
+              tol="loss 1e-4 of its scale; each leaf 1e-3 of its norm; bpd 1e-4 relative",
+              elbo_forwards=forwards, finite=finite and bool(torch.isfinite(bpds[1]).all()))
     del dit_cpu, dit_f32, grads
 
     # -------------------------------------------- main path: DiT sampling
@@ -1593,7 +1708,7 @@ def main() -> int:
     x_small = torch.rand((2,) + DATA16, generator=cpu_gen) * 2.0 - 1.0
     t_small, eps_small = algo16_train.train_noise(cpu_gen, x_small)
     reset_counts()
-    grads, worst, worst_name, finite = card_vs_cpu_grads(
+    grads, worst, worst_name, finite, _ = card_vs_cpu_grads(
         "16x16 train gradient", (unet16_cpu, unet16_f32), algo16_train, x_small, t_small, eps_small)
     expect_counts("one f32 16x16 UNet train-loss gradient", flash_attention_dropout=K5F_PER_FORWARD,
                   flash_attention_bwd=K5B_PER_STEP, groupnorm_silu_fwd=K7_PER_FORWARD,
@@ -1952,6 +2067,136 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ------------------------------------------ the ImageNet recipes, end to end
+    # (IMAGENET_*). A train micro-batch runs K2 24 times at rate 0.05, K3 24,
+    # K4f and K4b 48; each model forward of an eval step or of the plots K2 24
+    # times at rate 0 and K4f 48. An ELBO eval step runs the model twice for
+    # BSI and BFN (reconstruction, measurement) and once for VDM (its
+    # reconstruction reads z_0 without the model); the plots k times each
+    # for the k=50 sampling of 64 and the filmstrips of 16, plus a final
+    # decode each for BSI and BFN, and once for the 120 denoisings.
+    imagenet_root = Path(tempfile.mkdtemp(prefix="bsi_torch_imagenet_"))
+    t0 = time.perf_counter()
+    for n, (n_train, n_val, n_shards) in IMAGENET_SHARDS.items():
+        write_synthetic_shards(imagenet_root / f"data{n}", n, n_train, n_val, seed=SEED, n_shards=n_shards)
+    phase("imagenet.shards", **{f"imagenet{n}": f"{c[0]} train in {c[2]} shards, {c[1]} val"
+                                for n, c in IMAGENET_SHARDS.items()}, seed=SEED, write_s=f"{time.perf_counter() - t0:.3f}")
+    def imagenet_fit(label: str, n: int, task: str, *extra: str, sanity: bool, test: bool, plots: bool,
+                     eval_batch: int, accum: int = IMAGENET_ACCUM) -> tuple[Path, list[dict], dict]:
+        """One recipe run through ``main``, its launches checked exactly, its
+        losses and bpd finite, its PNGs and checkpoints present; prints its
+        phase line and returns (run dir, metrics records, fields)."""
+        run_root = imagenet_root / label
+        args = [f"experiment=imagenet{n}", f"task={task}", f"data.root={imagenet_root / f'data{n}'}",
+                f"data.batch_size={accum * IMAGENET_MICRO}", f"data.eval_batch_size={eval_batch}",
+                f"trainer.accumulate_grad_batches={accum}",
+                f"trainer.max_steps={IMAGENET_STEPS}", f"trainer.val_check_interval={IMAGENET_STEPS}",
+                "trainer.log_every_n_steps=1", "trainer.limit_eval_batches=1",
+                f"trainer.num_sanity_val_steps={int(sanity)}", f"trainer.plots={'yes' if plots else 'no'}",
+                f"eval_testset={'yes' if test else 'no'}", f"run_root={run_root}", *extra]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        run_dir, records = run_trainer(args, run_root / "console.log")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        # one eval batch a split, two splits a validation
+        micro_steps = IMAGENET_STEPS * accum
+        validations = 1 + int(sanity) + int(test)
+        eval_forwards = (1 if task == "vdm" else 2) * 2 * validations
+        plot_forwards = (2 * (IMAGENET_K + (task != "vdm")) + 1) * (1 + int(test)) if plots else 0
+        forwards = micro_steps + eval_forwards + plot_forwards
+        counts = expect_counts(label, flash_attention_fused=K2_PER_FORWARD * forwards,
+                               layernorm_modulate_fwd=K4F_PER_FORWARD * forwards,
+                               flash_attention_fused_bwd=K3_PER_STEP * micro_steps,
+                               layernorm_modulate_bwd=K4B_PER_STEP * micro_steps)
+        rates, losses = metric(records, "train/steps_per_sec"), metric(records, "train/loss")
+        val_bpd = metric(records, "val/bpd")
+        bpds = val_bpd + metric(records, "train/bpd") + metric(records, "test/bpd")
+        if len(rates) != IMAGENET_STEPS or len(losses) != IMAGENET_STEPS or len(val_bpd) != 1 + int(sanity) or \
+                len(bpds) != 2 * validations or not all(math.isfinite(x) for x in losses + bpds):
+            raise AssertionError(f"{label} metrics: rates {rates}, losses {losses}, bpd {bpds}")
+        pngs = sorted(str(p.relative_to(run_dir)) for p in run_dir.glob("plots/*/*.png"))
+        want_pngs = sorted(f"plots/step_{IMAGENET_STEPS}/{stage}_{kind}.png" for stage in ("val", "test")[:1 + int(test)]
+                           for kind in ("samples", "histories", "denoisings")) if plots else []
+        if pngs != want_pngs:
+            raise AssertionError(f"{label} plots: {pngs}, want {want_pngs}")
+        ckpt_bytes = {}
+        for tag in ("last", "best"):
+            meta = json.loads((run_dir / f"ckpt_{tag}" / "meta.json").read_text())
+            if meta["extra"]["best_bpd"] != val_bpd[-1]:
+                raise AssertionError(f"{label} ckpt_{tag}: {meta['extra']}")
+            ckpt_bytes[tag] = (run_dir / f"ckpt_{tag}" / "state.pt").stat().st_size
+        secs = lambda key: [f"{x:.3f}" for x in metric(records, key)]
+        fields = dict(
+            recipe=f"imagenet{n}", task=task, model=f"DiT-L/{2 if n == 32 else 4}, dim 1024, depth 24, 16 heads of 64, "
+            "dropout 0.05", dtype="float32", tf32=False, batch=f"{accum * IMAGENET_MICRO} as {accum}x{IMAGENET_MICRO}",
+            eval_batch=eval_batch, wall_s=f"{wall:.3f}", steps_per_s=[f"{r:.4f}" for r in rates],
+            ms_per_step=[f"{1e3 / r:.1f}" for r in rates], loss=[f"{x:.6g}" for x in losses],
+            val_bpd=[f"{x:.6g}" for x in val_bpd], train_bpd=[f"{x:.6g}" for x in metric(records, "train/bpd")],
+            test_bpd=[f"{x:.6g}" for x in metric(records, "test/bpd")], validate_s=secs("time/val_s"),
+            test_s=secs("time/test_s"), plots_s=secs("time/PlotsCallback_s"), ckpt_bytes=ckpt_bytes,
+            ckpt_copy_s=secs("time/ckpt_last_copy_s") + secs("time/ckpt_best_copy_s"),
+            ckpt_write_s=secs("time/ckpt_last_write_s") + secs("time/ckpt_best_write_s"),
+            peak_mem_gib=f"{peak / 2**30:.3f}", launches={k: v for k, v in counts.items() if v}, pngs=len(pngs))
+        path_launches[label.replace(".", "_")] = counts
+        return run_dir, records, fields
+
+    # imagenet32, task=bsi: the recipe as a user runs it (a sanity validation,
+    # the plots, ckpt_last/ckpt_best, the test pass on ckpt_best with its
+    # plots), the sweep's first seed
+    sweep_seed = "seed=9551795317880672191"
+    run_dir, _, fields = imagenet_fit("imagenet32.fit", 32, "bsi", sweep_seed, sanity=True, test=True, plots=True,
+                                      eval_batch=IMAGENET_EVAL_BATCH)
+    phase("imagenet32.fit", **fields, cut=f"shards from seed {SEED} ({IMAGENET_SHARDS[32][0]} train); "
+          f"{IMAGENET_STEPS} steps; 1 eval batch a split")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    # VDM and BFN, cut to keep the new phases near 3 minutes: batch 256 as
+    # 4x64 (the kernels' shapes stay the micro-batch's), eval batch 128
+    for task in ("vdm", "bfn"):
+        run_dir, _, fields = imagenet_fit(f"imagenet32.{task}", 32, task, sweep_seed, sanity=False, test=False,
+                                          plots=True, eval_batch=128, accum=4)
+        phase(f"imagenet32.{task}", **fields, cut=f"as imagenet32.fit; batch 256 as 4x64, eval batch 128; no sanity "
+                                                  "validation, no test pass")
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+    # imagenet64 (preload: no): the batches the trainer gathered through the
+    # .npy row source, against the same rows read with preload=yes
+    gathered, sources = [], []
+    train_batches = ImageNetDataModule.train_batches
+
+    def recording(self, *args, **kwargs):
+        sources.append(type(self._train))
+        for batch in train_batches(self, *args, **kwargs):
+            gathered.append(batch.copy())
+            yield batch
+
+    ImageNetDataModule.train_batches = recording
+    try:
+        run_dir, _, fields = imagenet_fit("imagenet64.fit", 64, "bsi", "seed=16075619163396078907", sanity=False,
+                                          test=False, plots=False, eval_batch=128)
+    finally:
+        ImageNetDataModule.train_batches = train_batches
+    config = json.loads((run_dir / "config.json").read_text())
+    eager = ImageNetDataModule(**{k: v for k, v in config["data"].items() if k not in ("_target_", "name", "preload")},
+                               preload=True, seed=config["seed"])
+    want = eager.train_batches()
+    same = [bool(np.array_equal(batch, next(want))) for batch in gathered]
+    if sources != [NpyRowSource] or len(gathered) != IMAGENET_STEPS or not all(same):
+        raise AssertionError(f"imagenet64.fit batches: sources {sources}, {len(gathered)} batches, equal {same}")
+    phase("imagenet64.fit", **fields, preload=False, source="NpyRowSource",
+          batches_equal_to_preload_yes=f"{sum(same)} of {len(same)}",
+          cut=f"shards from seed {SEED} ({IMAGENET_SHARDS[64][0]} train); {IMAGENET_STEPS} steps; 1 eval batch of "
+              "128 a split; no sanity validation, no plots, no test pass")
+    del gathered, eager, want
+    shutil.rmtree(imagenet_root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # Each kernel's launches on the main path that runs it (K6f, K6b: none does).
     for entry in kernels:
         entry["launches_by_path"] = {path: counts[entry["name"]] for path, counts in path_launches.items()}
@@ -1982,7 +2227,7 @@ def main() -> int:
     phase("k5f.library_f32", kernels=k5f["at_f32_eval_shape"]["library_kernels"],
           max_abs_err_vs_fwd_math=f"{k5f['at_f32_eval_shape']['library_max_abs_err']:.3e}",
           within_1e_5=k5f["at_f32_eval_shape"]["library_within_1e_5"])
-    phase("card.end", sm_clock=repr(sm_clock()))
+    phase("card.end", sm_clock=repr(sm_clock()), script_s=f"{time.perf_counter() - script_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
