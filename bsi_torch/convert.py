@@ -11,8 +11,9 @@ qkv projections stay in the grouped layout both packages use. A DiT tree in
 the JAX package's scan layout (``blocks/block/...`` with a leading depth
 axis, what its ``scan_blocks=True`` builds) is split into the loop layout's
 ``block_{i}`` first, as ``unstack_block_params`` does. :func:`params_to_jax`
-is the inverse into the loop layout (for the port's gradients, say), and
-:func:`train_state_from_jax` carries a whole JAX train state across.
+is the inverse into the loop layout (for the port's gradients, say),
+:func:`train_state_from_jax` carries a whole JAX train state across, and
+:func:`inception_params_from_jax` the FID network's weights.
 """
 
 from __future__ import annotations
@@ -80,6 +81,15 @@ def params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
     walk(tree, "")
     return state
+
+
+def inception_params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The state dict of :class:`bsi_torch.metrics.inception.InceptionV3FID`
+    from the JAX package's flat Inception parameter dict (HWIO convolutions
+    -> OIHW; the BatchNorm entries keep their names), in the arrays' dtype."""
+    return {key: _tensor(np.asarray(value).transpose(3, 2, 0, 1) if key.endswith("conv.weight")
+                         else np.asarray(value))
+            for key, value in params.items()}
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:

@@ -65,6 +65,31 @@ def save_png(path: Path, array: np.ndarray) -> None:
     path.write_bytes(png_bytes(array))
 
 
+def read_png(path: Path) -> np.ndarray:
+    """The pixels ``[H, W, C]`` of a PNG as ``png_bytes`` writes it (8-bit
+    grey, RGB or RGBA, every row unfiltered); raises ``ValueError`` on a bad
+    signature or chunk CRC, or on any other kind of PNG."""
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        if struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])[0] != zlib.crc32(kind + body):
+            raise ValueError(f"{path}: bad CRC in its {kind!r} chunk")
+        chunks[kind] = chunks.get(kind, b"") + body
+        pos += 12 + length
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    channels = {0: 1, 2: 3, 6: 4}.get(color)
+    if depth != 8 or channels is None or b"IEND" not in chunks:
+        raise ValueError(f"{path}: not an 8-bit grey, RGB or RGBA PNG with an end (depth {depth}, colour {color})")
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    if rows.size != h * (1 + w * channels) or rows.reshape(h, -1)[:, 0].any():
+        raise ValueError(f"{path}: its pixel rows are not {h} unfiltered rows of {w}x{channels}")
+    return rows.reshape(h, -1)[:, 1:].reshape(h, w, channels)
+
+
 def _finite(x: torch.Tensor, what: str) -> None:
     if not bool(torch.isfinite(x).all()):
         raise FloatingPointError(f"non-finite {what}")

@@ -23,6 +23,7 @@ such request it raises rather than train on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from pathlib import Path
 from typing import Any, Optional
 
@@ -30,12 +31,12 @@ import torch
 
 from bsi_torch.config import instantiate
 from bsi_torch.core.common import resolve_device
+from bsi_torch.metrics import build_validation_fid
 from bsi_torch.train import EMAConfig, make_optimizer, warmup_cosine_schedule, warmup_schedule
 from bsi_torch.train.loop import Trainer
 from bsi_torch.utils.logging import MetricLogger
 
 PARALLEL_ITEM = "parallel layouts, ROADMAP.md queue 1 item 2"
-FID_ITEM = "the eval suite, ROADMAP.md queue 1 item 1"
 
 
 def build_model(model_cfg: dict, data_shape: tuple[int, ...], dtype=None, device=None):
@@ -107,21 +108,6 @@ def _check_single_device(trainer_cfg: dict) -> None:
             raise NotImplementedError(f"trainer.{key} is not ported yet; it waits for {PARALLEL_ITEM}")
 
 
-def _check_no_fid(data, stats_root) -> None:
-    """The JAX package computes validation FID where it finds precomputed
-    statistics (``<stats_root>/data/fid-stats/<dataset>/<split>.npz``) and
-    has none otherwise. The port has no FID yet: it refuses where JAX would
-    compute one, and is silent where JAX would be."""
-    shape = data.data_shape()
-    if len(shape) != 3 or shape[-1] != 3:
-        return
-    root = Path(stats_root) / "data" / "fid-stats" / data.short_name()
-    found = [root / f"{stage}.npz" for stage in ("val", "train", "test") if (root / f"{stage}.npz").is_file()]
-    if found:
-        raise NotImplementedError(f"validation FID ({found[0]}) is not ported yet; it waits for {FID_ITEM}; "
-                                  f"set trainer.fid=no to train without it")
-
-
 def build_task(
     config: dict,
     data,
@@ -160,8 +146,12 @@ def build_task(
         from .plots import PlotsCallback
 
         callbacks = (PlotsCallback(),)
+    # validation FID where the statistics and the Inception weights exist,
+    # none otherwise (a warning per missing split, as in the JAX package)
+    fid_metrics = None
     if trainer_cfg.get("fid", True):
-        _check_no_fid(data, trainer_cfg.get("fid_stats_root", "."))
+        fid_metrics = build_validation_fid(data, stats_root=trainer_cfg.get("fid_stats_root", "."),
+                                           warn=logging.getLogger(__name__).warning, device=device)
 
     profiler = None
     if trainer_cfg.get("profile_steps"):
@@ -203,4 +193,5 @@ def build_task(
         accumulate_grad_batches=int(trainer_cfg.get("accumulate_grad_batches", 1) or 1),
         lr_schedule=lr_schedule,
         stall_timeout_s=float(stall) if stall is not None else None,
+        fid_metrics=fid_metrics,
     )

@@ -1,4 +1,4 @@
-from .checkpoint import AsyncCheckpointWriter, load_checkpoint, save_checkpoint
+from .checkpoint import AsyncCheckpointWriter, load_checkpoint, load_checkpoint_config, save_checkpoint
 from .ema import EMAConfig, ema_decay, ema_update, maybe_switch_ema
 from .optim import AdamState, Optimizer, global_norm, make_optimizer, warmup_cosine_schedule, warmup_schedule
 from .state import TrainState
@@ -14,6 +14,7 @@ __all__ = [
     "ema_update",
     "global_norm",
     "load_checkpoint",
+    "load_checkpoint_config",
     "make_eval_step",
     "make_optimizer",
     "make_sample_fn",

@@ -150,3 +150,13 @@ def load_checkpoint(path: str | Path, state: TrainState) -> tuple[TrainState, di
     meta_file = path / META_FILE
     meta = json.loads(meta_file.read_text()) if meta_file.exists() else {}
     return state, meta
+
+
+def load_checkpoint_config(path: str | Path) -> dict:
+    """The resolved config a checkpoint embeds in its ``meta.json`` (how the
+    eval scripts rebuild the training setup)."""
+    meta = json.loads((Path(path).absolute() / META_FILE).read_text())
+    config = meta.get("config")
+    if config is None:
+        raise ValueError(f"Checkpoint at {path} does not embed a config")
+    return config

@@ -13,6 +13,9 @@ sharding (the parallel layouts are not ported): an explicit loop with
   at every call, so two validations of one state agree,
 - ``ckpt_last`` and ``ckpt_best`` (with ``best_bpd``) written in the
   background, and resume from a checkpoint with the data cursor,
+- validation FID where ``fid_metrics`` holds a metric for a split: one
+  sample per real row of each eval batch, drawn with the EMA model from the
+  eval generator after that batch's eval step,
 - callbacks (the plots) at validation time, and an optional stall watchdog.
 
 Batches leave the data module as numpy arrays and reach the device from
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from bsi_torch.core.common import resolve_device
+from bsi_torch.metrics.fid import fid_from_stats, images_to_uint8, reduce_stats_across_processes
 from bsi_torch.utils.logging import MetricLogger, count_params
 
 from .checkpoint import AsyncCheckpointWriter, load_checkpoint, save_checkpoint
@@ -71,6 +75,7 @@ class Trainer:
         lr_schedule=None,
         async_checkpointing: bool = True,
         stall_timeout_s: Optional[float] = None,
+        fid_metrics: Optional[dict] = None,
     ):
         self.device = resolve_device(device)
         self.algorithm = algorithm
@@ -89,6 +94,8 @@ class Trainer:
         self.config = config or {}
         self.seed = seed
         self.callbacks = callbacks
+        # split name -> FIDScore (bsi_torch.metrics.build_validation_fid)
+        self.fid_metrics = fid_metrics or {}
         self.preemption = preemption
         self.profiler = profiler
         # The learning rate of each step, for the train/lr log.
@@ -257,6 +264,9 @@ class Trainer:
         metrics and successive validations measure only the model's change.
         Each split's sums are exact over its real examples (padded rows are
         masked out). The train subset logs as ``train/*`` in either stage.
+        A split with a FID metric logs ``{prefix}/fid-{dim}`` over one sample
+        per real example, drawn after each batch's eval step from the same
+        generator, so the FID of one state is repeatable too.
         """
         assert self.state is not None, "validate() needs a state: call init_state(), fit() or restore() first"
         self._beat()
@@ -265,6 +275,7 @@ class Trainer:
         generator = torch.Generator(device=self.device).manual_seed((EVAL_SEED ^ int(self.seed)) % 2**63)
         metrics: dict[str, float] = {}
         for name, split in splits.items():
+            fid = self.fid_metrics.get(name)
             sums: dict[str, float] = {}
             for i, (batch, mask) in enumerate(self.data.eval_batches(split)):
                 if self.limit_eval_batches is not None and i >= self.limit_eval_batches:
@@ -274,6 +285,10 @@ class Trainer:
                 for k, v in out.items():
                     sums[k] = sums.get(k, 0.0) + float(v)
                 self._beat()
+                if fid is not None:
+                    with self._warm("fid"):
+                        self._update_fid(fid, generator, len(batch), np.asarray(mask, bool))
+                    self._beat()
             prefix = stage if name != "train" else "train"
             if sums.get("count", 0.0) > 0:
                 metrics[f"{prefix}/elbo"] = sums["elbo_sum"] / sums["count"]
@@ -281,6 +296,11 @@ class Trainer:
                 for k, v in sums.items():
                     if k.startswith("part_sum/"):
                         metrics[f"{prefix}/{k[len('part_sum/'):]}"] = v / sums["count"]
+            if fid is not None:
+                fake = reduce_stats_across_processes(fid.fake_stats)
+                if fake.n >= 2:
+                    metrics[f"{prefix}/fid-{fake.sum.shape[0]}"] = fid_from_stats(fake, fid.real_stats)
+                fid.reset()
         step = int(self.state.step)
         self.logger.log(step, metrics)
         if "val/bpd" in metrics:
@@ -297,6 +317,13 @@ class Trainer:
 
     def test(self) -> dict:
         return self.validate(stage="test")
+
+    def _update_fid(self, fid, generator: torch.Generator, n: int, mask: np.ndarray) -> None:
+        """Draw ``n`` samples (the whole eval batch, padded rows included, as
+        the JAX trainer draws them) with the EMA model and feed the rows the
+        mask keeps into the FID accumulator: FID sees the split's size."""
+        samples01 = self.data.discretization().to_unit_interval(self.sample_fn(self.state, generator, n))
+        fid.update(images_to_uint8(samples01.cpu().numpy()[mask]))
 
     # ------------------------------------------------------------ checkpoints
 

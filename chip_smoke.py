@@ -31,7 +31,17 @@ width, f32, on synthetic 32x32 images: a fit of 6 steps with its
 validations, plots, checkpoints and test pass (``[trainer.fit]``), a run
 resumed from its checkpoint held bit for bit to a straight one
 (``[trainer.resume]``), gradient accumulation (``[trainer.accum]``) and a
-run on the CPU, asked for (``[trainer.cpu]``); then the ImageNet recipes
+run on the CPU, asked for (``[trainer.cpu]``); then the eval suite on the
+fit's ``ckpt_best``: FID's InceptionV3 (random weights of pt_inception's
+shapes) on the card in f32 against f64 on the CPU (``[inception.check]``),
+its time for 512 images against its bound and one 2048-d Frechet distance's
+host time (``[inception.time]``), ``compute_fid_stats`` (``[fid.stats]``),
+and the scripts of ``python -m bsi_torch.scripts`` in this process --
+``eval_fid`` (``[eval.fid]``), ``eval_elbo`` (``[eval.elbo]``),
+``generate_samples``, ``generate_sample_history``, ``sample_h_alpha`` and
+``render_samples`` (``[eval.samples]``), and ``eval_overrides``, the
+trainer's validation FID (``[trainer.fid]``) -- each with the exact
+launches of K1 and K7f; then the ImageNet recipes
 through the same entry point at full width, f32, on shards in the official
 format written from a seed: DiT-L/2 (``experiment=imagenet32``) at the
 recipe's batch 512 as 8 micro-batches of 64, with BSI (a sanity
@@ -56,6 +66,7 @@ import concurrent.futures
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -144,6 +155,13 @@ TRAINER_STEPS = 6
 TRAINER_VAL_EVERY = 3
 TRAINER_BATCH = 128
 TRAINER_EVAL_BATCH = 512
+# The eval suite's f32 UNet batches beside TRAINER_BATCH (its eval batch):
+# generate_sample_history's samples, and eval_elbo's flat forward of its 2
+# reconstruction (or measurement) samples of one eval batch.
+EVAL_BATCH = 128
+EVAL_HISTORY_N = 16
+EVAL_ELBO_SAMPLES = 2
+EVAL_SUITE_BATCHES = (EVAL_HISTORY_N, EVAL_ELBO_SAMPLES * EVAL_BATCH)
 
 # The ImageNet recipes through the same entry point: experiment=imagenet32
 # (DiT-L/2, patch 2 on 32x32) for each task of its sweep, and
@@ -579,6 +597,8 @@ def main() -> int:
         # the trainer's f32 shapes: a train step's and a validation's
         ((TRAINER_BATCH, 1, 1024, 128), torch.float32, 1e-5),
         ((TRAINER_EVAL_BATCH, 1, 1024, 128), torch.float32, 1e-5),
+        # the eval suite's
+        *(((batch, 1, 1024, 128), torch.float32, 1e-5) for batch in EVAL_SUITE_BATCHES),
         ((3, 2, 200, 64), torch.bfloat16, 2e-2),
         ((3, 2, 200, 64), torch.float32, 1e-5),
         ((2, 2, 384, 256), torch.bfloat16, 2e-2),
@@ -674,8 +694,9 @@ def main() -> int:
                     for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
                 if rows == 1024:
                     k7_inputs[c] = x, gamma, beta
-    # the trainer's f32 shapes: a train step's forward and a validation's
-    for batch in (TRAINER_BATCH, TRAINER_EVAL_BATCH):
+    # the trainer's f32 shapes (a train step's forward and a validation's)
+    # and the eval suite's
+    for batch in (TRAINER_BATCH, TRAINER_EVAL_BATCH, *EVAL_SUITE_BATCHES):
         for c in (128, 256):
             x = randn(batch, 1024, c)
             gamma, beta = 1.0 + 0.1 * randn(c), 0.1 * randn(c)
@@ -684,7 +705,7 @@ def main() -> int:
             torch.cuda.synchronize()
             err = check_close(f"K7 {(batch, 1024, c)} f32", got, want, 1e-5)
             phase("k7.check", shape=(batch, 1024, c), dtype=str(f32), max_abs_err=f"{err:.3e}", atol=1e-5,
-                  rtol=0.0, path="trainer")
+                  rtol=0.0, path="trainer" if batch in (TRAINER_BATCH, TRAINER_EVAL_BATCH) else "eval suite")
             del x, got, want
     k7 = dict(name="groupnorm_silu_fwd", route="cuda", source="bsi_torch/ops/csrc/groupnorm_silu.cu",
               device_code="bsi_torch/ops/csrc/tma_sm90.cuh", replaces="bsi_tpu/ops/groupnorm_silu.py:133",
@@ -1973,6 +1994,8 @@ def main() -> int:
           ckpt_best_write_s=[f"{x:.3f}" for x in metric(records, "time/ckpt_best_write_s")],
           peak_mem_gib=f"{fit_peak / 2**30:.3f}", launches={"k1": k1, "k7f": k7f, "k7b": k7b}, pngs=len(pngs))
     path_launches["trainer_fit"] = fit_counts
+    # the eval suite's phases read the fit's best checkpoint
+    fit_ckpt = run_dir / "ckpt_best"
 
     # resume: 3 steps, then from their ckpt_last to step 6, against 6 straight
     # steps; bit for bit. cuDNN's deterministic algorithms (its convolutions'
@@ -2062,6 +2085,259 @@ def main() -> int:
           steps=cpu_state["step"], val_bpd=[f"{x:.6g}" for x in cpu_bpd], kernel_launches=0,
           wall_s=f"{cpu_s:.3f}", note="fit, resume and accum above ran on the card by default")
     import shutil
+
+    # ------------------------------------------------ the eval suite, end to end
+    # bsi_torch.metrics (FID's InceptionV3 and statistics) and the eight
+    # scripts of python -m bsi_torch.scripts, called in this process (the
+    # kernels stay built), on the fit's ckpt_best: the CIFAR-10 recipe's UNet
+    # at full width, f32, TF32 off. Every UNet forward runs K1 once and K7f
+    # 66 times, and no other kernel; the Inception none. Inception weights:
+    # random, of pt_inception's shapes, fan-in-scaled convolutions and
+    # non-trivial BatchNorm statistics, drawn from SEED into a .pth that
+    # BSI_TPU_INCEPTION_WEIGHTS names. Cuts: eval batch 128 (the recipe's
+    # 512) for the ELBO, samples, h_alpha and the trainer's FID; the
+    # trainer's FID samples at k=8 (the recipe's 50).
+    from bsi_torch import metrics as fidm
+    from bsi_torch.metrics import inception
+    from bsi_torch.core import get_schedule
+    from bsi_torch.scripts import (compute_fid_stats, eval_elbo, eval_fid, eval_overrides, generate_sample_history,
+                                   generate_samples, render_samples, sample_h_alpha)
+    from bsi_torch.scripts._common import load_trainer
+    from bsi_torch.tasks.plots import read_png
+
+    eval_root = Path(tempfile.mkdtemp(prefix="bsi_torch_eval_"))
+    suite_start = time.perf_counter()
+    incep_rng = np.random.default_rng(SEED)
+    incep_params = {}
+    for name, cin, cout, (kh, kw) in inception._conv_specs():
+        incep_params[f"{name}.conv.weight"] = torch.from_numpy(
+            incep_rng.normal(0, (cin * kh * kw) ** -0.5, size=(cout, cin, kh, kw)).astype(np.float32))
+        for key, draw in (("weight", lambda: incep_rng.uniform(0.5, 1.5, cout)),
+                          ("bias", lambda: incep_rng.normal(0, 0.2, cout)),
+                          ("running_mean", lambda: incep_rng.normal(0, 0.1, cout)),
+                          ("running_var", lambda: incep_rng.uniform(0.5, 1.5, cout))):
+            incep_params[f"{name}.bn.{key}"] = torch.from_numpy(draw().astype(np.float32))
+    weights = eval_root / "pt_inception-random.pth"
+    torch.save(incep_params, weights)
+    os.environ["BSI_TPU_INCEPTION_WEIGHTS"] = str(weights)
+    if fidm.default_weights_path() != weights:
+        raise AssertionError(f"default_weights_path() is {fidm.default_weights_path()}, not {weights}")
+
+    # [inception.check]: the embed on the card in f32 against the same
+    # network in f64 on the CPU, on 8 uint8 images of 32x32, within 1e-4 of
+    # the features' max abs; called with TF32 on, which it turns off for the
+    # call and restores after
+    t0 = time.perf_counter()
+    imgs8 = torch.from_numpy(incep_rng.integers(0, 256, size=(8, 32, 32, 3), dtype=np.uint8))
+    embed = fidm.make_embed_fn(fidm.load_params(weights))
+    reset_counts()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    feats8 = embed(imgs8)
+    restored = torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    expect_counts("inception.check")
+    ref8 = fidm.inception_features(fidm.load_params(weights), imgs8.double() / 255.0)
+    scale = ref8.abs().max().item()
+    if feats8.shape != (8, 2048) or feats8.dtype != torch.float32 or feats8.device.type != "cuda" or not restored:
+        raise AssertionError(f"inception.check: {tuple(feats8.shape)} {feats8.dtype} on {feats8.device}, "
+                             f"TF32 flags restored {restored}")
+    err = check_close("inception.check: f32 card vs f64 CPU", feats8.cpu().double(), ref8, 1e-4 * scale)
+    phase("inception.check", weights="random, pt_inception shapes, seed 0", images="8 uint8 32x32",
+          max_abs_err=f"{err:.3e}", atol=f"{1e-4 * scale:.3e}", features_max_abs=f"{scale:.3e}",
+          tf32_in_embed=False, tf32_flags_restored=restored, s=f"{time.perf_counter() - t0:.2f}")
+
+    # [inception.time]: 512 images as FIDScore embeds them (blocks of 256),
+    # one warm-up; the bound counts the convolutions' multiply-adds at
+    # 299x299 from their output shapes (hooks on one forward), 2 operations
+    # each, over the f32 peak
+    macs = []
+    counter = inception.build_network(fidm.load_params(weights), device=dev)
+    hooks = [m.register_forward_hook(lambda m, i, o: macs.append(o[0].numel() * m.in_channels
+                                                                 * m.kernel_size[0] * m.kernel_size[1]))
+             for m in counter.modules() if isinstance(m, torch.nn.Conv2d)]
+    with torch.inference_mode():
+        counter(torch.zeros(1, 32, 32, 3, device=dev))
+    for hook in hooks:
+        hook.remove()
+    del counter
+    n_convs, macs_per_image = len(macs), sum(macs)
+    bound_ms_per_image = 2 * macs_per_image / F32_FLOPS * 1e3
+    imgs512 = torch.from_numpy(incep_rng.integers(0, 256, size=(512, 32, 32, 3), dtype=np.uint8))
+    reset_counts()
+    embed(imgs512[:256])
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    blocks = [embed(imgs512[i:i + 256]) for i in range(0, 512, 256)]
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    incep_peak = torch.cuda.max_memory_allocated()
+    expect_counts("inception.time")
+    halves = [fidm.FeatureStats(2048) for _ in blocks]
+    for stats, block in zip(halves, blocks):
+        stats.update(block)
+    t0 = time.perf_counter()
+    fd = fidm.fid_from_stats(*halves)
+    fd_s = time.perf_counter() - t0
+    if not math.isfinite(fd):
+        raise AssertionError(f"inception.time: frechet distance {fd}")
+    ms_per_image = embed_s / 512 * 1e3
+    phase("inception.time", images=512, block=256, dtype="float32", tf32=False, wall_s=f"{embed_s:.4f}",
+          ms_per_image=f"{ms_per_image:.4f}", images_per_s=f"{512 / embed_s:.1f}",
+          peak_mem_gib=f"{incep_peak / 2**30:.3f}", convs=n_convs, gmacs_per_image=f"{macs_per_image / 1e9:.4f}",
+          gflop_per_image=f"{2 * macs_per_image / 1e9:.3f}", bound_ms_per_image=f"{bound_ms_per_image:.4f}",
+          bound_by="operations", tflops=f"{2 * macs_per_image * 512 / embed_s / 1e12:.2f}",
+          share_of_bound=f"{bound_ms_per_image / ms_per_image:.3f}",
+          frechet_2048_host_s=f"{fd_s:.3f}", frechet_value=f"{fd:.6g}", host_cpus=os.cpu_count())
+    del blocks, imgs512, embed
+
+    # [fid.stats]: compute_fid_stats for synthetic 32x32 train (its val
+    # split included), val and test into a temp root
+    stats_root = eval_root / "stats"
+    t0 = time.perf_counter()
+    reset_counts()
+    want_n = {"train": 512 + 128, "val": 128, "test": 128}
+    for split in want_n:
+        compute_fid_stats.main(["synthetic", split, "--out-root", str(stats_root), "data.data_shape=[32,32,3]"])
+    expect_counts("fid.stats")
+    for split, n in want_n.items():
+        with np.load(fidm.fid_stats_path(stats_root, "synthetic", split)) as z:
+            if sorted(z.files) != ["cov_sum", "n", "sum"] or int(z["n"]) != n or z["cov_sum"].shape != (2048, 2048):
+                raise AssertionError(f"fid.stats {split}: keys {z.files}, n {z['n']}")
+    phase("fid.stats", dataset="synthetic 32x32x3 (seed 0)", n=want_n, s=f"{time.perf_counter() - t0:.2f}")
+
+    def script(label: str, fn, argv: list[str], forwards: int) -> tuple[float, dict]:
+        """One script's main in this process; its K1 and K7f launches must be
+        ``forwards`` and K7f's 66 times that, every other kernel none."""
+        reset_counts()
+        t0 = time.perf_counter()
+        if fn(argv) != 0:
+            raise AssertionError(f"{label}: exit code not 0")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = expect_counts(label, flash_attention=forwards, groupnorm_silu_fwd=K7_PER_FORWARD * forwards)
+        path_launches[label.replace(".", "_").replace("-", "_")] = counts
+        return secs, counts
+
+    # [eval.fid]: the sweep k = 4, 8 of 128 samples in one batch of 128:
+    # (4 + 1) + (8 + 1) sampling forwards
+    fid_json = eval_root / "fid.json"
+    secs, _ = script("eval.fid", eval_fid.main, ["-c", str(fit_ckpt), "-o", str(fid_json), "-k", "4", "8", "-n", "128",
+                                                  "--batch-size", "128", "--fid-stats-root", str(stats_root)], 14)
+    fids = json.loads(fid_json.read_text())["fid"]
+    if set(fids) != {"4", "8"} or not all(math.isfinite(v) for by in fids.values() for v in by.values()) or \
+            any(set(by) != {"train", "test"} for by in fids.values()):
+        raise AssertionError(f"eval.fid: {fids}")
+    phase("eval.fid", k=[4, 8], n=128, batch=128, schedule="linear", fid={k: {s: f"{v:.6g}" for s, v in by.items()}
+          for k, by in fids.items()}, launches={"k1": 14, "k7f": 14 * K7_PER_FORWARD}, s=f"{secs:.2f}")
+
+    # [eval.sampler]: eval_fid's sampling loop alone, without its set-up,
+    # Inception or distances: the same checkpoint's sampler, EVAL_BATCH
+    # samples at k=8 (9 forwards), twice after [eval.fid]'s warm calls, each
+    # timed between synchronisations; a paper FID's sampling cost follows
+    # from its ms an image-forward
+    trainer, _, _ = load_trainer(str(fit_ckpt))
+    sample_t = get_schedule("linear", 8, trainer.algorithm, device=trainer.device)
+    generator = torch.Generator(device=trainer.device).manual_seed(SEED)
+    reset_counts()
+    sampler_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drawn = trainer.sample_fn(trainer.state, generator, EVAL_BATCH, t=sample_t)
+        torch.cuda.synchronize()
+        sampler_s.append(time.perf_counter() - t0)
+        if drawn.shape[0] != EVAL_BATCH or not bool(torch.isfinite(drawn).all()):
+            raise AssertionError(f"eval.sampler: {tuple(drawn.shape)}, finite {bool(torch.isfinite(drawn).all())}")
+    path_launches["eval_sampler"] = expect_counts("eval.sampler", flash_attention=2 * 9,
+                                                  groupnorm_silu_fwd=2 * 9 * K7_PER_FORWARD)
+    phase("eval.sampler", n=EVAL_BATCH, k=8, forwards=9, dtype="float32", tf32=False,
+          s=[f"{x:.4f}" for x in sampler_s], ms_per_image_forward=[f"{x / (9 * EVAL_BATCH) * 1e3:.4f}" for x in sampler_s],
+          launches={"k1": 2 * 9, "k7f": 2 * 9 * K7_PER_FORWARD})
+    del trainer, drawn
+
+    # [eval.elbo]: k = inf and 10 over the test split's 128 images, one
+    # batch (the recipe's eval batch 512 cut to 128), 2 reconstruction and 2
+    # measurement samples: each ELBO one flat forward of 256 for its
+    # reconstruction and one for its measurement
+    elbo_json = eval_root / "elbo.json"
+    secs, _ = script("eval.elbo", eval_elbo.main, ["-c", str(fit_ckpt), "-o", str(elbo_json), "-k", "inf", "10",
+                                                    "--split", "test", "-r", str(EVAL_ELBO_SAMPLES), "-m",
+                                                    str(EVAL_ELBO_SAMPLES), f"data.eval_batch_size={EVAL_BATCH}"], 4)
+    elbo = json.loads(elbo_json.read_text())
+    stderr = {k: math.sqrt(v) for k, v in elbo["bpd_mean_vars"].items() if v > 0}
+    if set(elbo["bpd_means"]) != {"inf", "10"} or set(stderr) != {"inf", "10"} or \
+            not all(math.isfinite(x) for x in list(elbo["bpd_means"].values()) + list(stderr.values())):
+        raise AssertionError(f"eval.elbo: {elbo}")
+    phase("eval.elbo", k=["inf", 10], split="test", n=128, r=2, m=2,
+          bpd={k: f"{v:.6g}" for k, v in elbo["bpd_means"].items()},
+          stderr={k: f"{v:.4g}" for k, v in stderr.items()}, launches={"k1": 4, "k7f": 4 * K7_PER_FORWARD},
+          s=f"{secs:.2f}")
+
+    # [eval.samples]: generate_samples (128 at k=8 in one batch: 9 forwards,
+    # with the embeddings and the FID against train and test),
+    # generate_sample_history (16 at k=8: 9), sample_h_alpha (8 lambdas over
+    # the test split's one batch: 8) and render_samples
+    samples_npz, hist_npz, h_alpha_npz, grid_png = (eval_root / n for n in ("samples.npz", "hist.npz",
+                                                                          "h_alpha.npz", "grid.png"))
+    s_samples, _ = script("eval.samples", generate_samples.main,
+                          ["-c", str(fit_ckpt), "-o", str(samples_npz), "-n", "128", "-k", "8", "--fid-stats-root",
+                           str(stats_root), "data.eval_batch_size=128"], 9)
+    s_hist, _ = script("eval.history", generate_sample_history.main,
+                       ["-c", str(fit_ckpt), "-o", str(hist_npz), "-n", str(EVAL_HISTORY_N), "-k", "8"], 9)
+    s_h_alpha, _ = script("eval.h_alpha", sample_h_alpha.main,
+                          ["-c", str(fit_ckpt), "-o", str(h_alpha_npz), "-n", "8", "data.eval_batch_size=128"], 8)
+    reset_counts()
+    render_samples.main([str(samples_npz), str(grid_png)])
+    expect_counts("render_samples")
+    with np.load(samples_npz) as z:
+        got = {k: (tuple(z[k].shape), str(z[k].dtype)) for k in z.files}
+        sample_fids = {k: float(z[k]) for k in ("fid_train", "fid_test")}
+        finite = bool(np.isfinite(z["samples"]).all())
+    want = {"samples": ((128, 32, 32, 3), "float32"), "k": ((), "int64"), "schedule": ((), "<U6"),
+            "ema": ((), "bool"), "embedding_sum": ((2048,), "float64"),
+            "embedding_cov_sum": ((2048, 2048), "float64"), "embedding_n": ((), "int64"),
+            "fid_train": ((), "float64"), "fid_test": ((), "float64")}
+    if got != want or not finite or not all(math.isfinite(v) for v in sample_fids.values()):
+        raise AssertionError(f"generate_samples: {got}, finite {finite}, {sample_fids}")
+    with np.load(hist_npz) as z:
+        got = {k: (tuple(z[k].shape), str(z[k].dtype)) for k in z.files}
+    want = {"mus": ((9, 16, 32, 32, 3), "uint8"), "x_hats": ((9, 16, 32, 32, 3), "uint8"),
+            "ys": ((8, 16, 32, 32, 3), "uint8")}
+    if got != want:
+        raise AssertionError(f"generate_sample_history: {got}")
+    with np.load(h_alpha_npz) as z:
+        errs, lambdas = z["squared_error_samples_bpd"], z["lambda"]
+        if sorted(z.files) != ["ckpt", "lambda", "squared_error_samples_bpd"] or errs.shape != (8, 128) or \
+                lambdas.shape != (8,) or not np.isfinite(errs).all():
+            raise AssertionError(f"sample_h_alpha: {z.files}, {errs.shape}")
+    png = read_png(grid_png).shape
+    if png != (16 * 32, 8 * 32, 3):
+        raise AssertionError(f"render_samples: PNG of {png}")
+    phase("eval.samples", generate_samples=f"128 at k=8, {s_samples:.2f} s", fid={k: f"{v:.6g}" for k, v in
+          sample_fids.items()}, generate_sample_history=f"16 at k=8, {s_hist:.2f} s",
+          sample_h_alpha=f"8 lambdas x 128, {s_h_alpha:.2f} s",
+          h_alpha_bits=[f"{x:.4g}" for x in errs.mean(axis=1)], render_samples=f"PNG {png}",
+          launches={"k1": [9, 9, 8], "k7f": [9 * K7_PER_FORWARD, 9 * K7_PER_FORWARD, 8 * K7_PER_FORWARD]})
+
+    # [trainer.fid]: the test pass with validation FID through build_task
+    # (eval_overrides): per split (test, and the train subset) one eval batch
+    # of 128, its eval step (2 forwards) and 128 samples at k=8 (9)
+    metrics_json = eval_root / "metrics.json"
+    secs, _ = script("trainer.fid", eval_overrides.main,
+                     ["-c", str(fit_ckpt), "-o", str(metrics_json), f"trainer.fid_stats_root={stats_root}",
+                      "trainer.plots=no", "task.algorithm.k=8", "data.eval_batch_size=128"], 2 * (2 + 9))
+    test_metrics = json.loads(metrics_json.read_text())
+    if not all(math.isfinite(test_metrics.get(k, math.nan)) for k in ("test/fid-2048", "train/fid-2048", "test/bpd")):
+        raise AssertionError(f"trainer.fid: {test_metrics}")
+    phase("trainer.fid", entry="bsi_torch.scripts.eval_overrides", fid={k: f"{v:.6g}" for k, v in
+          test_metrics.items() if "/fid-" in k}, test_bpd=f"{test_metrics['test/bpd']:.6g}",
+          cut="k=8 (the recipe's 50); eval batch 128 (512)", launches={"k1": 22, "k7f": 22 * K7_PER_FORWARD},
+          s=f"{secs:.2f}")
+    shutil.rmtree(eval_root, ignore_errors=True)
+    del os.environ["BSI_TPU_INCEPTION_WEIGHTS"]
+    phase("eval.suite", s=f"{time.perf_counter() - suite_start:.1f}")
 
     shutil.rmtree(trainer_root, ignore_errors=True)
     gc.collect()

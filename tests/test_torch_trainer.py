@@ -234,19 +234,24 @@ def test_accumulation_through_the_trainer(tmp_path):
         tiny_trainer(tmp_path, "trainer.accumulate_grad_batches=3")
 
 
-def test_build_task_refuses_what_is_not_ported(tmp_path):
+def test_build_task_refuses_what_is_not_ported(tmp_path, monkeypatch):
     for extra in (["trainer.model_parallelism=2"], ["trainer.pipeline_parallelism=2"],
                   ["trainer.dcn_data_parallelism=2"], ["trainer.fsdp=yes"], ["trainer.sequence_parallel=yes"]):
         with pytest.raises(NotImplementedError, match="parallel layouts"):
             tiny_trainer(tmp_path, *extra)
-    stats = tmp_path / "data" / "fid-stats" / "synthetic"
-    stats.mkdir(parents=True)
-    (stats / "val.npz").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="eval suite"):
-        tiny_trainer(tmp_path, f"trainer.fid_stats_root={tmp_path}")
-    tiny_trainer(tmp_path, f"trainer.fid_stats_root={tmp_path}", "trainer.fid=no")
+    # validation FID is ported (tests/test_torch_fid_trainer.py): statistics
+    # without Inception weights give no FID, as in the JAX package
+    from bsi_torch.metrics import FeatureStats, fid_stats_path
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("BSI_TPU_INCEPTION_WEIGHTS", raising=False)
+    stats = FeatureStats(2048)
+    stats.update(np.random.default_rng(0).normal(size=(4, 2048)))
+    stats.save_npz(fid_stats_path(tmp_path, "synthetic", "val"))
+    assert tiny_trainer(tmp_path, f"trainer.fid_stats_root={tmp_path}").fid_metrics == {}
+    assert tiny_trainer(tmp_path, f"trainer.fid_stats_root={tmp_path}", "trainer.fid=no").fid_metrics == {}
     # no statistics: no FID, as in the JAX package
-    tiny_trainer(tmp_path, f"trainer.fid_stats_root={tmp_path / 'elsewhere'}")
+    assert tiny_trainer(tmp_path, f"trainer.fid_stats_root={tmp_path / 'elsewhere'}").fid_metrics == {}
 
 
 def test_bf16_precision_trains_a_bf16_model_on_f32_parameters(tmp_path):
@@ -284,3 +289,18 @@ def test_plots_png_writer_round_trips_through_pil(shape):
     array = np.random.default_rng(0).integers(0, 256, shape).astype(np.uint8)
     decoded = np.asarray(Image.open(io.BytesIO(png_bytes(array))))
     npt.assert_array_equal(decoded, array[..., 0] if shape[-1] == 1 else array)
+
+
+@pytest.mark.parametrize("shape", [(5, 7, 3), (4, 6, 1), (3, 3, 4), (2, 9)])
+def test_plots_png_reader_inverts_the_writer(shape, tmp_path):
+    from bsi_torch.tasks.plots import png_bytes, read_png, save_png
+
+    array = np.random.default_rng(1).integers(0, 256, shape).astype(np.uint8)
+    save_png(tmp_path / "a.png", array)
+    npt.assert_array_equal(read_png(tmp_path / "a.png"), array.reshape(*shape[:2], -1))
+    # one flipped bit of the pixel data fails its chunk's CRC
+    data = bytearray(png_bytes(array))
+    data[45] ^= 1
+    (tmp_path / "b.png").write_bytes(bytes(data))
+    with pytest.raises(ValueError, match="CRC"):
+        read_png(tmp_path / "b.png")
