@@ -25,8 +25,8 @@ from typing import Optional
 
 import torch
 
-from .common import (ModelFn, broadcast_right, index_draws, mc_var, normal_draws, protect_const, quantile_draws,
-                     resolve_device)
+from .common import (ModelFn, broadcast_right, cut_rows, index_draws, mc_var, normal_draws, protect_const,
+                     quantile_draws, resolve_device)
 from .discretization import Discretization
 from .distributions import discretized_normal_log_prob, normal_log_prob
 
@@ -198,13 +198,15 @@ class BFN:
 
     def sample(self, model_fn: ModelFn, generator: torch.Generator, n_samples: int, *,
                device: torch.device | str | None = None, t: Optional[torch.Tensor] = None,
-               dtype=torch.float32) -> torch.Tensor:
+               dtype=torch.float32, rows: Optional[slice] = None) -> torch.Tensor:
         """The additive-accuracy sampler along ``t`` (the default schedule
-        when None), on ``device`` (the card when None), the generator's device."""
+        when None), on ``device`` (the card when None), the generator's
+        device; ``rows`` as :meth:`BSI.sample <bsi_torch.core.bsi.BSI.sample>`."""
         with torch.inference_mode():
-            t, step_eps = self._noise(generator, n_samples, device, t, dtype)
-            mu, _ = self._sample_loop(model_fn, n_samples, step_eps, t)
-            return self._predict_x(model_fn, mu, protect_const(t.new_ones((n_samples,))))
+            t, step_eps = self._noise(generator, n_samples, device, t, dtype, rows)
+            n = len(range(n_samples)[rows]) if rows is not None else n_samples
+            mu, _ = self._sample_loop(model_fn, n, step_eps, t)
+            return self._predict_x(model_fn, mu, protect_const(t.new_ones((n,))))
 
     def sample_history(self, model_fn: ModelFn, generator: torch.Generator, n_samples: int, *,
                        device: torch.device | str | None = None, t: Optional[torch.Tensor] = None,
@@ -217,14 +219,15 @@ class BFN:
             final_x_hat = self._predict_x(model_fn, mu, protect_const(t.new_ones((n_samples,))))
             return torch.stack(mus), torch.stack(x_hats + [final_x_hat]), torch.stack(ys)
 
-    def _noise(self, generator, n_samples, device, t, dtype):
-        """Schedule and the step noise of one sampling run."""
+    def _noise(self, generator, n_samples, device, t, dtype, rows: Optional[slice] = None):
+        """Schedule and the step noise of one sampling run (its ``rows`` alone
+        when given)."""
         device = resolve_device(device)
         if generator.device.type != device.type:
             raise ValueError(f"generator lives on {generator.device}, sampling runs on {device}")
         t = self.default_schedule(dtype, device) if t is None else t.to(device=device, dtype=dtype)
         shape = (n_samples,) + self.data_shape
-        return t, lambda i: torch.randn(shape, generator=generator, dtype=dtype, device=device)
+        return t, lambda i: cut_rows(torch.randn(shape, generator=generator, dtype=dtype, device=device), rows)
 
     def _sample_loop(self, model_fn: ModelFn, n_samples: int, step_eps, t: torch.Tensor, *,
                      with_history: bool = False):

@@ -20,8 +20,8 @@ from typing import Callable, Optional
 
 import torch
 
-from .common import (ModelFn, broadcast_right, index_draws, mc_var, normal_draws, protect_const, quantile_draws,
-                     resolve_device, sample_lds_t)
+from .common import (ModelFn, broadcast_right, cut_rows, index_draws, mc_var, normal_draws, protect_const,
+                     quantile_draws, resolve_device, sample_lds_t)
 from .discretization import Discretization
 from .distributions import LogUniform, discretized_normal_log_prob, normal_log_prob
 
@@ -254,6 +254,7 @@ class BSI:
         device: torch.device | str | None = None,
         t: Optional[torch.Tensor] = None,
         dtype=torch.float32,
+        rows: Optional[slice] = None,
     ) -> torch.Tensor:
         """Draw ``n_samples`` samples via the k-step Bayesian update loop.
 
@@ -261,12 +262,14 @@ class BSI:
         ``y = x_hat + eps / sqrt(alpha_i)`` and performs the precision-weighted
         belief update ``mu <- (alpha_i * y + lambda_i * mu) / lambda_{i+1}``.
         Runs on ``device`` (the card when ``None``), which must be the
-        generator's device.
+        generator's device. With ``rows`` (a slice of ``range(n_samples)``)
+        the noise is drawn for all ``n_samples`` and only those rows are
+        sampled: the rows of the whole run, at their cost alone.
         """
         with torch.inference_mode():
-            t, eps0, step_eps = self._noise(generator, n_samples, device, t, dtype)
+            t, eps0, step_eps = self._noise(generator, n_samples, device, t, dtype, rows)
             mu, _ = self._sample_loop(model_fn, eps0, step_eps, t)
-            return self._predict_x(model_fn, mu, protect_const(t.new_ones((n_samples,))))
+            return self._predict_x(model_fn, mu, protect_const(t.new_ones((mu.shape[0],))))
 
     def sample_history(
         self,
@@ -297,8 +300,9 @@ class BSI:
                 torch.stack(ys),
             )
 
-    def _noise(self, generator, n_samples, device, t, dtype):
-        """Schedule and the standard-normal draws of one sampling run."""
+    def _noise(self, generator, n_samples, device, t, dtype, rows: Optional[slice] = None):
+        """Schedule and the standard-normal draws of one sampling run (their
+        ``rows`` alone when given)."""
         device = resolve_device(device)
         if generator.device.type != device.type:
             raise ValueError(
@@ -308,7 +312,7 @@ class BSI:
             t = self.default_schedule(dtype, device)
         t = t.to(device=device, dtype=dtype)
         shape = (n_samples,) + self.data_shape
-        draw = lambda: torch.randn(shape, generator=generator, dtype=dtype, device=device)
+        draw = lambda: cut_rows(torch.randn(shape, generator=generator, dtype=dtype, device=device), rows)
         eps0 = draw()
         return t, eps0, lambda i: draw()
 

@@ -7,7 +7,7 @@ its precision and its train/eval mode into it.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -31,6 +31,11 @@ def broadcast_right(x: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
     if other.ndim < x.ndim:
         raise ValueError(f"cannot broadcast {tuple(x.shape)} against {tuple(other.shape)}")
     return x.reshape(x.shape + (1,) * (other.ndim - x.ndim))
+
+
+def cut_rows(x: torch.Tensor, rows: Optional[slice]) -> torch.Tensor:
+    """``x[rows]`` along the batch, or ``x`` itself when ``rows`` is None."""
+    return x if rows is None else x[rows]
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:

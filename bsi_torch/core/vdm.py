@@ -20,7 +20,8 @@ from typing import Optional
 
 import torch
 
-from .common import ModelFn, broadcast_right, index_draws, mc_var, normal_draws, quantile_draws, resolve_device
+from .common import (ModelFn, broadcast_right, cut_rows, index_draws, mc_var, normal_draws, quantile_draws,
+                     resolve_device)
 from .discretization import Discretization
 from .distributions import normal_log_prob
 
@@ -229,11 +230,12 @@ class VDM:
 
     def sample(self, model_fn: ModelFn, generator: torch.Generator, n_samples: int, *,
                device: torch.device | str | None = None, t: Optional[torch.Tensor] = None,
-               dtype=torch.float32) -> torch.Tensor:
+               dtype=torch.float32, rows: Optional[slice] = None) -> torch.Tensor:
         """Ancestral sampling along ``t`` (the default schedule when None), on
-        ``device`` (the card when None), the generator's device."""
+        ``device`` (the card when None), the generator's device; ``rows`` as
+        :meth:`BSI.sample <bsi_torch.core.bsi.BSI.sample>`."""
         with torch.inference_mode():
-            t, z, step_eps = self._noise(generator, n_samples, device, t, dtype)
+            t, z, step_eps = self._noise(generator, n_samples, device, t, dtype, rows)
             z, _ = self._sample_loop(model_fn, z, step_eps, t)
             return z / self.alpha(t.new_zeros(()))
 
@@ -247,14 +249,15 @@ class VDM:
             z, x_hats = self._sample_loop(model_fn, z, step_eps, t, with_history=True)
             return torch.stack(x_hats + [z / self.alpha(t.new_zeros(()))])
 
-    def _noise(self, generator, n_samples, device, t, dtype):
-        """Schedule, the initial latent and the step noise of one sampling run."""
+    def _noise(self, generator, n_samples, device, t, dtype, rows: Optional[slice] = None):
+        """Schedule, the initial latent and the step noise of one sampling run
+        (their ``rows`` alone when given)."""
         device = resolve_device(device)
         if generator.device.type != device.type:
             raise ValueError(f"generator lives on {generator.device}, sampling runs on {device}")
         t = self.default_schedule(dtype, device) if t is None else t.to(device=device, dtype=dtype)
         shape = (n_samples,) + self.data_shape
-        draw = lambda: torch.randn(shape, generator=generator, dtype=dtype, device=device)
+        draw = lambda: cut_rows(torch.randn(shape, generator=generator, dtype=dtype, device=device), rows)
         z = draw()
         return t, z, lambda i: draw()
 

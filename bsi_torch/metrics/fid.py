@@ -18,7 +18,6 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-PARALLEL_ITEM = "parallel layouts, ROADMAP.md queue 1 item 2"
 
 
 def _host_f64(embeddings) -> np.ndarray:
@@ -65,18 +64,24 @@ class FeatureStats:
         return stats
 
 
-def reduce_stats_across_processes(stats: FeatureStats) -> FeatureStats:
-    """The statistics summed over every process: the identity for one.
-
-    The sum over several processes comes with the parallel layouts; until
-    then a process group of more than one refuses, rather than compute a
-    FID from one process's share of the samples.
-    """
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(f"validation FID over {torch.distributed.get_world_size()} processes is not "
-                                  f"ported yet; it waits for {PARALLEL_ITEM}")
-    return stats
+def reduce_stats_across_processes(stats: FeatureStats, *, device: Optional[torch.device] = None) -> FeatureStats:
+    """The statistics summed over every process: ``n``, ``sum`` and
+    ``cov_sum`` in f64, on ``device`` for the all-reduce (the card for NCCL)
+    and back. The identity without a process group. The trainer's ranks that hold no rows of their own (model ranks
+    other than 0) add nothing, so the sum over every process is the sum
+    over the data group."""
+    if not (torch.distributed.is_available() and torch.distributed.is_initialized()):
+        return stats
+    d = len(stats.sum)
+    flat = np.concatenate([[float(stats.n)], stats.sum, stats.cov_sum.reshape(-1)])
+    t = torch.from_numpy(flat).to(device if device is not None else "cpu")
+    torch.distributed.all_reduce(t)
+    flat = t.cpu().numpy()
+    out = FeatureStats(d)
+    out.n = int(round(flat[0]))
+    out.sum = flat[1:1 + d].copy()
+    out.cov_sum = flat[1 + d:].reshape(d, d).copy()
+    return out
 
 
 def frechet_distance(mean1: np.ndarray, cov1: np.ndarray, mean2: np.ndarray, cov2: np.ndarray) -> float:

@@ -20,8 +20,19 @@ JAX package's keywords are taken as the shared ``configs/`` pass them:
   always run as a Python loop (the loop layout);
   :func:`bsi_torch.convert.params_from_jax` splits a scan-layout tree into
   ``block_{i}``.
-- ``token_sharding``: a sharding of the tokens over a device mesh; only
-  None, until the parallel layouts are ported.
+- ``token_sharding``: sequence parallelism, what
+  :func:`bsi_torch.parallel.token_stream_sharding` returns (or None): the
+  token stream between the blocks' Megatron pairs split over S on the
+  model group (:mod:`bsi_torch.parallel.sequence`); embed and decode stay
+  outside the split.
+
+:meth:`DenoisingDiT.set_layout` puts the model on a parallel layout: the
+attention's dropout draws cut from the global batch's and, with tensor
+parallelism, the blocks' Megatron pairs over the model group
+(:mod:`bsi_torch.parallel.tensor`). Neither changes the blocks'
+arithmetic, and weights converted by
+:func:`bsi_torch.convert.params_from_jax` load unchanged: a layout shards
+them after.
 
 On a CUDA tensor each block runs K4f twice (the fused LayerNorm + modulate
 before the attention and before the MLP) and K2 once (the attention, read
@@ -44,11 +55,8 @@ from torch.utils.checkpoint import checkpoint
 from bsi_torch.core.common import resolve_device
 from bsi_torch.nn import MLP, Dense, FourierFeatures, LayerNorm, NyquistPositionalEmbedding, TokenAttention
 from bsi_torch.ops.ln_modulate import layernorm_modulate
-
-
-def _check_token_sharding(token_sharding) -> None:
-    if token_sharding is not None:
-        raise NotImplementedError("token_sharding: the port has no parallel layouts yet; pass None")
+from bsi_torch.parallel.collectives import split_tokens, unsplit_tokens
+from bsi_torch.parallel.tensor import TensorParallel, check_heads
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -73,15 +81,32 @@ class DiTBlock(nn.Module):
         self.attn = TokenAttention(dim, heads, dropout or 0.0, **kw)
         self.dropout = nn.Dropout(dropout) if dropout is not None else None
         self.mlp = MLP(dim, dim, [mlp_ratio * dim], actfn=functools.partial(F.gelu, approximate="tanh"), **kw)
+        self.tp = None
+
+    def set_layout(self, mesh, tp) -> None:
+        """See :meth:`DiT.set_layout`."""
+        if tp is not None:
+            check_heads(self.ada_in.in_features, self.attn.heads, tp.size)
+        self.tp = tp
+        self.attn.set_layout(mesh, tp)
+        self.mlp.set_layout(tp)
+
+    def _modulation(self, c: torch.Tensor) -> torch.Tensor:
+        if self.tp is None:
+            return self.ada_out(F.silu(self.ada_in(c)))
+        # the adaLN pair over the model group; c is per image, never split
+        tp = self.tp
+        h = F.silu(self.ada_in(tp.enter(c, tokens=False)))
+        return tp.conditioning(tp.leave(self.ada_out, h, tokens=False))
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-        mod = self.ada_out(F.silu(self.ada_in(c)))
+        mod = self._modulation(c)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
         attn_out = self.attn(layernorm_modulate(x, shift_msa, scale_msa))
         x = x + gate_msa[:, None, :] * attn_out
         mlp_in = layernorm_modulate(x, shift_mlp, scale_mlp)
         if self.dropout is not None:
-            mlp_in = self.dropout(mlp_in)
+            mlp_in = self.dropout(mlp_in) if self.tp is None else self.tp.dropout(self.dropout, mlp_in)
         return x + gate_mlp[:, None, :] * self.mlp(mlp_in)
 
 
@@ -111,7 +136,6 @@ class DiT(nn.Module):
         token_sharding=None,
     ):
         super().__init__()
-        _check_token_sharding(token_sharding)
         self.remat = remat
         self.input_size = tuple(input_size)
         self.patch_size = patch_size
@@ -126,6 +150,32 @@ class DiT(nn.Module):
             self.add_module(f"block_{i}", DiTBlock(hidden_size, heads, mlp_ratio, dropout, **kw))
         self.t_emb = NyquistPositionalEmbedding(hidden_size, 1000)
         self._pos_tables: dict = {}
+        self.token_sharding = None
+        if token_sharding is not None:
+            self.set_token_sharding(token_sharding)
+
+    def blocks(self):
+        return [getattr(self, f"block_{i}") for i in range(self.depth)]
+
+    def set_layout(self, mesh) -> None:
+        """Put the blocks on ``mesh`` (a :class:`~bsi_torch.parallel.Mesh`):
+        the attention's dropout draws cut from the global batch's, and with
+        a model group of more than one rank the Megatron pairs over it.
+        Raises where tp does not divide the qkv head groups."""
+        tp = TensorParallel(mesh) if mesh.model_size > 1 else None
+        for block in self.blocks():
+            block.set_layout(mesh, tp)
+
+    def set_token_sharding(self, token_sharding) -> None:
+        """Sequence parallelism: ``token_sharding`` is what
+        :func:`bsi_torch.parallel.token_stream_sharding` returns; anything
+        else raises."""
+        if not (isinstance(token_sharding, TensorParallel) and token_sharding.sequence):
+            raise ValueError(f"token_sharding: want what bsi_torch.parallel.token_stream_sharding returns, "
+                             f"got {token_sharding!r}")
+        self.token_sharding = token_sharding
+        for block in self.blocks():
+            block.set_layout(token_sharding.mesh, token_sharding)
 
     def _pos_embedding(self) -> np.ndarray:
         """Fixed 2D positional embedding: concat of per-row and per-column 1D
@@ -158,12 +208,16 @@ class DiT(nn.Module):
 
     def run_blocks(self, tokens: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         remat = self.remat and self.training and torch.is_grad_enabled()
-        for i in range(self.depth):
-            block = getattr(self, f"block_{i}")
+        sp = self.token_sharding
+        if sp is not None:
+            tokens = split_tokens(tokens, sp.group, sp.size, sp.rank)
+        for block in self.blocks():
             if remat:
                 tokens = checkpoint(block, tokens, c, use_reentrant=False, preserve_rng_state=True)
             else:
                 tokens = block(tokens, c)
+        if sp is not None:
+            tokens = unsplit_tokens(tokens, sp.group, sp.size, sp.rank)
         return tokens
 
     def decode(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -197,7 +251,7 @@ class DenoisingDiT(nn.Module):
         fourier_features: Optional per-pixel Fourier features of the input.
         dtype: Compute dtype (parameters stay f32).
         device: Where the parameters live; ``None`` means the card.
-        token_sharding: Must be None (no parallel layouts yet).
+        token_sharding: Sequence parallelism (``token_stream_sharding``), or None.
     """
 
     def __init__(
@@ -219,14 +273,23 @@ class DenoisingDiT(nn.Module):
         super().__init__()
         if len(data_shape) != 3:
             raise ValueError("DenoisingDiT only supports 2D image data (H, W, C)")
-        _check_token_sharding(token_sharding)
         device = resolve_device(device)
         self.data_shape = tuple(data_shape)
         self.fourier_features = fourier_features
         channels = data_shape[-1]
         in_channels = channels * (1 + (fourier_features.n_features() if fourier_features else 0))
         self.dit = DiT(data_shape[:2], patch_size, in_channels, channels, dim, depth, heads, mlp_ratio,
-                       dropout, remat, scan_blocks, dtype=dtype, device=device)
+                       dropout, remat, scan_blocks, dtype=dtype, device=device, token_sharding=token_sharding)
+
+    @property
+    def token_sharding(self):
+        return self.dit.token_sharding
+
+    def set_layout(self, mesh) -> None:
+        self.dit.set_layout(mesh)
+
+    def set_token_sharding(self, token_sharding) -> None:
+        self.dit.set_token_sharding(token_sharding)
 
     def _features(self, mu: torch.Tensor) -> torch.Tensor:
         if self.fourier_features is not None:

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from bsi_torch.ops import multi_head_attention, multi_head_attention_fused_qkv, split_qkv_grouped
+from bsi_torch.ops.attention import DrawShard
 from bsi_torch.ops.flash_attention_packed import _merge_heads, qkv_heads_per_group
 
 from .layers import Conv, Dense
@@ -33,7 +34,12 @@ class TokenAttention(nn.Module):
     """Multi-head self-attention over a token sequence ``[B, S, F]``: a Dense
     qkv projection in the grouped layout straight into
     :func:`bsi_torch.ops.multi_head_attention_fused_qkv`, then a Dense out
-    projection. Attention dropout at ``dropout`` is on in ``train()`` mode."""
+    projection. Attention dropout at ``dropout`` is on in ``train()`` mode.
+
+    Under a parallel layout (:meth:`set_layout`) the dropout draws are the
+    global batch's, cut to this rank's rows and heads; with tensor
+    parallelism ``to_qkv`` and ``to_out`` are a Megatron column/row pair
+    and the kernels see this rank's ``heads / tp`` heads."""
 
     def __init__(self, dim: int, heads: int, dropout: float = 0.0, *, dtype=None, device=None):
         super().__init__()
@@ -41,11 +47,30 @@ class TokenAttention(nn.Module):
         self.dropout = dropout
         self.to_qkv = Dense(dim, 3 * dim, dtype=dtype, device=device)
         self.to_out = Dense(dim, dim, dtype=dtype, device=device)
+        self.mesh = None
+        self.tp = None
+
+    def set_layout(self, mesh, tp) -> None:
+        """``mesh``: the :class:`~bsi_torch.parallel.Mesh` (None: one
+        process); ``tp``: its :class:`~bsi_torch.parallel.TensorParallel`
+        or None."""
+        self.mesh, self.tp = mesh, tp
+
+    def _shard(self, batch: int, heads: int):
+        if self.mesh is None or not self.mesh.distributed:
+            return None
+        m = self.mesh
+        head = m.model_rank * heads if self.tp is not None else 0
+        return DrawShard(batch * m.data_size, m.data_rank * batch, self.heads, head)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         rate = self.dropout if self.training else 0.0
-        out = multi_head_attention_fused_qkv(self.to_qkv(x), heads=self.heads, dropout_rate=rate)
-        return self.to_out(out)
+        tp = self.tp
+        heads = self.heads if tp is None else self.heads // tp.size
+        qkv = self.to_qkv(x if tp is None else tp.enter(x))
+        out = multi_head_attention_fused_qkv(qkv, heads=heads, dropout_rate=rate,
+                                             shard=self._shard(qkv.shape[0], heads))
+        return self.to_out(out) if tp is None else tp.leave(self.to_out, out)
 
 
 class Attention2D(nn.Module):

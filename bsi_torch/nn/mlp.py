@@ -40,6 +40,15 @@ class MLP(nn.Module):
         for i, (w_in, w_out) in enumerate(zip(widths[:-1], widths[1:])):
             self.add_module(f"Dense_{i}", Dense(w_in, w_out, dtype=dtype, device=device))
         self.n_layers = len(widths) - 1
+        self.tp = None
+
+    def set_layout(self, tp) -> None:
+        """Run the layers as Megatron pairs over ``tp``'s model group
+        (a :class:`~bsi_torch.parallel.TensorParallel`; None: whole):
+        ``Dense_{even}`` column-parallel, ``Dense_{odd}`` row-parallel."""
+        if tp is not None and self.n_layers % 2:
+            raise ValueError(f"tensor parallelism pairs the MLP's layers; it has {self.n_layers}")
+        self.tp = tp
 
     def widths(self) -> list[int]:
         hf = self.hidden_features
@@ -53,6 +62,15 @@ class MLP(nn.Module):
         return hf
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for i in range(self.n_layers - 1):
-            x = self.actfn(getattr(self, f"Dense_{i}")(x))
-        return getattr(self, f"Dense_{self.n_layers - 1}")(x)
+        tp = self.tp
+        for i in range(self.n_layers):
+            layer = getattr(self, f"Dense_{i}")
+            if tp is None:
+                x = layer(x)
+            elif i % 2 == 0:
+                x = layer(tp.enter(x))
+            else:
+                x = tp.leave(layer, x)
+            if i < self.n_layers - 1:
+                x = self.actfn(x)
+        return x

@@ -24,6 +24,8 @@ keep mask. On the plain path dropout draws its keep mask with
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from .flash_attention import MAX_FUSED_TRAIN_SEQ, _xla_attention, fused_attention
@@ -40,6 +42,22 @@ from .flash_attention_packed import (
 )
 
 
+class DrawShard(NamedTuple):
+    """A rank's part of a global attention batch under a parallel layout:
+    the global batch and head count, and where this rank's rows and heads
+    start. The dropout draws are taken for the global ``[batch, heads]``
+    and cut to this rank's block, so every head of every row draws what a
+    single process running the global batch draws."""
+
+    batch: int
+    row: int
+    heads: int
+    head: int
+
+    def cut(self, x: torch.Tensor, batch: int, heads: int) -> torch.Tensor:
+        return x[self.row:self.row + batch, self.head:self.head + heads].contiguous()
+
+
 def _kernel_applicable(q: torch.Tensor) -> bool:
     """The JAX package's ``_pallas_applicable`` with "tpu" read as "cuda"."""
     if q.device.type != "cuda":
@@ -49,21 +67,26 @@ def _kernel_applicable(q: torch.Tensor) -> bool:
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         dropout_rate: float = 0.0, generator: torch.Generator | None = None) -> torch.Tensor:
+                         dropout_rate: float = 0.0, generator: torch.Generator | None = None,
+                         shard: Optional[DrawShard] = None) -> torch.Tensor:
     """Scaled dot-product attention over ``[batch, heads, seq, head_dim]``.
 
     Routes to :func:`~bsi_torch.ops.flash_attention.fused_attention` where
     the JAX package routes to ``_fused_sdpa_fn``: a CUDA tensor of a shape
     the kernels take, without dropout at any S and with dropout up to
     ``MAX_FUSED_TRAIN_SEQ``; everything else takes the plain path, as in
-    JAX. Differentiable.
+    JAX. Differentiable. ``shard`` cuts the dropout draws from the global
+    batch's (:class:`DrawShard`).
     """
+    b, h, s = q.shape[:3]
     if _kernel_applicable(q) and (dropout_rate == 0.0 or q.shape[-2] <= MAX_FUSED_TRAIN_SEQ):
-        b, h = q.shape[:2]
-        seeds = _seeds(b, h, q.device, dropout_rate, generator)
+        seeds = _seeds(b, h, q.device, dropout_rate, generator, shard)
         return fused_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                None if seeds is None else seeds.reshape(-1), dropout_rate)
-    return _xla_attention(q, k, v, dropout_rate=dropout_rate, generator=generator)
+    uniform = None
+    if shard is not None and dropout_rate > 0.0:
+        uniform = shard.cut(torch.rand((shard.batch, shard.heads, s, s), generator=generator, device=q.device), b, h)
+    return _xla_attention(q, k, v, dropout_rate=dropout_rate, generator=generator, uniform=uniform)
 
 
 def _takes_grad(*tensors) -> bool:
@@ -117,29 +140,35 @@ class _PackedAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
-def _seeds(batch: int, heads: int, device, dropout_rate: float, generator):
-    return draw_seeds(batch, heads, device, generator) if dropout_rate > 0.0 else None
+def _seeds(batch: int, heads: int, device, dropout_rate: float, generator, shard: Optional[DrawShard] = None):
+    if dropout_rate == 0.0:
+        return None
+    if shard is None:
+        return draw_seeds(batch, heads, device, generator)
+    return shard.cut(draw_seeds(shard.batch, shard.heads, device, generator), batch, heads)
 
 
 def multi_head_attention_fused_qkv(qkv: torch.Tensor, *, heads: int, dropout_rate: float = 0.0,
-                                   generator: torch.Generator | None = None) -> torch.Tensor:
+                                   generator: torch.Generator | None = None,
+                                   shard: Optional[DrawShard] = None) -> torch.Tensor:
     """Attention straight off the fused qkv projection output.
 
     ``qkv``: ``[B, S, 3*H*D]`` in the GROUPED layout. A CUDA tensor of a
     shape the packed kernels take runs K2, which reads q, k and v in place,
     and K3 for its gradient, both with in-kernel dropout; anything else
     takes JAX's fallback, the split followed by :func:`multi_head_attention`.
-    Output ``[B, S, H*D]``.
+    Output ``[B, S, H*D]``. Under a parallel layout ``heads`` are this
+    rank's and ``shard`` places them and the rows in the global batch.
     """
     b, s, three_hd = qkv.shape
     if three_hd % (3 * heads):
         raise ValueError(f"fused qkv dim {three_hd} not divisible by 3*heads={3 * heads}")
     hd_total = three_hd // 3
     if qkv.device.type == "cuda" and packed_applicable(hd_total, heads, s):
-        seeds = _seeds(b, heads, qkv.device, dropout_rate, generator)
+        seeds = _seeds(b, heads, qkv.device, dropout_rate, generator, shard)
         return _FusedQKVAttention.apply(qkv.contiguous(), seeds, heads, float(dropout_rate), _takes_grad(qkv))
     q, k, v = split_qkv_grouped(qkv, heads)
-    return _merge_heads(multi_head_attention(q, k, v, dropout_rate=dropout_rate, generator=generator))
+    return _merge_heads(multi_head_attention(q, k, v, dropout_rate=dropout_rate, generator=generator, shard=shard))
 
 
 def multi_head_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, heads: int,

@@ -65,7 +65,7 @@ LOG2E = 1.4426950408889634
 
 
 def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, dropout_rate: float = 0.0,
-                   generator: torch.Generator | None = None) -> torch.Tensor:
+                   generator: torch.Generator | None = None, uniform: torch.Tensor | None = None) -> torch.Tensor:
     """Plain attention over ``[batch, heads, seq, head_dim]``, the JAX
     package's XLA formulation.
 
@@ -73,7 +73,8 @@ def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, dropout
     precision here), and the probabilities go back to the input dtype for
     the product with v. With ``dropout_rate > 0`` each probability is kept
     where a uniform draw from ``generator`` falls below ``1 - dropout_rate``
-    and scaled by its inverse, as ``jax.random.bernoulli`` keeps it.
+    and scaled by its inverse, as ``jax.random.bernoulli`` keeps it; a given
+    ``uniform`` (of the probabilities' shape) takes the draw's place.
     """
     dim = q.shape[-1]
     scale = 1.0 / torch.sqrt(torch.tensor(dim, dtype=torch.float32)).to(q.dtype)
@@ -82,7 +83,9 @@ def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, dropout
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
     if dropout_rate > 0.0:
         keep_prob = 1.0 - dropout_rate
-        keep = torch.rand(probs.shape, generator=generator, device=probs.device) < keep_prob
+        if uniform is None:
+            uniform = torch.rand(probs.shape, generator=generator, device=probs.device)
+        keep = uniform < keep_prob
         probs = torch.where(keep, probs / keep_prob, 0.0)
     return torch.matmul(probs, v)
 

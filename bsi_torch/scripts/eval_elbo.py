@@ -37,8 +37,8 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_intermixed_args(argv)
 
     trainer, config, data = load_trainer(args.checkpoint, args.overrides)
-    algo, state, device = trainer.algorithm, trainer.state, trainer.device
-    model_fn = lambda mu, t: trainer.eval_apply(state.ema_params, mu, t)
+    algo, device = trainer.algorithm, trainer.device
+    model_fn = trainer.eval_model_fn()
     generator = torch.Generator(device=device).manual_seed(SAMPLE_SEED)
 
     results_mean, results_var = {}, {}

@@ -35,11 +35,11 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_intermixed_args(argv)
 
     trainer, config, data = load_trainer(args.checkpoint, args.overrides)
-    algo, state, device = trainer.algorithm, trainer.state, trainer.device
+    algo, device = trainer.algorithm, trainer.device
     disc = data.discretization()
     t = get_schedule(args.schedule, args.k or algo.k, algo, device=device)
 
-    model_fn = lambda mu, tt: trainer.eval_apply(state.ema_params, mu, tt)
+    model_fn = trainer.eval_model_fn()
     generator = torch.Generator(device=device).manual_seed(args.seed)
     history = algo.sample_history(model_fn, generator, args.num_samples, device=device, t=t)
 

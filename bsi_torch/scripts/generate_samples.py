@@ -46,7 +46,7 @@ def main(argv: list[str] | None = None) -> int:
     disc = data.discretization()
     k = args.k or algo.k
     t = get_schedule(args.schedule, k, algo, device=trainer.device)
-    sample_fn = make_sample_fn(algo, trainer.eval_apply, use_ema=not args.noema)
+    sample_fn = make_sample_fn(algo, trainer.eval_apply, use_ema=not args.noema, layout=trainer.layout)
 
     batch_size = data.eval_batch_size
     generator = torch.Generator(device=trainer.device).manual_seed(args.seed)

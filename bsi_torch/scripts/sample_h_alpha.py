@@ -37,10 +37,10 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_intermixed_args(argv)
 
     trainer, config, data = load_trainer(args.checkpoint, args.overrides)
-    algo, state, device = trainer.algorithm, trainer.state, trainer.device
+    algo, device = trainer.algorithm, trainer.device
     if not hasattr(algo, "_sample_q_mu_lambda"):
         raise SystemExit("sample_h_alpha requires a BSI-style algorithm")
-    model_fn = lambda mu, tt: trainer.eval_apply(state.ema_params, mu, tt)
+    model_fn = trainer.eval_model_fn()
 
     lambdas = torch.logspace(math.log10(algo.lambda_0), math.log10(algo.lambda_0 + algo.alpha_M),
                              args.num_lambdas, device=device)

@@ -128,7 +128,7 @@ class PlotsCallback:
 
         # trajectory filmstrips: rows = samples, columns = steps; BSI and BFN
         # return (mus, x_hats, ys), VDM the x_hats alone
-        model_fn = lambda mu, t: trainer.eval_apply(state.ema_params, mu, t)
+        model_fn = trainer.eval_model_fn(state)
         history = algo.sample_history(model_fn, generator(), self.n_histories, device=device)
         x_hats = history[1] if isinstance(history, tuple) else history
         _finite(x_hats, "sample history")
@@ -151,6 +151,8 @@ class PlotsCallback:
         q, b, _, h, w, c = stacked.shape
         images[f"{stage}/denoisings"] = stacked.transpose(1, 2, 3, 0, 4, 5).reshape(b * 2 * h, q * w, c)
 
+        if not trainer.mesh.writes:
+            return  # the ranks of a layout draw in lockstep; rank 0 writes
         for name, arr in images.items():
             save_png(out_dir / (name.replace("/", "_") + ".png"), arr)
         wb = getattr(trainer.logger, "_wandb", None)

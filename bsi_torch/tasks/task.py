@@ -18,6 +18,12 @@ step, micro-batch) either way.
 Device: the card unless the config says ``trainer.device`` (``+trainer.device=cpu``
 on the command line) or the caller passes ``device``; with no card and no
 such request it raises rather than train on the CPU.
+
+Layout: ``trainer.model_parallelism``, ``trainer.dcn_data_parallelism``,
+``trainer.fsdp`` and ``trainer.sequence_parallel`` lay the trainer out over
+the process group (:mod:`bsi_torch.parallel`), as the JAX package's
+``build_task`` builds its mesh; ``trainer.pipeline_parallelism > 1`` raises
+(the pipeline waits for the DiT's stacked layout).
 """
 
 from __future__ import annotations
@@ -32,11 +38,10 @@ import torch
 from bsi_torch.config import instantiate
 from bsi_torch.core.common import resolve_device
 from bsi_torch.metrics import build_validation_fid
+from bsi_torch.parallel import make_mesh
 from bsi_torch.train import EMAConfig, make_optimizer, warmup_cosine_schedule, warmup_schedule
 from bsi_torch.train.loop import Trainer
 from bsi_torch.utils.logging import MetricLogger
-
-PARALLEL_ITEM = "parallel layouts, ROADMAP.md queue 1 item 2"
 
 
 def build_model(model_cfg: dict, data_shape: tuple[int, ...], dtype=None, device=None):
@@ -97,17 +102,6 @@ def build_ema(ema_cfg: Optional[dict]) -> EMAConfig:
     return EMAConfig(**{k: v for k, v in ema_cfg.items() if k in fields})
 
 
-def _check_single_device(trainer_cfg: dict) -> None:
-    """The parallel layouts are not ported: refuse them rather than train
-    on one device under a config that asks for more."""
-    for key in ("model_parallelism", "pipeline_parallelism", "dcn_data_parallelism"):
-        if int(trainer_cfg.get(key, 1) or 1) > 1:
-            raise NotImplementedError(f"trainer.{key} > 1 is not ported yet; it waits for {PARALLEL_ITEM}")
-    for key in ("fsdp", "sequence_parallel"):
-        if trainer_cfg.get(key):
-            raise NotImplementedError(f"trainer.{key} is not ported yet; it waits for {PARALLEL_ITEM}")
-
-
 def build_task(
     config: dict,
     data,
@@ -126,8 +120,14 @@ def build_task(
     """
     task_cfg: dict[str, Any] = config["task"]
     trainer_cfg: dict[str, Any] = config.get("trainer", {})
-    _check_single_device(trainer_cfg)
     device = resolve_device(device if device is not None else trainer_cfg.get("device"))
+    # the mesh over the process group (bsi_torch.parallel.initialize_distributed
+    # joins it); without one it is (1, 1) and no collective runs
+    mesh = make_mesh(
+        model_parallelism=int(trainer_cfg.get("model_parallelism", 1) or 1),
+        pipeline_parallelism=int(trainer_cfg.get("pipeline_parallelism", 1) or 1),
+        dcn_data_parallelism=int(trainer_cfg.get("dcn_data_parallelism", 1) or 1),
+    )
     data_shape = data.data_shape()
 
     precision = str(trainer_cfg.get("precision", "32"))
@@ -153,13 +153,16 @@ def build_task(
         fid_metrics = build_validation_fid(data, stats_root=trainer_cfg.get("fid_stats_root", "."),
                                            warn=logging.getLogger(__name__).warning, device=device)
 
+    max_steps = int(trainer_cfg.get("max_steps", 10000))
     profiler = None
     if trainer_cfg.get("profile_steps"):
         from bsi_torch.utils.profiling import StepWindowProfiler
 
-        profiler = StepWindowProfiler(Path(run_dir) / "profile", num_steps=int(trainer_cfg["profile_steps"]))
+        # from step 10, or early enough that a short run's last steps are traced
+        num_steps = int(trainer_cfg["profile_steps"])
+        profiler = StepWindowProfiler(Path(run_dir) / "profile", start_step=max(0, min(10, max_steps - 1 - num_steps)),
+                                      num_steps=num_steps)
 
-    max_steps = int(trainer_cfg.get("max_steps", 10000))
     optimizer, lr_schedule = build_optimizer(
         task_cfg["optimizer"],
         task_cfg.get("lr_scheduler"),
@@ -194,4 +197,7 @@ def build_task(
         lr_schedule=lr_schedule,
         stall_timeout_s=float(stall) if stall is not None else None,
         fid_metrics=fid_metrics,
+        mesh=mesh,
+        fsdp=bool(trainer_cfg.get("fsdp", False)),
+        sequence_parallel=bool(trainer_cfg.get("sequence_parallel", False)),
     )

@@ -9,6 +9,16 @@ Counterpart of the repo's ``train.py``, over the same ``configs/`` tree:
 It runs on the card unless ``+trainer.device=cpu`` asks for the CPU, and
 raises when there is no card and no such request. Checkpoints embed the
 resolved config; resume with ``from_ckpt=<dir>``.
+
+On several GPUs, one process each, as ``torchrun`` starts them (or
+``python -m bsi_torch.scripts.launch`` on SLURM):
+
+    torchrun --nproc-per-node=8 -m bsi_torch.train experiment=imagenet32 \
+        trainer.fsdp=yes trainer.model_parallelism=2
+
+Each process joins the group from torchrun's variables before anything
+touches the card (NCCL; gloo on the CPU), reads its data rank's share of
+every batch, and rank 0 alone writes the logs, plots and checkpoints.
 """
 
 from __future__ import annotations
@@ -21,25 +31,39 @@ import time
 import traceback
 from pathlib import Path
 
+import torch.distributed as dist
+
 from bsi_torch.config import ConfigLoader, instantiate
+from bsi_torch.parallel import host_shard, initialize_distributed
 from bsi_torch.tasks import build_task
-from bsi_torch.utils.logging import MetricLogger
+from bsi_torch.utils.logging import MetricLogger, SilentLogger
 from bsi_torch.utils.preemption import PreemptionHandler
 from bsi_torch.utils.seed import resolve_seed
 
 CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs"
 
 
+def _from_rank0(value):
+    """``value`` as rank 0 has it, on every rank (itself without a group):
+    the run seed a config without one draws, the run directory's stamp."""
+    box = [value]
+    if dist.is_initialized():
+        dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def run_one(config: dict) -> dict:
     """Train (and test, where the config asks) one resolved config."""
-    seed = resolve_seed(config)
+    trainer_cfg = config.get("trainer", {})
+    initialize_distributed(trainer_cfg.get("device"))
+    seed = config["seed"] = _from_rank0(resolve_seed(config))
     if config.get("debug_nans"):
         import torch
 
         torch.autograd.set_detect_anomaly(True)
     title = config.get("title") or "run"
     name = config.get("name") or config["task"].get("name", "task")
-    stamp = time.strftime("%Y%m%d-%H%M%S")
+    stamp = _from_rank0(time.strftime("%Y%m%d-%H%M%S"))
     run_dir = Path(config.get("run_root", "runs")) / str(title) / f"{name}-{seed % 10**6}-{stamp}"
 
     # Requeue: reuse the W&B run recorded in the checkpoint we resume from.
@@ -53,8 +77,10 @@ def run_one(config: dict) -> dict:
             if prev_id:
                 wandb_cfg.update({"id": prev_id, "resume": "allow"})
 
-    data = instantiate(config["data"], seed=seed)
-    logger = MetricLogger(run_dir, wandb_config=wandb_cfg)
+    shard_id, num_shards = host_shard(int(trainer_cfg.get("model_parallelism", 1) or 1))
+    data = instantiate(config["data"], seed=seed, shard_id=shard_id, num_shards=num_shards)
+    writes = not dist.is_initialized() or dist.get_rank() == 0
+    logger = MetricLogger(run_dir, wandb_config=wandb_cfg) if writes else SilentLogger()
     preemption = PreemptionHandler().install()
     try:
         if getattr(logger, "_wandb", None) is not None:

@@ -25,7 +25,7 @@ import json
 import os
 import time
 from pathlib import Path
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -36,16 +36,29 @@ STATE_FILE = "state.pt"
 META_FILE = "meta.json"
 
 
-def state_to_host(state: TrainState) -> dict[str, Any]:
+def state_to_host(state: TrainState, *, full: Optional[Callable] = None, host: bool = True) -> Optional[dict[str, Any]]:
     """The state as a dict of CPU tensors and numbers (copies); the only
-    part of a save that waits for the device."""
-    host = lambda tensors: {name: t.detach().to("cpu", copy=True) for name, t in tensors.items()}
+    part of a save that waits for the device. Under a parallel layout
+    ``full(name, shard)`` gathers each leaf's full tensor from the ranks'
+    shards (a collective every rank joins); ``host=False`` (the ranks that
+    do not write) gathers and keeps nothing."""
+    def tensors(named: dict) -> dict:
+        out = {}
+        for name, t in named.items():
+            t = t.detach() if full is None else full(name, t.detach())
+            if host:
+                out[name] = t.to("cpu", copy=True)
+        return out
+
+    parts = [tensors(named) for named in (state.params, state.ema_params, state.opt_state.mu, state.opt_state.nu)]
+    if not host:
+        return None
+    params, ema_params, mu, nu = parts
     return {
         "step": int(state.step),
-        "params": host(state.params),
-        "ema_params": host(state.ema_params),
-        "opt_state": {"count": int(state.opt_state.count), "mu": host(state.opt_state.mu),
-                      "nu": host(state.opt_state.nu)},
+        "params": params,
+        "ema_params": ema_params,
+        "opt_state": {"count": int(state.opt_state.count), "mu": mu, "nu": nu},
         "dropout_seed": int(state.dropout_seed),
         "generator": state.generator.get_state(),
     }
@@ -77,14 +90,15 @@ def save_checkpoint(
     config: Optional[dict] = None,
     data_state: Optional[dict] = None,
     extra: Optional[dict] = None,
+    full: Optional[Callable] = None,
 ) -> None:
     """Save a train state (+ config + data cursor + extra meta) to ``path``.
 
     ``extra`` carries small bookkeeping, such as the best validation bpd so
     far, so a requeued run does not overwrite ``ckpt_best`` with a worse
-    model.
+    model. ``full`` gathers a laid-out state's leaves (:func:`state_to_host`).
     """
-    _write(Path(path).absolute(), state_to_host(state), _meta(config, data_state, extra))
+    _write(Path(path).absolute(), state_to_host(state, full=full), _meta(config, data_state, extra))
 
 
 class AsyncCheckpointWriter:
@@ -109,8 +123,9 @@ class AsyncCheckpointWriter:
         config: Optional[dict] = None,
         data_state: Optional[dict] = None,
         extra: Optional[dict] = None,
+        full: Optional[Callable] = None,
     ) -> None:
-        host = state_to_host(state)
+        host = state_to_host(state, full=full)
         meta = _meta(config, data_state, extra)
         self._pending.append(self._pool.submit(_write, Path(path).absolute(), host, meta))
 
@@ -119,12 +134,15 @@ class AsyncCheckpointWriter:
         return [future.result() for future in pending]
 
 
-def load_checkpoint(path: str | Path, state: TrainState) -> tuple[TrainState, dict]:
+def load_checkpoint(path: str | Path, state: TrainState, *,
+                    local: Optional[Callable] = None) -> tuple[TrainState, dict]:
     """Restore a checkpoint written by :func:`save_checkpoint` into ``state``.
 
     ``state`` (a freshly initialised one, say) gives the devices and dtypes:
     its tensors are overwritten in place, its step, count, dropout seed and
-    generator state set from the checkpoint. Returns ``(state, meta)``,
+    generator state set from the checkpoint. Under a parallel layout
+    ``local(name, full)`` cuts this rank's shard of each full leaf, so a
+    checkpoint restores under any layout. Returns ``(state, meta)``,
     ``meta`` with ``config``, ``data_state`` and ``extra``.
     """
     path = Path(path).absolute()
@@ -138,10 +156,11 @@ def load_checkpoint(path: str | Path, state: TrainState) -> tuple[TrainState, di
                 raise ValueError(f"checkpoint {path}: {what} names differ from the state's "
                                  f"({sorted(set(ours) ^ set(theirs))[:5]} ...)")
             for name, tensor in ours.items():
-                if tensor.shape != theirs[name].shape:
+                part = theirs[name] if local is None else local(name, theirs[name])
+                if tensor.shape != part.shape:
                     raise ValueError(f"checkpoint {path}: {what}[{name}] has shape "
                                      f"{tuple(theirs[name].shape)}, the state {tuple(tensor.shape)}")
-                tensor.copy_(theirs[name])
+                tensor.copy_(part)
     state.step = int(saved["step"])
     state.opt_state = AdamState(count=int(saved["opt_state"]["count"]), mu=state.opt_state.mu,
                                 nu=state.opt_state.nu)

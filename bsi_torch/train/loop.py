@@ -1,7 +1,7 @@
-"""Step-based training loop on one device.
+"""Step-based training loop, on one device or over a mesh of processes.
 
-Counterpart of ``bsi_tpu/train/loop.py::Trainer``, without its mesh and
-sharding (the parallel layouts are not ported): an explicit loop with
+Counterpart of ``bsi_tpu/train/loop.py::Trainer`` (without the pipeline): an
+explicit loop with
 
 - the train step of :mod:`.step` (gradient accumulation included),
 - a sanity validation before the first step, the NaN guard (``ckpt_nan``),
@@ -20,6 +20,18 @@ sharding (the parallel layouts are not ported): an explicit loop with
 
 Batches leave the data module as numpy arrays and reach the device from
 pinned memory with ``non_blocking=True``.
+
+With a ``mesh`` (:func:`bsi_torch.parallel.make_mesh` under a process
+group) the state is laid out over it (:class:`~bsi_torch.parallel.StateLayout`:
+replicated, FSDP with ``fsdp``, the DiT's tensor parallelism where the
+model group has more than one rank, its sequence parallelism with
+``sequence_parallel``) and the data module gives this data rank's rows.
+Validation sums its metrics over the data group; FID draws the global
+sample batch in lockstep, each data rank embeds its rows and only model
+rank 0 of each replica adds them. Rank 0 alone writes checkpoints (the
+full state, gathered first: the file is the same whatever the layout) and
+every rank waits for the write; ``restore`` reads the full state and cuts
+this rank's shards.
 """
 
 from __future__ import annotations
@@ -31,15 +43,17 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bsi_torch.core.common import resolve_device
 from bsi_torch.metrics.fid import fid_from_stats, images_to_uint8, reduce_stats_across_processes
+from bsi_torch.parallel import Mesh, StateLayout, apply_sequence_parallelism, check_host_batch
 from bsi_torch.utils.logging import MetricLogger, count_params
 
-from .checkpoint import AsyncCheckpointWriter, load_checkpoint, save_checkpoint
+from .checkpoint import AsyncCheckpointWriter, load_checkpoint, save_checkpoint, state_to_host
 from .ema import EMAConfig
 from .state import TrainState
-from .step import make_eval_step, make_sample_fn, make_train_step, module_apply
+from .step import eval_params, make_eval_step, make_sample_fn, make_train_step, module_apply
 
 EVAL_SEED = 0x5EED
 
@@ -76,6 +90,9 @@ class Trainer:
         async_checkpointing: bool = True,
         stall_timeout_s: Optional[float] = None,
         fid_metrics: Optional[dict] = None,
+        mesh: Optional[Mesh] = None,
+        fsdp: bool = False,
+        sequence_parallel: bool = False,
     ):
         self.device = resolve_device(device)
         self.algorithm = algorithm
@@ -108,9 +125,6 @@ class Trainer:
         self.accum = int(accumulate_grad_batches)
         if self.accum < 1:
             raise ValueError("accumulate_grad_batches must be >= 1")
-        bs = getattr(data, "batch_size", None)
-        if self.accum > 1 and bs is not None and bs % self.accum:
-            raise ValueError(f"data.batch_size={bs} must be divisible by accumulate_grad_batches={self.accum}")
         # Fail-fast stall detection (utils/watchdog.py), armed after the first
         # logged step; 0 or less is refused, not read as "off".
         if stall_timeout_s is not None and stall_timeout_s <= 0:
@@ -119,30 +133,70 @@ class Trainer:
         self._watchdog = None
         self._warmed: set[str] = set()
 
+        # The layout: the mesh's collectives run only under a process group.
+        self.mesh = mesh if mesh is not None else Mesh()
+        models = (self.model,) if self.eval_model is self.model else (self.model, self.eval_model)
+        if sequence_parallel:
+            for m in models:
+                apply_sequence_parallelism(m, self.mesh)
+        elif self.mesh.distributed:
+            for m in models:
+                if hasattr(m, "set_layout"):
+                    m.set_layout(self.mesh)
+        # the DiT takes tensor parallelism; other models stay replicated on
+        # the model group (each of its ranks computes the whole model)
+        tensor = hasattr(self.model, "set_layout")
+        self.layout = StateLayout.build(self.mesh, dict(self.model.named_parameters()), fsdp=fsdp,
+                                        tensor=tensor) if self.mesh.distributed else None
+
         self.train_apply = module_apply(self.model, train=True)
         self.eval_apply = module_apply(self.eval_model, train=False)
         self._train_step = make_train_step(algorithm, self.train_apply, optimizer, self.ema_cfg,
-                                           accum_steps=self.accum)
+                                           accum_steps=self.accum, layout=self.layout)
         self._eval_step = make_eval_step(algorithm, self.eval_apply, n_recon_samples=n_elbo_recon_samples,
-                                         n_measure_samples=n_elbo_measure_samples)
-        self.sample_fn = make_sample_fn(algorithm, self.eval_apply)
+                                         n_measure_samples=n_elbo_measure_samples, layout=self.layout)
+        self.sample_fn = make_sample_fn(algorithm, self.eval_apply, layout=self.layout)
         self.state: TrainState | None = None
+        self._check_divisibility()
 
     # ------------------------------------------------------------------ setup
 
+    def _check_divisibility(self):
+        """Fail with an actionable message when a batch size does not divide
+        over the mesh's data axis."""
+        n_data = self.mesh.data_size
+        for label, bs in (
+            ("batch_size", getattr(self.data, "batch_size", None)),
+            ("eval_batch_size", getattr(self.data, "eval_batch_size", None)),
+        ):
+            if bs is not None and bs % n_data != 0:
+                raise ValueError(
+                    f"data.{label}={bs} is not divisible by the mesh's data-axis "
+                    f"size {n_data}; choose a {label} that is a multiple of the "
+                    f"number of data-parallel devices"
+                )
+        bs = getattr(self.data, "batch_size", None)
+        if self.accum > 1 and bs is not None and bs % (self.accum * n_data) != 0:
+            raise ValueError(
+                f"data.batch_size={bs} must be divisible by "
+                f"accumulate_grad_batches={self.accum} x data-axis size {n_data} "
+                f"so every micro-batch shards evenly"
+            )
+
     def init_state(self) -> TrainState:
         """A state at step 0: the model's parameters (initialised from the
-        run seed by ``build_task``) copied, the EMA a copy of them, fresh
-        Adam moments, and the generator and dropout seed derived from the
-        run seed."""
+        run seed by ``build_task``) copied, this rank's shards of them under
+        a layout, the EMA a copy of them, fresh Adam moments, and the
+        generator and dropout seed derived from the run seed."""
         gen_seed, dropout_seed = (int(w) for w in np.random.SeedSequence([int(self.seed), 0x57A7E]).generate_state(
             2, np.uint64))
-        params = {name: p.detach().to(self.device, copy=True).requires_grad_()
+        cut = self.layout.local if self.layout is not None else lambda name, p: p.clone()
+        params = {name: cut(name, p.detach().to(self.device)).requires_grad_()
                   for name, p in self.model.named_parameters()}
         generator = torch.Generator(device=self.device).manual_seed(gen_seed)
         state = TrainState.create(params=params, opt_state=self.optimizer.init(params), generator=generator,
                                   dropout_seed=dropout_seed)
-        self.logger.console_line(f"model parameters: {count_params(state.params):,}")
+        self.logger.console_line(f"model parameters: {count_params(dict(self.model.named_parameters())):,}")
         return state
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
@@ -190,6 +244,8 @@ class Trainer:
             t_log = time.time()
             for step in range(start_step, self.max_steps):
                 batch = next(batches)
+                if self.layout is not None and step == start_step and getattr(self.data, "batch_size", None):
+                    check_host_batch(len(batch), self.data.batch_size, self.mesh.data_size)
                 if self.accum > 1:
                     batch = batch.reshape((self.accum, -1) + batch.shape[1:])
                 with self._warm("train"):
@@ -224,7 +280,7 @@ class Trainer:
                         else:
                             self._watchdog.beat()
 
-                if self.preemption is not None and self.preemption.triggered:
+                if self.preemption is not None and self._preempted():
                     path = self.save("interrupt")
                     self.logger.console_line(f"preempted at step {step + 1}; checkpoint saved to {path}")
                     last_metrics["preempted"] = True
@@ -254,6 +310,16 @@ class Trainer:
             last_metrics["best/bpd"] = self.best_bpd
         return last_metrics
 
+    def _preempted(self) -> bool:
+        """Whether any rank caught the preemption signal (all ranks then
+        save together)."""
+        flag = bool(self.preemption.triggered)
+        if self.layout is None:
+            return flag
+        t = torch.tensor([int(flag)], device=self.mesh.device())
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
+
     # ------------------------------------------------------------------- eval
 
     def validate(self, *, stage: str = "val") -> dict:
@@ -282,6 +348,8 @@ class Trainer:
                     break
                 with self._warm("eval"):
                     out = self._eval_step(self.state, self._to_device(batch), self._to_device(mask), generator)
+                if self.layout is not None:
+                    out = self.layout.sum_over_data({k: v.to(torch.float64) for k, v in out.items()})
                 for k, v in out.items():
                     sums[k] = sums.get(k, 0.0) + float(v)
                 self._beat()
@@ -297,7 +365,9 @@ class Trainer:
                     if k.startswith("part_sum/"):
                         metrics[f"{prefix}/{k[len('part_sum/'):]}"] = v / sums["count"]
             if fid is not None:
-                fake = reduce_stats_across_processes(fid.fake_stats)
+                fake = fid.fake_stats
+                if self.layout is not None:
+                    fake = reduce_stats_across_processes(fake, device=self.mesh.device())
                 if fake.n >= 2:
                     metrics[f"{prefix}/fid-{fake.sum.shape[0]}"] = fid_from_stats(fake, fid.real_stats)
                 fid.reset()
@@ -318,11 +388,37 @@ class Trainer:
     def test(self) -> dict:
         return self.validate(stage="test")
 
+    def eval_model_fn(self, state: Optional[TrainState] = None):
+        """``(mu, t) -> prediction`` of the eval model on ``state``'s (the
+        trainer's state's) EMA parameters, gathered once under a layout: what
+        the plots and the eval scripts call the model through. Every rank of
+        a layout must make it and call it in lockstep."""
+        params = eval_params(state if state is not None else self.state, layout=self.layout)
+        return lambda mu, t: self.eval_apply(params, mu, t)
+
     def _update_fid(self, fid, generator: torch.Generator, n: int, mask: np.ndarray) -> None:
         """Draw ``n`` samples (the whole eval batch, padded rows included, as
         the JAX trainer draws them) with the EMA model and feed the rows the
-        mask keeps into the FID accumulator: FID sees the split's size."""
-        samples01 = self.data.discretization().to_unit_interval(self.sample_fn(self.state, generator, n))
+        mask keeps into the FID accumulator: FID sees the split's size.
+
+        Under a layout ``n`` is this data rank's rows: every rank draws the
+        global batch's noise in lockstep from the replicated generator and
+        samples its own rows alone; only model rank 0 of each replica embeds
+        them (the model ranks of one replica hold the same rows), and
+        ``validate`` sums the statistics over every process."""
+        m = self.mesh
+        global_eval = getattr(self.data, "eval_batch_size", None)
+        if self.layout is not None and global_eval is not None and n * m.data_size != int(global_eval):
+            raise RuntimeError(
+                f"eval batch contract violated: host yielded {n} rows but "
+                f"eval_batch_size={global_eval} over {m.data_size} processes requires "
+                f"{int(global_eval) // m.data_size} equal rows per host"
+            )
+        rows = slice(m.data_rank * n, (m.data_rank + 1) * n) if self.layout is not None else None
+        samples = self.sample_fn(self.state, generator, n * m.data_size, rows=rows)
+        if m.model_rank != 0:
+            return
+        samples01 = self.data.discretization().to_unit_interval(samples)
         fid.update(images_to_uint8(samples01.cpu().numpy()[mask]))
 
     # ------------------------------------------------------------ checkpoints
@@ -330,10 +426,19 @@ class Trainer:
     def save(self, tag: str = "last", *, wait: bool = True) -> Path:
         """Write ``ckpt_<tag>``. With ``wait=False`` (the periodic saves)
         only the device-to-host copy blocks and the disk write overlaps the
-        next steps; ``wait=True`` returns with the checkpoint written."""
+        next steps; ``wait=True`` returns with the checkpoint written.
+        Under a layout every rank joins the gather of the full state, rank
+        0 writes it, and with ``wait=True`` every rank waits for the write."""
         assert self.state is not None, "save() needs a state"
         path = self.run_dir / f"ckpt_{tag}"
-        kwargs = dict(config=self.config, data_state=self.data.state_dict(), extra={"best_bpd": self.best_bpd})
+        if self.layout is not None and not self.mesh.writes:
+            state_to_host(self.state, full=self.layout.full, host=False)
+            if wait:
+                dist.barrier()
+            return path
+        full = self.layout.full if self.layout is not None else None
+        kwargs = dict(config=self.config, data_state=self.data.state_dict(), full=full,
+                      extra={"best_bpd": self.best_bpd, "data_shards": self.mesh.data_size})
         t0 = time.perf_counter()
         if self.async_checkpointing:
             if self._ckpt_writer is None:
@@ -345,24 +450,45 @@ class Trainer:
         else:
             save_checkpoint(path, self.state, **kwargs)
             self.logger.log(int(self.state.step), {f"time/ckpt_{tag}_write_s": time.perf_counter() - t0})
+            if wait and self.layout is not None:
+                dist.barrier()
         return path
 
     def flush_checkpoints(self) -> None:
         """Block until every checkpoint in flight is written, and log how
-        long each write took."""
-        if self._ckpt_writer is None:
-            return
-        for path, seconds in self._ckpt_writer.wait():
-            self.logger.log(int(self.state.step), {f"time/{path.name}_write_s": seconds})
+        long each write took; under a layout every rank waits for rank 0's
+        writes."""
+        if self._ckpt_writer is not None:
+            for path, seconds in self._ckpt_writer.wait():
+                self.logger.log(int(self.state.step), {f"time/{path.name}_write_s": seconds})
+        if self.layout is not None:
+            dist.barrier()
+
+    def _rescaled_cursor(self, data_state: dict, shards: int) -> dict:
+        """The data cursor of a run over ``shards`` data ranks, for this
+        run's: each shard's stream position scaled by the ratio (a stream
+        shard takes every ``shards``-th index of the epoch's permutation, so
+        the same examples have been seen)."""
+        n = self.mesh.data_size
+        stream = data_state.get("stream")
+        if shards == n or stream is None:
+            return data_state
+        seen = int(stream["pos"]) * int(shards)
+        if seen % n:
+            raise ValueError(f"a checkpoint of {shards} data ranks at stream position {stream['pos']} cannot "
+                             f"resume on {n}: {seen} examples do not split evenly")
+        return {**data_state, "stream": {**stream, "pos": seen // n}}
 
     def restore(self, path: str | Path) -> None:
         # a restore may target a path an async save is still writing
         self.flush_checkpoints()
         if self.state is None:
             self.state = self.init_state()
-        self.state, meta = load_checkpoint(path, self.state)
+        self.state, meta = load_checkpoint(path, self.state,
+                                           local=self.layout.local if self.layout is not None else None)
         if meta.get("data_state"):
-            self.data.load_state_dict(meta["data_state"])
+            self.data.load_state_dict(self._rescaled_cursor(meta["data_state"],
+                                                            (meta.get("extra") or {}).get("data_shards", 1)))
         # best-checkpoint bookkeeping: a requeued run never overwrites
         # ckpt_best with a worse model
         best = (meta.get("extra") or {}).get("best_bpd")

@@ -21,6 +21,20 @@ masks of a step are a function of the state, and the caller's own draws are
 untouched. The algorithm's noise comes from the state's generator. With
 gradient accumulation each micro-batch draws its own masks, from
 (``dropout_seed``, step, micro-batch index).
+
+Under a parallel layout (``layout``, a
+:class:`~bsi_torch.parallel.StateLayout`) each data rank holds its rows of
+the global batch and the state's shards. The step then draws the global
+batch's ``t`` and ``eps`` from the replicated generator and keeps its rows
+(one image-sized draw a rank), all-gathers the FSDP parameters before the
+forward, averages the gradients and the loss over the data group, and
+takes the global norm over every rank's shards. The attention kernels'
+seeds are drawn for the global ``[batch, heads]`` and cut to the rank's
+rows and heads (``TokenAttention``). The ``nn.Dropout`` masks cannot be cut
+by row: they come from (``dropout_seed``, step, micro-batch, data rank),
+equal on the model ranks of one replica (under sequence parallelism each
+keeps its tokens' part of them); data rank 0 draws what one process
+draws.
 """
 
 from __future__ import annotations
@@ -88,6 +102,16 @@ def module_apply(module: nn.Module, *, train: bool = True) -> ModelApply:
     return apply
 
 
+def eval_params(state: TrainState, *, use_ema: bool = True, layout=None) -> dict:
+    """The parameters an evaluation reads: the EMA's (the parameters' when
+    ``use_ema`` is False), with ``layout`` the FSDP leaves all-gathered, once
+    for the whole evaluation."""
+    params = state.ema_params if use_ema else state.params
+    if layout is not None and layout.distributed:
+        params = layout.gather_params(params, grad=False)
+    return params
+
+
 def make_train_step(
     algorithm,
     model_apply: ModelApply,
@@ -96,6 +120,7 @@ def make_train_step(
     accum_steps: int = 1,
     *,
     noise: Optional[StepNoise] = None,
+    layout=None,
 ):
     """Build ``train_step(state, batch) -> (state, metrics)``.
 
@@ -112,30 +137,45 @@ def make_train_step(
     dropout masks (:func:`micro_seed`), the losses and gradients are summed
     in micro-batch order and scaled by ``1 / accum_steps``, and the
     optimizer, the EMA and the schedule advance once.
+
+    With ``layout`` (a :class:`~bsi_torch.parallel.StateLayout`) ``batch`` is
+    this data rank's rows and ``state`` holds its shards; ``noise`` is then
+    asked for the global batch's draws (a view of the global shape is
+    passed), of which the rank keeps its rows. The metrics are the global
+    batch's.
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    spread = layout is not None and layout.distributed
 
-    def loss_and_grads(state: TrainState, batch: torch.Tensor, t, eps, seed: int):
-        model_fn = lambda mu, tt: model_apply(state.params, mu, tt)
+    def loss_and_grads(params: dict, batch: torch.Tensor, t, eps, seed: int):
+        model_fn = lambda mu, tt: model_apply(params, mu, tt)
+        if spread:
+            seed = layout.dropout_seed(seed)
         with _dropout_rng(batch.device, seed):
             loss = algorithm._train_loss_on(model_fn, batch, t, eps).mean()
-        return loss.detach(), list(torch.autograd.grad(loss, list(state.params.values())))
+        return loss.detach(), list(torch.autograd.grad(loss, list(params.values())))
 
     def draws(state: TrainState, batch: torch.Tensor, *micro):
+        like = layout.global_like(batch) if spread else batch
         if noise is None:
-            return algorithm.train_noise(state.generator, batch)
-        return noise(state.step, batch, *micro)
+            t, eps = algorithm.train_noise(state.generator, like)
+        else:
+            t, eps = noise(state.step, like, *micro)
+        if spread:
+            t, eps = layout.rows(t, 0, batch.shape[0]), layout.rows(eps, 0, batch.shape[0])
+        return t, eps
 
     def train_step(state: TrainState, batch: torch.Tensor):
+        params = layout.gather_params(state.params) if spread else state.params
         if accum_steps == 1:
-            loss, grads = loss_and_grads(state, batch, *draws(state, batch),
+            loss, grads = loss_and_grads(params, batch, *draws(state, batch),
                                          step_seed(state.dropout_seed, state.step))
         else:
             if batch.shape[0] != accum_steps:
                 raise ValueError(f"batch of shape {tuple(batch.shape)}: want [{accum_steps}, micro, ...]")
             for i in range(accum_steps):
-                mloss, mgrads = loss_and_grads(state, batch[i], *draws(state, batch[i], i),
+                mloss, mgrads = loss_and_grads(params, batch[i], *draws(state, batch[i], i),
                                                micro_seed(state.dropout_seed, state.step, i))
                 if i == 0:
                     loss, grads = mloss, mgrads
@@ -145,7 +185,14 @@ def make_train_step(
             inv = 1.0 / accum_steps
             loss = loss * inv
             torch._foreach_mul_(grads, inv)
-        norm = global_norm(grads)
+        del params
+        if spread:
+            names = list(state.params)
+            grads = layout.reduce_grads(names, grads)
+            norm = layout.grad_norm(names, grads)
+            loss = layout.mean_over_data(loss)
+        else:
+            norm = global_norm(grads)
         tx.update(grads, state.opt_state, state.params, grad_norm=norm)
         ema_update(ema_cfg, state.step, state.ema_params, state.params)
         maybe_switch_ema(ema_cfg, state.step, state.ema_params, state.params)
@@ -163,6 +210,7 @@ def make_eval_step(
     n_measure_samples: int = 1,
     use_ema: bool = True,
     noise: Optional[EvalNoise] = None,
+    layout=None,
 ):
     """Build ``eval_step(state, batch, mask, generator) -> metrics``: masked
     ELBO sums over the batch.
@@ -175,17 +223,26 @@ def make_eval_step(
     eval mode (``module_apply(model, train=False)``). The draws come from
     ``generator`` (on the batch's device) unless ``noise`` is given, which
     the tests use to feed the JAX package's draws.
+
+    With ``layout`` ``batch`` is this data rank's rows: the draws are the
+    global batch's (``noise`` is passed a view of its shape), cut to the
+    rank's rows, and the sums are over its rows (the caller sums them over
+    the data group). The FSDP parameters are all-gathered for the step.
     """
+    spread = layout is not None and layout.distributed
 
     def eval_step(state: TrainState, batch: torch.Tensor, mask: torch.Tensor,
                   generator: Optional[torch.Generator] = None) -> dict:
-        params = state.ema_params if use_ema else state.params
+        params = eval_params(state, use_ema=use_ema, layout=layout)
         model_fn = lambda mu, t: model_apply(params, mu, t)
         with torch.inference_mode():
+            like = layout.global_like(batch) if spread else batch
             if noise is None:
-                draws = algorithm.elbo_noise(generator, batch, n_recon_samples, n_measure_samples)
+                draws = algorithm.elbo_noise(generator, like, n_recon_samples, n_measure_samples)
             else:
-                draws = noise(batch)
+                draws = noise(like)
+            if spread:
+                draws = tuple(layout.rows(d, 1, batch.shape[0]) for d in draws)
             elbo, bpd, extra = algorithm._elbo_on(model_fn, batch, *draws)
             m = mask.to(elbo.dtype)
             out = {"elbo_sum": (elbo * m).sum(), "bpd_sum": (bpd * m).sum(), "count": m.sum()}
@@ -197,15 +254,19 @@ def make_eval_step(
     return eval_step
 
 
-def make_sample_fn(algorithm, model_apply: ModelApply, *, use_ema: bool = True):
-    """Build ``sample(state, generator, n_samples, t=None, dtype=float32)``:
-    the algorithm's sampler on the EMA parameters (the parameters when
-    ``use_ema`` is False), on the generator's device. The model should be in
-    eval mode."""
+def make_sample_fn(algorithm, model_apply: ModelApply, *, use_ema: bool = True, layout=None):
+    """Build ``sample(state, generator, n_samples, t=None, dtype=float32,
+    rows=None)``: the algorithm's sampler on the EMA parameters (the
+    parameters when ``use_ema`` is False), on the generator's device; with
+    ``rows`` (a slice of ``range(n_samples)``) the noise of ``n_samples`` is
+    drawn and only those rows are sampled. The model should be in eval mode.
+    With ``layout`` the FSDP parameters are all-gathered once a call; every
+    rank of a model group must call it in lockstep."""
 
-    def sample(state: TrainState, generator: torch.Generator, n_samples: int, t=None, dtype=torch.float32):
-        params = state.ema_params if use_ema else state.params
+    def sample(state: TrainState, generator: torch.Generator, n_samples: int, t=None, dtype=torch.float32,
+               rows: Optional[slice] = None):
+        params = eval_params(state, use_ema=use_ema, layout=layout)
         model_fn = lambda mu, tt: model_apply(params, mu, tt)
-        return algorithm.sample(model_fn, generator, n_samples, device=generator.device, t=t, dtype=dtype)
+        return algorithm.sample(model_fn, generator, n_samples, device=generator.device, t=t, dtype=dtype, rows=rows)
 
     return sample

@@ -58,6 +58,24 @@ class MetricLogger:
             self._wandb.finish()
 
 
+class SilentLogger(MetricLogger):
+    """The logger of a rank that writes nothing (every rank but 0 of a
+    parallel run): no files, no console, no W&B."""
+
+    def __init__(self):
+        self._wandb = None
+        self._file = None
+
+    def log(self, step: int, metrics: Mapping[str, Any]) -> None:
+        pass
+
+    def log_hyperparams(self, config: Mapping[str, Any]) -> None:
+        pass
+
+    def console_line(self, text: str) -> None:
+        pass
+
+
 def _to_py(v):
     try:
         return float(v)

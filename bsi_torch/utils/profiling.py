@@ -1,7 +1,8 @@
 """Tracing a window of training steps.
 
 Counterpart of ``bsi_tpu/utils/profiling.py``: ``trainer.profile_steps``
-traces that many steps (from step 10) with ``torch.profiler``, the CPU and,
+traces that many steps (from step 10, or a run's last ones where it is
+shorter: ``build_task``) with ``torch.profiler``, the CPU and,
 on the card, its kernels, and writes a Chrome trace under ``<run>/profile``.
 """
 

@@ -52,7 +52,18 @@ lazy ``.npy`` row source, its batches held to the preloaded rows
 (``[imagenet64.fit]``), each with the exact launches of K2, K3, K4f and K4b.
 VDM and BFN on DiT-L/2 are also held card vs CPU (``[baselines.check]``),
 and K2, K3, K4f and K4b to their twins at the recipes' f32 shapes
-(``[k2.check]``, ``[k3.check]``, ``[k4.check]``).
+(``[k2.check]``, ``[k3.check]``, ``[k4.check]``). The parallel layouts
+(``bsi_torch/parallel/``): K2, K3, K4f and K4b at the local shapes that
+tensor and sequence parallelism over 2 and 4 ranks give them, each rank's
+call against the slice of the full call (``[parallel.shards]``); the entry
+point in a process of its own over NCCL at one rank with FSDP on the
+imagenet32 recipe, bit for bit against the same run without a process
+group, its profile showing NCCL's all-gather and reduce-scatter, its
+checkpoint restored here without a group (``[parallel.launch]``); and two
+ranks on the one card over gloo on a 2-block DiT-L/2, TP 2 with SP, and TP 2
+with and without SP at dropout 0.05, each against one process
+(``[parallel.gloo2]``); ``chip_smoke.py --child ...`` is how the
+script starts those processes.
 Prints one line per phase, a JSON line
 with every kernel's numbers, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -179,6 +190,294 @@ IMAGENET_MICRO = 64
 IMAGENET_STEPS = 2
 IMAGENET_EVAL_BATCH = 512
 IMAGENET_K = 50  # configs/task/algorithm/*.yaml: the plots' sampling steps
+
+
+# The parallel layouts (bsi_torch/parallel/). The card's machine has one GPU,
+# and NCCL refuses two ranks on one device, so: [parallel.launch] runs the
+# entry point over NCCL at one rank (WORLD_SIZE=1, the torchrun variables of
+# bsi_torch/utils/launcher.py) with FSDP, on the imagenet32 recipe at full
+# width, f32, against the same run without a process group, bit for bit;
+# [parallel.gloo2] runs two ranks on the one card over gloo on a 2-block
+# DiT-L/2 under GLOO2_CASES' layouts, each against one process (with dropout
+# on, through the kernels' seed cut and the SP mask cut); [parallel.shards]
+# holds the DiT's kernels at the local shapes TP and SP give them against
+# the full calls. Cut of [parallel.launch]: batch 64 (not 8x64), 2 steps, one
+# validation over one eval batch of 64 a split, no plots, no test pass.
+PARALLEL_TP = (2, 4)
+PARALLEL_BATCH = 64
+PARALLEL_STEPS = 2
+GLOO2_BATCH = 8
+GLOO2_DEPTH = 2
+# [parallel.gloo2]'s layouts, each against one process: (name, SP, dropout)
+GLOO2_CASES = (("tp_sp", True, None), ("tp_dropout", False, DIT_DROPOUT), ("tp_sp_dropout", True, DIT_DROPOUT))
+COUNTER_NAMES = ("flash_attention", "flash_attention_dropout", "flash_attention_bwd", "groupnorm_silu_fwd",
+                 "groupnorm_silu_bwd", "flash_attention_fused", "flash_attention_packed", "layernorm_modulate_fwd",
+                 "flash_attention_fused_bwd", "flash_attention_packed_bwd", "layernorm_modulate_bwd")
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper by the name its JSON entry carries."""
+    from bsi_torch.ops import flash_attention as fa
+    from bsi_torch.ops import flash_attention_packed as fap
+    from bsi_torch.ops import groupnorm_silu as gn
+    from bsi_torch.ops import ln_modulate as lm
+
+    wrappers = (fa.flash_attention_cuda, fa.flash_attention_dropout_cuda, fa.flash_attention_bwd_cuda,
+                gn.groupnorm_silu_cuda, gn.groupnorm_silu_bwd_cuda, fap.flash_attention_fused_cuda,
+                fap.flash_attention_packed_cuda, lm.layernorm_modulate_cuda, fap.flash_attention_fused_bwd_cuda,
+                fap.flash_attention_packed_bwd_cuda, lm.layernorm_modulate_bwd_cuda)
+    return dict(zip(COUNTER_NAMES, wrappers))
+
+
+def child_train(out_json: str, overrides: list[str]) -> int:
+    """``--child train``: ``python -m bsi_torch.train``'s ``main`` in this
+    process (f32 with TF32 off, cuDNN deterministic, as [trainer.resume]),
+    joined to the process group its environment describes, if any; writes
+    the kernels' launches, the peak memory and the group's backend."""
+    import torch
+    import torch.distributed as dist
+
+    from bsi_torch.train.__main__ import main as train_main
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    rc = train_main(overrides)
+    counts = {name: w.launches for name, w in launch_counters().items()}
+    result = {"rc": rc, "launches": counts, "peak_bytes": torch.cuda.max_memory_allocated(),
+              "backend": dist.get_backend() if dist.is_initialized() else None,
+              "world": dist.get_world_size() if dist.is_initialized() else None}
+    Path(out_json).write_text(json.dumps(result))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return rc
+
+
+def child_gloo2(rank: int, store: str, out_json: str) -> int:
+    """``--child gloo2``: one of two ranks on cuda:0 over gloo. It probes
+    the four collectives on CUDA tensors, then runs GLOO2_BATCH x 2 steps of
+    a 2-block DiT-L/2 (f32, TF32 off) under each of GLOO2_CASES' layouts
+    and the same steps in one process (no collective), and writes each
+    case's metrics, the largest distance of a leaf and the layout run's
+    launches. With dropout on the data size is 1, so the attention's seeds
+    (K2, K3) and the blocks' nn.Dropout masks are one process's."""
+    import torch
+    import torch.distributed as dist
+
+    from bsi_torch import BSI
+    from bsi_torch.models import DenoisingDiT
+    from bsi_torch.nn import FourierFeatures
+    from bsi_torch.parallel import StateLayout, make_mesh, token_stream_sharding
+    from bsi_torch.profile_sampling import DIT_L2
+    from bsi_torch.train import EMAConfig, TrainState, make_optimizer, make_train_step, module_apply
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+    probe = {}
+    for name, fn in (("all_reduce", lambda: dist.all_reduce(torch.ones(4, device=dev))),
+                     ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+                         torch.empty(8, device=dev), torch.ones(4, device=dev))),
+                     ("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(
+                         torch.empty(4, device=dev), torch.ones(8, device=dev))),
+                     ("broadcast", lambda: dist.broadcast(torch.ones(4, device=dev), 0))):
+        fn()
+        probe[name] = "ok"
+    mesh = make_mesh(model_parallelism=2)
+    lr = 1e-4
+
+    def run(layout, sp, dropout):
+        torch.manual_seed(SEED)
+        model = DenoisingDiT(fourier_features=FourierFeatures(6, 8), device=dev, dropout=dropout,
+                             **{**DIT_L2, "depth": GLOO2_DEPTH})
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if ".ada_out." in name:  # adaLN-Zero: at init every block is the identity
+                    p.normal_(0.0, 0.02)
+        full = dict(model.named_parameters())
+        if layout:
+            if sp:
+                model.set_token_sharding(token_stream_sharding(mesh))
+            else:
+                model.set_layout(mesh)
+            layout = StateLayout.build(mesh, full, tensor=True)
+            params = {n: layout.local(n, p.detach()).requires_grad_() for n, p in full.items()}
+        else:
+            layout, params = None, full
+        tx = make_optimizer(lr)
+        state = TrainState.create(params=params, opt_state=tx.init(params),
+                                  generator=torch.Generator(device=dev).manual_seed(SEED + 11))
+        step = make_train_step(BSI(data_shape=DIT_L2["data_shape"], lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6),
+                               module_apply(model), tx, EMAConfig(), layout=layout)
+        batch = torch.randint(0, 256, (GLOO2_BATCH,) + DIT_L2["data_shape"],
+                              generator=torch.Generator(device=dev).manual_seed(SEED + 12), device=dev)
+        batch = batch / 255.0 * 2.0 - 1.0
+        counters = launch_counters()
+        for w in counters.values():
+            w.launches = 0
+        metrics = []
+        for _ in range(PARALLEL_STEPS):
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        after = {n: (layout.full(n, p.detach()) if layout else p.detach()).clone() for n, p in state.params.items()}
+        return metrics, after, {name: w.launches for name, w in counters.items()}, \
+            sum(p.numel() for p in state.params.values())
+
+    bases = {dropout: run(False, False, dropout)[:2] for dropout in dict.fromkeys(c[2] for c in GLOO2_CASES)}
+    cases = {}
+    for case, sp, dropout in GLOO2_CASES:
+        base, base_params = bases[dropout]
+        tp, tp_params, launches, local_numel = run(True, sp, dropout)
+        # each leaf's root-mean-square distance over the largest move Adam could
+        # have made (lr a step); the key bias has no gradient (softmax ignores a
+        # shift shared by every key): its k columns are rounding noise on both
+        # sides, so it is left to Adam's bound alone
+        worst, worst_name = 0.0, None
+        for name, want in base_params.items():
+            diff = (tp_params[name] - want).double()
+            if name.endswith("attn.to_qkv.bias"):
+                diff = diff.reshape(8, 3, 128)[:, [0, 2]]  # (group, q|k|v, 2 heads of 64)
+            rms = float(diff.square().mean().sqrt()) / (lr * PARALLEL_STEPS)
+            if rms > worst:
+                worst, worst_name = rms, name
+        cases[case] = {"base": base, "layout": tp, "launches": launches, "worst_rms_over_lr_sum": worst,
+                       "worst_leaf": worst_name, "local_numel": local_numel,
+                       "full_numel": sum(p.numel() for p in base_params.values())}
+    Path(out_json).write_text(json.dumps({"probe": probe, "cases": cases}))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_shards(entries: dict, randn, dev, gen, flush) -> None:
+    """``[parallel.shards]``: DiT-L/2's kernels at the local shapes of tensor
+    and sequence parallelism over tp ranks. A rank's K2 and K3 run on its
+    columns of the grouped qkv buffer, [B, S, 3*1024/tp] with 16/tp heads
+    and those heads' seeds; its K4f and K4b on its S/tp tokens, the model
+    group summing K4b's dshift and dscale. Each rank's call runs here, in
+    turn, against the slice of the full call: K2 the full output's heads,
+    bit for bit (with dropout at 0.05, so the keep masks too: one flipped
+    bit moves an output); K3 the full dqkv's columns (1e-5 of the largest
+    element in f32, 2e-2 in bf16, as ``[k3.check]``); K4f and K4b's dx the
+    full call's rows, bit for bit (a row is one warp's in either plan); the
+    sum over ranks of dshift and dscale, in the call's dtype as the
+    all-reduce sums them, within 1e-5 of the full call's largest element in
+    f32 (the cluster of an image's CTAs sums its rows in another order than
+    the full call) and 2^-7, one bf16 ulp at 1, in bf16 (each rank's partial
+    is rounded, then their sum). The sum without the last rank's partial,
+    what a reduction that lost a rank gives, must read above the gate. One
+    rank's calls are timed beside the full ones and written into
+    ``entries[...]["tp_local"]`` with their bounds."""
+    import torch
+
+    from bsi_torch.ops import flash_attention_packed as fap
+    from bsi_torch.ops import ln_modulate as lm
+    from bsi_torch.profile_sampling import DIT_L2
+
+    dim, heads = DIT_L2["dim"], DIT_L2["heads"]
+    b, seq, d = BATCH, (DATA_SHAPE[0] // DIT_L2["patch_size"]) ** 2, dim // heads
+    rate = DIT_DROPOUT
+    for dtype in (torch.bfloat16, torch.float32):
+        peak = BF16_TENSOR_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        es = torch.finfo(dtype).bits // 8
+        qkv = randn(b, seq, 3 * heads * d, dtype=dtype)
+        g = randn(b, seq, heads * d, dtype=dtype)
+        seeds = fap.draw_seeds(b, heads, dev, gen)
+        out, lse = fap.flash_attention_fused_cuda(qkv, heads, seeds, rate, with_lse=True)
+        dqkv = fap.flash_attention_fused_bwd_cuda(qkv, g, heads, seeds, rate, out=out, lse=lse)
+        x = randn(b, seq, dim, dtype=dtype) * 2.0 + 0.5
+        gx = randn(b, seq, dim, dtype=dtype)
+        mod = randn(b, 6 * dim, dtype=dtype)
+        shift, scale = mod[:, :dim], mod[:, dim:2 * dim]
+        y = lm.layernorm_modulate_cuda(x, shift, scale)
+        dx, dshift, dscale = lm.layernorm_modulate_bwd_cuda(x, scale, gx)
+        k3_tol = (2e-2 if dtype == torch.bfloat16 else 1e-5) * dqkv.abs().max().item()
+        cond_tol = 2**-7 if dtype == torch.bfloat16 else 1e-5
+        full_ms = {
+            "k2": time_ms(lambda: fap.flash_attention_fused_cuda(qkv, heads, seeds, rate), flush=flush),
+            "k3": time_ms(lambda: fap.flash_attention_fused_bwd_cuda(qkv, g, heads, seeds, rate, out=out, lse=lse),
+                          flush=flush),
+            "k4f": time_ms(lambda: lm.layernorm_modulate_cuda(x, shift, scale), flush=flush),
+            "k4b": time_ms(lambda: lm.layernorm_modulate_bwd_cuda(x, scale, gx), flush=flush)}
+        for tp in PARALLEL_TP:
+            h, rows = heads // tp, seq // tp
+            cols = lambda r, width: slice(r * width // tp, (r + 1) * width // tp)
+            parts = []
+            for r in range(tp):
+                qkv_r = qkv[..., cols(r, 3 * heads * d)].contiguous()
+                seeds_r = seeds[:, cols(r, heads)].contiguous()
+                out_r, lse_r = fap.flash_attention_fused_cuda(qkv_r, h, seeds_r, rate, with_lse=True)
+                dqkv_r = fap.flash_attention_fused_bwd_cuda(qkv_r, g[..., cols(r, heads * d)].contiguous(), h,
+                                                            seeds_r, rate, out=out_r, lse=lse_r)
+                x_r = x[:, cols(r, seq)].contiguous()
+                y_r = lm.layernorm_modulate_cuda(x_r, shift, scale)
+                gx_r = gx[:, cols(r, seq)].contiguous()
+                dx_r, dshift_r, dscale_r = lm.layernorm_modulate_bwd_cuda(x_r, scale, gx_r)
+                parts.append(dict(
+                    k2=torch.equal(out_r, out[..., cols(r, heads * d)]),
+                    k3=(dqkv_r.float() - dqkv[..., cols(r, 3 * heads * d)].float()).abs().max().item(),
+                    k4f=torch.equal(y_r, y[:, cols(r, seq)]), k4b_dx=torch.equal(dx_r, dx[:, cols(r, seq)]),
+                    dshift=dshift_r, dscale=dscale_r))
+            def rel(key, full, ranks):
+                total = ranks[0][key]
+                for part in ranks[1:]:  # in rank order, as the all-reduce adds
+                    total = total + part[key]
+                return (total.float() - full.float()).abs().max().item() / full.float().abs().max().item()
+
+            k2_equal, k4f_equal, dx_equal = (all(p[key] for p in parts) for key in ("k2", "k4f", "k4b_dx"))
+            k3_err = max(p["k3"] for p in parts)
+            cond_err = max(rel("dshift", dshift, parts), rel("dscale", dscale, parts))
+            cond_lost = min(rel("dshift", dshift, parts[:-1]), rel("dscale", dscale, parts[:-1]))
+            if not (k2_equal and k4f_equal and dx_equal) or k3_err > k3_tol or not cond_err <= cond_tol < cond_lost:
+                raise AssertionError(f"parallel.shards tp={tp} {dtype}: K2 equal {k2_equal}, K3 err {k3_err:.3e} "
+                                     f"(tol {k3_tol:.3e}), K4f equal {k4f_equal}, K4b dx equal {dx_equal}, "
+                                     f"dshift/dscale rel err {cond_err:.3e} (tol {cond_tol}; a lost rank reads "
+                                     f"{cond_lost:.3e})")
+            # rank 0's calls, timed, with their bounds (as the full calls')
+            qkv_0, seeds_0, g_0 = qkv[..., cols(0, 3 * heads * d)].contiguous(), seeds[:, :h].contiguous(), \
+                g[..., cols(0, heads * d)].contiguous()
+            out_0, lse_0 = fap.flash_attention_fused_cuda(qkv_0, h, seeds_0, rate, with_lse=True)
+            x_0, gx_0 = x[:, :rows].contiguous(), gx[:, :rows].contiguous()
+            local = {
+                "k2": dict(shape=list(qkv_0.shape), heads=h, ms=time_ms(
+                    lambda: fap.flash_attention_fused_cuda(qkv_0, h, seeds_0, rate), flush=flush),
+                    **bound(4 * b * seq * h * d * es + seeds_0.numel() * 4, 4 * b * h * seq * seq * d, peak)),
+                "k3": dict(shape=list(qkv_0.shape), heads=h, ms=time_ms(
+                    lambda: fap.flash_attention_fused_bwd_cuda(qkv_0, g_0, h, seeds_0, rate, out=out_0, lse=lse_0),
+                    flush=flush),
+                    **bound(7 * b * seq * h * d * es + seeds_0.numel() * 4, 10 * b * h * seq * seq * d, peak)),
+                "k4f": dict(shape=list(x_0.shape), ms=time_ms(lambda: lm.layernorm_modulate_cuda(x_0, shift, scale),
+                                                               flush=flush),
+                            **bound(2 * x_0.numel() * es + 2 * b * dim * es, K4F_OPS_PER_ELEM * x_0.numel(), F32_FLOPS)),
+                "k4b": dict(shape=list(x_0.shape), ms=time_ms(lambda: lm.layernorm_modulate_bwd_cuda(x_0, scale, gx_0),
+                                                               flush=flush),
+                            **bound(3 * x_0.numel() * es + 3 * b * dim * es, K4B_OPS_PER_ELEM * x_0.numel(), F32_FLOPS)),
+            }
+            tag = f"tp{tp}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"
+            for key, entry in entries.items():
+                entry.setdefault("tp_local", {})[tag] = {**local[key], "full_ms": full_ms[key]}
+            phase("parallel.shards", tp=tp, dtype=str(dtype), batch=b, rate=rate, k2_heads_bit_for_bit=k2_equal,
+                  k3_max_abs_err=f"{k3_err:.3e}", k3_tol=f"{k3_tol:.3e}", k4f_rows_bit_for_bit=k4f_equal,
+                  k4b_dx_rows_bit_for_bit=dx_equal, k4b_cond_sum_rel_err=f"{cond_err:.3e}", cond_tol=cond_tol,
+                  k4b_cond_lost_rank_rel_err=f"{cond_lost:.3e}",
+                  **{f"{key}_ms": f"{local[key]['ms']:.4f}" for key in local},
+                  **{f"{key}_full_ms": f"{full_ms[key]:.4f}" for key in local},
+                  **{f"{key}_bound_ms": f"{local[key]['bound_ms']:.4f}" for key in local})
+
+
+def nccl_events(trace: Path) -> dict:
+    """The device-side events of a Chrome trace whose names carry
+    ``nccl``, by name: the collectives' ranges and kernels."""
+    events = json.loads(trace.read_text()).get("traceEvents", [])
+    found: dict = {}
+    for e in events:
+        name = str(e.get("name", ""))
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_user_annotation") and "nccl" in name.lower():
+            found[name] = found.get(name, 0) + 1
+    return found
 
 
 def run_trainer(args: list[str], log: Path) -> tuple[Path, list[dict]]:
@@ -446,6 +745,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    if sys.argv[1:2] == ["--child"]:
+        # a process that [parallel.launch] or [parallel.gloo2] starts
+        kind, args = sys.argv[2], sys.argv[3:]
+        if kind == "train":
+            return child_train(args[0], args[1:])
+        return child_gloo2(int(args[0]), args[1], args[2])
     import numpy as np
     from torch.nn import functional as F
 
@@ -1225,6 +1530,9 @@ def main() -> int:
               **{key: f"{err:.3e}" for key, err in errs.items()},
               tol="k4f, k4b dx 1e-5; k4b dshift, dscale 1e-4 of the largest element")
         del x4, mod4, shift4, scale4
+
+    # [parallel.shards]: the DiT's kernels at the local shapes of TP and SP
+    parallel_shards(dict(k2=k2, k3=k3, k4f=k4f, k4b=k4b), randn, dev, gen, flush)
 
     def ln_library_bwd(b=b, seq=seq, dim=dim):
         x_lib = randn(b, seq, dim, dtype=torch.bfloat16).requires_grad_()
@@ -2469,6 +2777,157 @@ def main() -> int:
           cut=f"shards from seed {SEED} ({IMAGENET_SHARDS[64][0]} train); {IMAGENET_STEPS} steps; 1 eval batch of "
               "128 a split; no sanity validation, no plots, no test pass")
     del gathered, eager, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- [parallel.launch]: the entry point over NCCL
+    # python -m bsi_torch.train's main in a process of its own (chip_smoke.py
+    # --child train), twice: with the torchrun variables of one node and one
+    # GPU (bsi_torch/utils/launcher.py::torchrun_env) and without any. FSDP
+    # on, imagenet32 (DiT-L/2, BSI) at full width, f32; a profile of the
+    # second step (trainer.profile_steps); the checkpoint then restored here,
+    # without a process group.
+    from bsi_torch.scripts._common import load_trainer
+    from bsi_torch.train import load_checkpoint_config
+    from bsi_torch.utils.launcher import torchrun_env
+
+    import socket
+
+    def child(label: str, env: dict) -> tuple[dict, Path, list[dict], float]:
+        run_root = imagenet_root / label
+        run_root.mkdir(parents=True, exist_ok=True)
+        out = run_root / "child.json"
+        args = ["experiment=imagenet32", "task=bsi", sweep_seed, f"data.root={imagenet_root / 'data32'}",
+                f"data.batch_size={PARALLEL_BATCH}", f"data.eval_batch_size={PARALLEL_BATCH}",
+                "trainer.accumulate_grad_batches=1", f"trainer.max_steps={PARALLEL_STEPS}",
+                f"trainer.val_check_interval={PARALLEL_STEPS}", "trainer.log_every_n_steps=1",
+                "trainer.limit_eval_batches=1", "trainer.num_sanity_val_steps=0", "trainer.plots=no",
+                "eval_testset=no", "trainer.fsdp=yes", "trainer.profile_steps=1",
+                f"run_root={run_root}"]
+        environ = {k: v for k, v in os.environ.items() if k not in torchrun_env()}
+        t0 = time.perf_counter()
+        with open(run_root / "console.log", "w") as log:
+            proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--child", "train", str(out), *args],
+                                  env={**environ, **env}, stdout=log, stderr=subprocess.STDOUT, timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print((run_root / "console.log").read_text()[-4000:], file=sys.stderr)
+            raise AssertionError(f"parallel.launch {label}: the child exited {proc.returncode}")
+        (run_dir,) = [q.parent for q in run_root.glob("**/metrics.jsonl")]
+        records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        return json.loads(out.read_text()), run_dir, records, wall
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    nccl, nccl_dir, nccl_records, nccl_wall = child("parallel_nccl", torchrun_env(master_port=port))
+    alone, alone_dir, alone_records, alone_wall = child("parallel_alone", {})
+    # launches: the train steps run K2 and K3 once a block, K4f and K4b twice;
+    # the validation's two splits two forwards each (BSI)
+    forwards = PARALLEL_STEPS + 2 * 2
+    want_launches = {name: 0 for name in COUNTER_NAMES}
+    want_launches.update(flash_attention_fused=K2_PER_FORWARD * forwards,
+                         layernorm_modulate_fwd=K4F_PER_FORWARD * forwards, flash_attention_fused_bwd=K3_PER_STEP * PARALLEL_STEPS,
+                         layernorm_modulate_bwd=K4B_PER_STEP * PARALLEL_STEPS)
+    for label, got in (("nccl", nccl), ("alone", alone)):
+        if got["launches"] != want_launches:
+            raise AssertionError(f"parallel.launch {label} launches {got['launches']}, want {want_launches}")
+    if nccl["backend"] != "nccl" or nccl["world"] != 1 or alone["backend"] is not None:
+        raise AssertionError(f"parallel.launch backends: {nccl['backend']} x {nccl['world']}, {alone['backend']}")
+    collectives = nccl_events(nccl_dir / "profile" / "trace.json")
+    if not (any("all_gather" in n for n in collectives) and any("reduce_scatter" in n for n in collectives)):
+        raise AssertionError(f"parallel.launch: the profile shows no NCCL all-gather and reduce-scatter: {collectives}")
+    in_alone = nccl_events(alone_dir / "profile" / "trace.json")
+    series = lambda records, key: [r[key] for r in records if key in r]
+    same_metrics = {key: series(nccl_records, key) == series(alone_records, key) and len(series(alone_records, key))
+                    for key in ("train/loss", "train/grad_norm", "val/bpd", "train/bpd")}
+    a = torch.load(nccl_dir / "ckpt_last" / "state.pt", weights_only=True)
+    c = torch.load(alone_dir / "ckpt_last" / "state.pt", weights_only=True)
+    differing = [f"{part}.{name}" for part in ("params", "ema_params") for name in c[part]
+                 if not torch.equal(a[part][name], c[part][name])]
+    differing += [f"opt_state.{m}.{name}" for m in ("mu", "nu") for name in c["opt_state"][m]
+                  if not torch.equal(a["opt_state"][m][name], c["opt_state"][m][name])]
+    n_tensors = 2 * len(c["params"]) + 2 * len(c["opt_state"]["mu"])
+    del a
+    if differing or not all(same_metrics.values()):
+        raise AssertionError(f"parallel.launch: {len(differing)} of {n_tensors} tensors differ ({differing[:5]}), "
+                             f"metrics equal {same_metrics}")
+    # the checkpoint of the NCCL run restored here, without a process group
+    gc.collect()
+    torch.cuda.empty_cache()
+    restored, _, _ = load_trainer(str(nccl_dir / "ckpt_last"), run_dir=imagenet_root / "parallel_restore")
+    restore_equal = restored.layout is None and restored.state.step == PARALLEL_STEPS and all(
+        torch.equal(p.detach().cpu(), c["params"][name]) for name, p in restored.state.params.items())
+    fsdp_in_config = load_checkpoint_config(nccl_dir / "ckpt_last")["trainer"]["fsdp"]
+    del restored, c
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not restore_equal or not fsdp_in_config:
+        raise AssertionError(f"parallel.launch: restore without a group: equal {restore_equal}, fsdp {fsdp_in_config}")
+    rates = {label: series(records, "train/steps_per_sec") for label, records in (("nccl", nccl_records),
+                                                                                     ("alone", alone_records))}
+    phase("parallel.launch", entry="bsi_torch.train.__main__.main in a process of its own", recipe="imagenet32",
+          task="bsi", model="DiT-L/2, dim 1024, depth 24, 16 heads of 64, dropout 0.05", dtype="float32", tf32=False,
+          layout="fsdp, WORLD_SIZE=1", backend=nccl["backend"], batch=PARALLEL_BATCH, steps=PARALLEL_STEPS,
+          cut=f"batch {PARALLEL_BATCH} (not 8x64), {PARALLEL_STEPS} steps, one validation over one eval batch of "
+              f"{PARALLEL_BATCH} a split, no plots, no test pass",
+          nccl_device_events=collectives, nccl_device_events_without_group=in_alone,
+          bit_equal_to_no_group=not differing, compared=f"{n_tensors} tensors (params, EMA, mu, nu)",
+          **{f"{key.replace('/', '_')}_equal": bool(v) for key, v in same_metrics.items()},
+          loss=[f"{x:.9g}" for x in series(nccl_records, "train/loss")],
+          grad_norm=[f"{x:.9g}" for x in series(nccl_records, "train/grad_norm")],
+          ms_per_step={label: [f"{1e3 / r:.1f}" for r in rs] for label, rs in rates.items()},
+          peak_mem_gib={"nccl": f"{nccl['peak_bytes'] / 2**30:.3f}", "alone": f"{alone['peak_bytes'] / 2**30:.3f}"},
+          wall_s={"nccl": f"{nccl_wall:.1f}", "alone": f"{alone_wall:.1f}"}, restored_without_group=restore_equal,
+          launches={k: v for k, v in nccl["launches"].items() if v})
+    path_launches["parallel_launch"] = nccl["launches"]
+
+    # --------------------------- [parallel.gloo2]: two ranks on the one card, gloo
+    store = imagenet_root / "gloo2_store"
+    outs = [imagenet_root / f"gloo2_rank{r}.json" for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--child", "gloo2", str(r), str(store),
+                               str(outs[r])], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    gloo2_wall = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            print(log[-4000:], file=sys.stderr)
+            raise AssertionError(f"parallel.gloo2: rank {r} exited {p.returncode}")
+    ranks = [json.loads(o.read_text()) for o in outs]
+    g0, g1 = ranks
+    gloo2_launches = {name: 0 for name in COUNTER_NAMES}
+    gloo2_launches.update(flash_attention_fused=GLOO2_DEPTH * PARALLEL_STEPS,
+                          flash_attention_fused_bwd=GLOO2_DEPTH * PARALLEL_STEPS,
+                          layernorm_modulate_fwd=2 * GLOO2_DEPTH * PARALLEL_STEPS,
+                          layernorm_modulate_bwd=2 * GLOO2_DEPTH * PARALLEL_STEPS)
+    if not all(v == "ok" for v in g0["probe"].values()):
+        raise AssertionError(f"parallel.gloo2: collectives {g0['probe']}")
+    for case, sp, dropout in GLOO2_CASES:
+        c0, c1 = g0["cases"][case], g1["cases"][case]
+        rel = lambda key: max(abs(t[key] - o[key]) / abs(o[key]) for t, o in zip(c0["layout"], c0["base"]))
+        ok = (c0["layout"] == c1["layout"] and c0["launches"] == c1["launches"] == gloo2_launches
+              and rel("train/loss") <= 1e-5 and rel("train/grad_norm") <= 1e-5
+              and c0["worst_rms_over_lr_sum"] <= 1e-3)
+        phase("parallel.gloo2", case=case, ranks=2, device="cuda:0 (both)", backend="gloo",
+              layout="tp 2 + sp" if sp else "tp 2", model=f"DiT-L/2 cut to depth {GLOO2_DEPTH}",
+              dropout=dropout or "off", dtype="float32", tf32=False, batch=GLOO2_BATCH, steps=PARALLEL_STEPS,
+              collectives=g0["probe"], loss_rel_err=f"{rel('train/loss'):.3e}",
+              grad_norm_rel_err=f"{rel('train/grad_norm'):.3e}", tol="1e-5; leaves' RMS 1e-3 of Adam's largest move",
+              worst_leaf_rms_over_lr_sum=f"{c0['worst_rms_over_lr_sum']:.3e}", worst_leaf=c0["worst_leaf"],
+              ranks_equal=c0["layout"] == c1["layout"], local_numel=c0["local_numel"],
+              full_numel=c0["full_numel"], launches_per_rank={k: v for k, v in c0["launches"].items() if v},
+              wall_s=f"{gloo2_wall:.1f}")
+        if not ok:
+            raise AssertionError(f"parallel.gloo2 {case}: {[r['cases'][case] for r in ranks]}")
+    path_launches["parallel_gloo2"] = g0["cases"]["tp_sp"]["launches"]
     shutil.rmtree(imagenet_root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()

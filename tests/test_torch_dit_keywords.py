@@ -1,7 +1,8 @@
 """The DiT's keywords as the shared ``configs/`` and the JAX package pass them:
 the config's keys build the port's model, ``remat`` changes no number of a
 train step with dropout, ``scan_blocks`` is a layout flag, and a token
-sharding is refused until the parallel layouts are ported."""
+sharding other than ``bsi_torch.parallel.token_stream_sharding``'s is
+refused (the parallel layouts' tests run the one it returns)."""
 
 from pathlib import Path
 
@@ -65,7 +66,7 @@ def test_scan_blocks_is_a_layout_flag():
 def test_token_sharding_is_refused(cls):
     from bsi_torch.models import dit
 
-    with pytest.raises(NotImplementedError, match="token_sharding"):
+    with pytest.raises(ValueError, match="token_sharding: want what bsi_torch.parallel.token_stream_sharding"):
         if cls == "DenoisingDiT":
             DenoisingDiT(token_sharding=object(), device="cpu", **TINY)
         else:

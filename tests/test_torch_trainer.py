@@ -235,10 +235,20 @@ def test_accumulation_through_the_trainer(tmp_path):
 
 
 def test_build_task_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    for extra in (["trainer.model_parallelism=2"], ["trainer.pipeline_parallelism=2"],
-                  ["trainer.dcn_data_parallelism=2"], ["trainer.fsdp=yes"], ["trainer.sequence_parallel=yes"]):
-        with pytest.raises(NotImplementedError, match="parallel layouts"):
+    # the pipeline waits for the DiT's stacked layout
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
+        tiny_trainer(tmp_path, "trainer.pipeline_parallelism=2")
+    # the other layouts are ported (tests/test_torch_parallel_*.py); in one
+    # process without a group their guards speak, as the JAX package's do
+    # on one device
+    for extra, message in ((["trainer.model_parallelism=2"], "1 devices not divisible by model_parallelism=2"),
+                           (["trainer.dcn_data_parallelism=2"], "dcn_data_parallelism=2"),
+                           (["trainer.sequence_parallel=yes"], "requires model_parallelism > 1")):
+        with pytest.raises(ValueError, match=message):
             tiny_trainer(tmp_path, *extra)
+    # FSDP over one process holds the whole state, as JAX's over one device
+    trainer = tiny_trainer(tmp_path, "trainer.fsdp=yes", "trainer.max_steps=1")
+    assert trainer.layout is None and np.isfinite(trainer.fit()["train/loss"])
     # validation FID is ported (tests/test_torch_fid_trainer.py): statistics
     # without Inception weights give no FID, as in the JAX package
     from bsi_torch.metrics import FeatureStats, fid_stats_path
@@ -304,3 +314,13 @@ def test_plots_png_reader_inverts_the_writer(shape, tmp_path):
     (tmp_path / "b.png").write_bytes(bytes(data))
     with pytest.raises(ValueError, match="CRC"):
         read_png(tmp_path / "b.png")
+
+
+def test_a_short_run_profiles_its_last_steps(tmp_path):
+    # trainer.profile_steps traces from step 10, or, in a run too short for
+    # that, its last steps
+    trainer = tiny_trainer(tmp_path, "trainer.max_steps=2", "trainer.profile_steps=1")
+    assert trainer.profiler.start_step == 0 and trainer.profiler.end_step == 1
+    trainer.fit()
+    assert trainer.profiler.trace_path.is_file()
+    assert tiny_trainer(tmp_path, "trainer.max_steps=100", "trainer.profile_steps=5").profiler.start_step == 10
