@@ -11,7 +11,9 @@ qkv projections stay in the grouped layout both packages use. A DiT tree in
 the JAX package's scan layout (``blocks/block/...`` with a leading depth
 axis, what its ``scan_blocks=True`` builds) is split into the loop layout's
 ``block_{i}`` first, as ``unstack_block_params`` does. :func:`params_to_jax`
-is the inverse into the loop layout (for the port's gradients, say),
+is the inverse, into the loop layout (for the port's gradients, say) or,
+with ``scan_blocks=True``, the scan layout that the JAX package's pipeline
+shards (as ``stack_block_params`` builds it),
 :func:`train_state_from_jax` carries a whole JAX train state across, and
 :func:`inception_params_from_jax` the FID network's weights.
 """
@@ -100,10 +102,12 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.tensor(arr)
 
 
-def params_to_jax(state: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+def params_to_jax(state: Mapping[str, torch.Tensor], *, scan_blocks: bool = False) -> dict[str, Any]:
     """A flax-shaped tree of numpy arrays (the inner ``params`` dict) from
     tensors named as the port names its parameters (bf16 ones as f32, which
-    holds their values exactly)."""
+    holds their values exactly). With ``scan_blocks`` every ``block_{i}``
+    subtree is stacked into ``blocks/block`` with a leading depth axis, the
+    JAX package's scan layout."""
     tree: dict[str, Any] = {}
     for path, tensor in state.items():
         *parents, name = path.split(".")
@@ -121,7 +125,33 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> dict[str, Any]:
         for parent in parents:
             node = node.setdefault(parent, {})
         node[name] = arr
-    return tree
+    return _stack_blocks(tree) if scan_blocks else tree
+
+
+def _stack_blocks(node: Any) -> Any:
+    """The scan block layout of a tree: ``block_0`` ... ``block_{depth-1}``
+    stacked into ``blocks: {block: {...}}``, after the other entries."""
+    if not isinstance(node, Mapping):
+        return node
+    if "block_0" not in node:
+        return {name: _stack_blocks(value) for name, value in node.items()}
+    depth = sum(1 for name in node if name.startswith("block_"))
+    out = {name: value for name, value in node.items() if not name.startswith("block_")}
+    layers = [node[f"block_{i}"] for i in range(depth)]
+
+    def stack(*path):
+        leaves = []
+        for layer in layers:
+            for key in path:
+                layer = layer[key]
+            leaves.append(layer)
+        return np.stack(leaves, axis=0)
+
+    def walk(template: Mapping[str, Any], path: tuple) -> dict:
+        return {k: walk(v, path + (k,)) if isinstance(v, Mapping) else stack(*path, k) for k, v in template.items()}
+
+    out["blocks"] = {"block": walk(layers[0], ())}
+    return out
 
 
 def train_state_from_jax(

@@ -15,11 +15,17 @@ JAX package's keywords are taken as the shared ``configs/`` pass them:
   its activations in the backward. The checkpoint saves the RNG states and
   restores them for the recompute, so ``nn.Dropout`` and the seeds the
   attention kernels draw (``draw_seeds``) give the same masks twice: the
-  gradients are those without it.
+  gradients are those without it. The block's parameters are among the
+  checkpoint's inputs (:func:`_bound_block`): the recompute runs in the
+  backward, after the ``functional_call`` that bound the state's tensors
+  to the module has exited, and would otherwise read the module's own.
 - ``scan_blocks``: a layout flag that changes no arithmetic. The blocks
-  always run as a Python loop (the loop layout);
-  :func:`bsi_torch.convert.params_from_jax` splits a scan-layout tree into
-  ``block_{i}``.
+  always run as a Python loop and are stored as ``block_{i}`` (the loop
+  layout); :func:`bsi_torch.convert.params_from_jax` splits a scan-layout
+  tree into them and :func:`bsi_torch.convert.params_to_jax` stacks them
+  back. The pipeline (:mod:`bsi_torch.parallel.pipeline`) requires it, as
+  the JAX package's does: it runs blocks ``[lo, hi)`` of each stage
+  (:meth:`DiT.run_blocks`) and frees the rest (:meth:`DiT.keep_blocks`).
 - ``token_sharding``: sequence parallelism, what
   :func:`bsi_torch.parallel.token_stream_sharding` returns (or None): the
   token stream between the blocks' Megatron pairs split over S on the
@@ -56,7 +62,7 @@ from bsi_torch.core.common import resolve_device
 from bsi_torch.nn import MLP, Dense, FourierFeatures, LayerNorm, NyquistPositionalEmbedding, TokenAttention
 from bsi_torch.ops.ln_modulate import layernorm_modulate
 from bsi_torch.parallel.collectives import split_tokens, unsplit_tokens
-from bsi_torch.parallel.tensor import TensorParallel, check_heads
+from bsi_torch.parallel.tensor import TensorParallel, check_heads, cut_dropout
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -99,15 +105,28 @@ class DiTBlock(nn.Module):
         h = F.silu(self.ada_in(tp.enter(c, tokens=False)))
         return tp.conditioning(tp.leave(self.ada_out, h, tokens=False))
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, c: torch.Tensor, rows=None) -> torch.Tensor:
+        """``rows``: the pipeline microbatch ``x`` is
+        (:class:`bsi_torch.parallel.pipeline.MicroRows`), whose dropout
+        masks are cut from its stage's local batch's draws; None otherwise."""
         mod = self._modulation(c)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
-        attn_out = self.attn(layernorm_modulate(x, shift_msa, scale_msa))
+        attn_out = self.attn(layernorm_modulate(x, shift_msa, scale_msa), rows)
         x = x + gate_msa[:, None, :] * attn_out
         mlp_in = layernorm_modulate(x, shift_mlp, scale_mlp)
         if self.dropout is not None:
-            mlp_in = self.dropout(mlp_in) if self.tp is None else self.tp.dropout(self.dropout, mlp_in)
+            mlp_in = cut_dropout(self.dropout, mlp_in, rows=rows, tp=self.tp)
         return x + gate_mlp[:, None, :] * self.mlp(mlp_in)
+
+    @property
+    def draws(self) -> bool:
+        """Whether a call in the current mode draws dropout masks."""
+        return self.training and (self.dropout is not None or self.attn.dropout > 0.0)
+
+
+def _bound_block(block: nn.Module, names: tuple, x: torch.Tensor, c: torch.Tensor, rows, *leaves) -> torch.Tensor:
+    """``block(x, c, rows)`` with its parameters ``names`` bound to ``leaves``."""
+    return torch.func.functional_call(block, dict(zip(names, leaves)), (x, c, rows))
 
 
 class DiT(nn.Module):
@@ -137,6 +156,7 @@ class DiT(nn.Module):
     ):
         super().__init__()
         self.remat = remat
+        self.scan_blocks = scan_blocks
         self.input_size = tuple(input_size)
         self.patch_size = patch_size
         self.out_channels = out_channels
@@ -156,6 +176,14 @@ class DiT(nn.Module):
 
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.depth)]
+
+    def keep_blocks(self, lo: int, hi: int) -> None:
+        """Free the parameters of every block outside ``[lo, hi)`` (a
+        pipeline stage's): they move to the ``meta`` device, which keeps
+        their shapes and names and no storage."""
+        for i, block in enumerate(self.blocks()):
+            if not lo <= i < hi:
+                block.to(device="meta")
 
     def set_layout(self, mesh) -> None:
         """Put the blocks on ``mesh`` (a :class:`~bsi_torch.parallel.Mesh`):
@@ -206,16 +234,27 @@ class DiT(nn.Module):
         tokens = tokens + self._pos_table(tokens)
         return tokens, self.t_emb(t)
 
-    def run_blocks(self, tokens: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    def run_blocks(self, tokens: torch.Tensor, c: torch.Tensor, lo: int = 0, hi: int | None = None, *,
+                   rows=None, before_block=None) -> torch.Tensor:
+        """Blocks ``[lo, hi)`` (all by default) on ``tokens``, each under
+        ``remat`` in training; under sequence parallelism the stream is
+        split over the model group on entry and gathered on exit. ``rows``
+        goes to every block (:meth:`DiTBlock.forward`); ``before_block(i)``,
+        where given, is called before block ``i`` runs."""
         remat = self.remat and self.training and torch.is_grad_enabled()
         sp = self.token_sharding
         if sp is not None:
             tokens = split_tokens(tokens, sp.group, sp.size, sp.rank)
-        for block in self.blocks():
+        for i in range(lo, self.depth if hi is None else hi):
+            block = getattr(self, f"block_{i}")
+            if before_block is not None:
+                before_block(i)
             if remat:
-                tokens = checkpoint(block, tokens, c, use_reentrant=False, preserve_rng_state=True)
+                names, leaves = zip(*block.named_parameters())
+                tokens = checkpoint(_bound_block, block, names, tokens, c, rows, *leaves, use_reentrant=False,
+                                    preserve_rng_state=True)
             else:
-                tokens = block(tokens, c)
+                tokens = block(tokens, c, rows)
         if sp is not None:
             tokens = unsplit_tokens(tokens, sp.group, sp.size, sp.rank)
         return tokens
@@ -247,7 +286,8 @@ class DenoisingDiT(nn.Module):
         mlp_ratio: MLP hidden width over ``dim``.
         dropout: Attention and pre-MLP dropout rate, active in ``train()``.
         remat: Recompute each block's activations in the backward.
-        scan_blocks: The JAX package's scan layout flag; changes nothing here.
+        scan_blocks: The JAX package's scan layout flag; changes no
+            arithmetic here, and the pipeline requires it.
         fourier_features: Optional per-pixel Fourier features of the input.
         dtype: Compute dtype (parameters stay f32).
         device: Where the parameters live; ``None`` means the card.
@@ -284,6 +324,17 @@ class DenoisingDiT(nn.Module):
     @property
     def token_sharding(self):
         return self.dit.token_sharding
+
+    @property
+    def scan_blocks(self) -> bool:
+        return self.dit.scan_blocks
+
+    @property
+    def depth(self) -> int:
+        return self.dit.depth
+
+    def keep_blocks(self, lo: int, hi: int) -> None:
+        self.dit.keep_blocks(lo, hi)
 
     def set_layout(self, mesh) -> None:
         self.dit.set_layout(mesh)

@@ -39,7 +39,9 @@ class TokenAttention(nn.Module):
     Under a parallel layout (:meth:`set_layout`) the dropout draws are the
     global batch's, cut to this rank's rows and heads; with tensor
     parallelism ``to_qkv`` and ``to_out`` are a Megatron column/row pair
-    and the kernels see this rank's ``heads / tp`` heads."""
+    and the kernels see this rank's ``heads / tp`` heads. A pipeline
+    microbatch (``rows``, :class:`bsi_torch.parallel.pipeline.MicroRows`)
+    cuts its rows out of its stage's local batch the same way."""
 
     def __init__(self, dim: int, heads: int, dropout: float = 0.0, *, dtype=None, device=None):
         super().__init__()
@@ -56,20 +58,22 @@ class TokenAttention(nn.Module):
         or None."""
         self.mesh, self.tp = mesh, tp
 
-    def _shard(self, batch: int, heads: int):
-        if self.mesh is None or not self.mesh.distributed:
+    def _shard(self, batch: int, heads: int, rows=None):
+        distributed = self.mesh is not None and self.mesh.distributed
+        if not distributed and rows is None:
             return None
-        m = self.mesh
-        head = m.model_rank * heads if self.tp is not None else 0
-        return DrawShard(batch * m.data_size, m.data_rank * batch, self.heads, head)
+        data_size, data_rank = (self.mesh.data_size, self.mesh.data_rank) if distributed else (1, 0)
+        head = self.mesh.model_rank * heads if self.tp is not None else 0
+        local, row = (batch, 0) if rows is None else (rows.batch, rows.row)
+        return DrawShard(local * data_size, data_rank * local + row, self.heads, head)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows=None) -> torch.Tensor:
         rate = self.dropout if self.training else 0.0
         tp = self.tp
         heads = self.heads if tp is None else self.heads // tp.size
         qkv = self.to_qkv(x if tp is None else tp.enter(x))
         out = multi_head_attention_fused_qkv(qkv, heads=heads, dropout_rate=rate,
-                                             shard=self._shard(qkv.shape[0], heads))
+                                             shard=self._shard(qkv.shape[0], heads, rows))
         return self.to_out(out) if tp is None else tp.leave(self.to_out, out)
 
 

@@ -15,10 +15,17 @@ kernels take plain tensors and the step reaches the model through
   identity backward), and sequence parallelism's all-gather and
   reduce-scatter over the token dim (:func:`gather_tokens`,
   :func:`scatter_tokens`) and the split of a replicated stream
-  (:func:`split_tokens`).
+  (:func:`split_tokens`);
+- the pipeline's point-to-point transfers over the pipe group
+  (:func:`send_to`, :func:`recv_from`, :func:`broadcast_from`), which
+  ``bsi_torch/parallel/pipeline.py`` calls in an explicit order in its
+  forward and its backward. They move raw bytes, so any dtype crosses
+  gloo; under gloo a CUDA tensor goes through host memory (gloo's own
+  send of a CUDA tensor fails: ``writev ... Bad address`` on the card).
 
 Sums only (gloo has no average); the mean divides after. Every function
-takes ``(group, size)``; the callers skip them without a process group.
+takes ``(group, size)`` or the peer's global rank and the group; the
+callers skip them without a process group.
 """
 
 from __future__ import annotations
@@ -173,3 +180,41 @@ def unsplit_tokens(x: torch.Tensor, group, size: int, rank: int) -> torch.Tensor
     the replicated stream; the (replicated) gradient cut to this rank's
     shard."""
     return _GatherReplicated.apply(x, group, size, rank)
+
+
+def _staged(device: torch.device, group) -> bool:
+    """Whether a transfer of a tensor on ``device`` goes through host memory:
+    a CUDA tensor under gloo."""
+    return device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    return x.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def send_to(x: torch.Tensor, dst: int, group) -> None:
+    """Send ``x`` to global rank ``dst`` of ``group``; returns once it may
+    be reused."""
+    raw = _bytes(x)
+    dist.send(raw.cpu() if _staged(x.device, group) else raw, dst=dst, group=group)
+
+
+def recv_from(shape, dtype: torch.dtype, device: torch.device, src: int, group) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` on ``device``, received from global
+    rank ``src`` of ``group``."""
+    staged = _staged(device, group)
+    out = torch.empty(shape, dtype=dtype, device="cpu" if staged else device)
+    dist.recv(_bytes(out), src=src, group=group)
+    return out.to(device) if staged else out
+
+
+def broadcast_from(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``x`` of global rank ``src`` on every rank of ``group``, in place of
+    each rank's ``x`` (contiguous, of the same shape and dtype)."""
+    if _staged(x.device, group):
+        host = x.cpu()
+        dist.broadcast(_bytes(host), src=src, group=group)
+        x.copy_(host)
+    else:
+        dist.broadcast(_bytes(x), src=src, group=group)
+    return x

@@ -4,8 +4,8 @@ Counterpart of ``bsi_tpu/parallel/distributed.py``. One process drives one
 GPU; ``torchrun`` (or the SLURM script of ``bsi_torch/utils/launcher.py``)
 starts them and sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR`` and ``MASTER_PORT``. Each data rank then reads its own
-``1/data_size`` of every batch, and the model ranks of one replica read the
-same rows; its batch stays on its own device (JAX's
+``1/data_size`` of every batch, and the pipe and model ranks of one replica
+read the same rows; its batch stays on its own device (JAX's
 ``make_array_from_process_local_data`` has no counterpart).
 """
 
@@ -52,15 +52,18 @@ def initialize_distributed(device: Optional[str] = None) -> bool:
     return True
 
 
-def host_shard(model_parallelism: int = 1) -> tuple[int, int]:
+def host_shard(model_parallelism: int = 1, pipeline_parallelism: int = 1) -> tuple[int, int]:
     """``(shard_id, num_shards)`` of this process's data: its data rank and
-    the data size (the model ranks of one replica read the same rows)."""
+    the data size (the pipe and model ranks of one replica read the same
+    rows)."""
     if not (dist.is_available() and dist.is_initialized()):
         return 0, 1
     world, rank = dist.get_world_size(), dist.get_rank()
-    if world % model_parallelism:
-        raise ValueError(f"{world} devices not divisible by model_parallelism={model_parallelism}")
-    return rank // model_parallelism, world // model_parallelism
+    per_replica = model_parallelism * pipeline_parallelism
+    if world % per_replica:
+        raise ValueError(f"{world} devices not divisible by model_parallelism={model_parallelism}"
+                         + (f" x pipeline_parallelism={pipeline_parallelism}" if pipeline_parallelism > 1 else ""))
+    return rank // per_replica, world // per_replica
 
 
 def check_host_batch(local_rows: int, global_batch: int, num_shards: int) -> None:

@@ -4,7 +4,7 @@ Counterpart of ``bsi_tpu/parallel/sequence.py``. Between the Megatron pairs
 the DiT's ``[B, S, D]`` token stream is split over S on the model group: the
 LayerNorm+modulate kernels (K4f, K4b), dropout, the gates and the residual
 adds run on ``S/tp`` tokens (a rank's dropout mask is its tokens' part of
-one draw over the whole stream, ``TensorParallel.dropout``). Before each
+one draw over the whole stream, ``cut_dropout``). Before each
 column-parallel matmul (``to_qkv``, ``mlp.Dense_0``) the tokens are
 all-gathered; after each row-parallel one
 (``to_out``, ``mlp.Dense_1``) a reduce-scatter takes the all-reduce's place

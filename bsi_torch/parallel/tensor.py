@@ -68,10 +68,15 @@ def tp_leaf_spec(name: str, shape, tp: int) -> list:
 @dataclasses.dataclass(frozen=True)
 class Shard:
     """Where a leaf is cut: the dim sharded over the model group and the dim
-    sharded over the data group, each None where it is whole."""
+    sharded over the data group, each None where it is whole; under
+    pipeline parallelism the stage that holds it (None: every stage) and
+    whether its gradient is summed over the pipe group (a leaf only the
+    first stage reads, :func:`bsi_torch.parallel.pipeline.pp_plan`)."""
 
     model_dim: Optional[int] = None
     data_dim: Optional[int] = None
+    stage: Optional[int] = None
+    pipe_sum: bool = False
 
 
 def tp_plan(params: Mapping[str, object], tp: int, fsdp: bool = False, data_size: int = 1,
@@ -139,21 +144,46 @@ class TensorParallel:
             return C.scatter_tokens(y, self.group, self.size) + C.copy_to_model(bias, self.group)
         return C.reduce_from_model(y, self.group) + bias
 
-    def dropout(self, layer, x: torch.Tensor) -> torch.Tensor:
-        """``layer`` (an ``nn.Dropout``) on the token stream ``x``. Under
-        sequence parallelism ``x`` is this rank's ``S/tp`` tokens: the mask
-        is their part of one draw over the whole ``[B, S, D]`` stream. Each
-        token shard then has its own mask, each token's is the one the
-        replica draws without the split, and every model rank advances the
-        generator alike, so the attention's seeds stay replicated."""
-        if not (self.sequence and layer.training):
-            return layer(x)
-        keep = layer(x.new_ones((x.shape[0], x.shape[1] * self.size) + tuple(x.shape[2:])))
-        return x * C.chunk_of(keep, 1, self.size, self.rank)
-
     def conditioning(self, mod: torch.Tensor) -> torch.Tensor:
         """A block's replicated adaLN output ``[B, 6D]``: under sequence
         parallelism each rank's tokens give only part of its gradient (the
         LayerNorm+modulate's dshift and dscale, the gates'), summed here
         over the group in one all-reduce."""
         return C.copy_to_model(mod, self.group) if self.sequence else mod
+
+
+def cut_dropout(layer, x: torch.Tensor, *, rows=None, tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """``layer`` (an ``nn.Dropout``) on the DiT's token stream ``x``, its mask
+    cut from the draw the whole stream would take.
+
+    ``rows`` (a pipeline microbatch, :class:`bsi_torch.parallel.pipeline.MicroRows`)
+    says that ``x`` holds rows ``[rows.row, rows.row + len(x))`` of a batch
+    of ``rows.batch``; under sequence parallelism (``tp.sequence``) ``x``
+    holds this rank's ``S/tp`` tokens. The mask is then its part of one
+    draw over the whole ``[batch, S, D]`` stream: each token of each row is
+    masked as without the cut, and every rank advances the generator alike,
+    so the attention's seeds stay replicated. With ``rows.masks`` the draw
+    is made on the first microbatch (row 0) and kept there, as bits and
+    the kept value, for the later ones to cut. Without either cut it is
+    ``layer(x)``."""
+    sequence = tp is not None and tp.sequence
+    if not layer.training or (rows is None and not sequence):
+        return layer(x)
+    shape = list(x.shape)
+    if rows is not None:
+        shape[0] = rows.batch
+    if sequence:
+        shape[1] *= tp.size
+    masks = rows.masks if rows is not None else None
+    if masks is not None and rows.row > 0:
+        bits, scale = masks[layer]
+        keep = bits.narrow(0, rows.row, x.shape[0]) * scale
+    else:
+        keep = layer(x.new_ones(shape))
+        if masks is not None:
+            masks[layer] = (keep != 0, keep.amax())
+        if rows is not None:
+            keep = keep.narrow(0, rows.row, x.shape[0])
+    if sequence:
+        keep = C.chunk_of(keep, 1, tp.size, tp.rank)
+    return x * keep

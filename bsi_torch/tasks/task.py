@@ -19,11 +19,13 @@ Device: the card unless the config says ``trainer.device`` (``+trainer.device=cp
 on the command line) or the caller passes ``device``; with no card and no
 such request it raises rather than train on the CPU.
 
-Layout: ``trainer.model_parallelism``, ``trainer.dcn_data_parallelism``,
-``trainer.fsdp`` and ``trainer.sequence_parallel`` lay the trainer out over
-the process group (:mod:`bsi_torch.parallel`), as the JAX package's
-``build_task`` builds its mesh; ``trainer.pipeline_parallelism > 1`` raises
-(the pipeline waits for the DiT's stacked layout).
+Layout: ``trainer.model_parallelism``, ``trainer.pipeline_parallelism``,
+``trainer.dcn_data_parallelism``, ``trainer.fsdp`` and
+``trainer.sequence_parallel`` lay the trainer out over the process group
+(:mod:`bsi_torch.parallel`), as the JAX package's ``build_task`` builds its
+mesh. ``trainer.pipeline_parallelism > 1`` builds the DiT with
+``scan_blocks=True`` and passes ``trainer.pp_microbatches`` (as JAX does);
+any other model raises.
 """
 
 from __future__ import annotations
@@ -133,6 +135,15 @@ def build_task(
     precision = str(trainer_cfg.get("precision", "32"))
     train_dtype = torch.bfloat16 if precision in ("bf16", "bf16-mixed") else None
     model_cfg = dict(task_cfg["model"])
+    pp = int(trainer_cfg.get("pipeline_parallelism", 1) or 1)
+    if pp > 1:
+        # pipeline parallelism cuts the DiT's transformer blocks into stages;
+        # only the DiT family has them (and the stacked layout flag)
+        target = str(model_cfg.get("_target_", ""))
+        if not target.endswith("DenoisingDiT"):
+            raise ValueError(f"pipeline_parallelism={pp} needs the DiT (task/model=dit): the pipeline cuts its "
+                             f"transformer blocks into stages, and {target or 'this model'} has none")
+        model_cfg["scan_blocks"] = True
     devices = [device.index if device.index is not None else torch.cuda.current_device()] \
         if device.type == "cuda" else []
     with torch.random.fork_rng(devices=devices):
@@ -200,4 +211,5 @@ def build_task(
         mesh=mesh,
         fsdp=bool(trainer_cfg.get("fsdp", False)),
         sequence_parallel=bool(trainer_cfg.get("sequence_parallel", False)),
+        pp_microbatches=int(trainer_cfg["pp_microbatches"]) if trainer_cfg.get("pp_microbatches") else None,
     )

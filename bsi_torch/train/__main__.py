@@ -77,7 +77,8 @@ def run_one(config: dict) -> dict:
             if prev_id:
                 wandb_cfg.update({"id": prev_id, "resume": "allow"})
 
-    shard_id, num_shards = host_shard(int(trainer_cfg.get("model_parallelism", 1) or 1))
+    shard_id, num_shards = host_shard(int(trainer_cfg.get("model_parallelism", 1) or 1),
+                                      int(trainer_cfg.get("pipeline_parallelism", 1) or 1))
     data = instantiate(config["data"], seed=seed, shard_id=shard_id, num_shards=num_shards)
     writes = not dist.is_initialized() or dist.get_rank() == 0
     logger = MetricLogger(run_dir, wandb_config=wandb_cfg) if writes else SilentLogger()

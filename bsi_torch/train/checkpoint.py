@@ -39,13 +39,14 @@ META_FILE = "meta.json"
 def state_to_host(state: TrainState, *, full: Optional[Callable] = None, host: bool = True) -> Optional[dict[str, Any]]:
     """The state as a dict of CPU tensors and numbers (copies); the only
     part of a save that waits for the device. Under a parallel layout
-    ``full(name, shard)`` gathers each leaf's full tensor from the ranks'
-    shards (a collective every rank joins); ``host=False`` (the ranks that
-    do not write) gathers and keeps nothing."""
+    ``full(named)`` (``StateLayout.full_items``) yields ``(name, full
+    tensor)`` for every leaf of the model from this rank's parts, one at a
+    time (a collective every rank joins); ``host=False`` (the ranks that do
+    not write) gathers and keeps nothing."""
     def tensors(named: dict) -> dict:
+        detached = {name: t.detach() for name, t in named.items()}
         out = {}
-        for name, t in named.items():
-            t = t.detach() if full is None else full(name, t.detach())
+        for name, t in (detached.items() if full is None else full(detached)):
             if host:
                 out[name] = t.to("cpu", copy=True)
         return out
@@ -134,16 +135,18 @@ class AsyncCheckpointWriter:
         return [future.result() for future in pending]
 
 
-def load_checkpoint(path: str | Path, state: TrainState, *,
-                    local: Optional[Callable] = None) -> tuple[TrainState, dict]:
+def load_checkpoint(path: str | Path, state: TrainState, *, local: Optional[Callable] = None,
+                    names: Optional[list[str]] = None) -> tuple[TrainState, dict]:
     """Restore a checkpoint written by :func:`save_checkpoint` into ``state``.
 
     ``state`` (a freshly initialised one, say) gives the devices and dtypes:
     its tensors are overwritten in place, its step, count, dropout seed and
     generator state set from the checkpoint. Under a parallel layout
     ``local(name, full)`` cuts this rank's shard of each full leaf, so a
-    checkpoint restores under any layout. Returns ``(state, meta)``,
-    ``meta`` with ``config``, ``data_state`` and ``extra``.
+    checkpoint restores under any layout, and ``names`` are the model's
+    leaves, which the checkpoint must hold (the state holds those of its
+    pipeline stage; without ``names``, the state's). Returns ``(state,
+    meta)``, ``meta`` with ``config``, ``data_state`` and ``extra``.
     """
     path = Path(path).absolute()
     saved = torch.load(path / STATE_FILE, map_location="cpu", weights_only=True)
@@ -152,9 +155,10 @@ def load_checkpoint(path: str | Path, state: TrainState, *,
                                    (state.ema_params, saved["ema_params"], "ema_params"),
                                    (state.opt_state.mu, saved["opt_state"]["mu"], "mu"),
                                    (state.opt_state.nu, saved["opt_state"]["nu"], "nu")):
-            if set(ours) != set(theirs):
-                raise ValueError(f"checkpoint {path}: {what} names differ from the state's "
-                                 f"({sorted(set(ours) ^ set(theirs))[:5]} ...)")
+            want = set(ours) if names is None else set(names)
+            if want != set(theirs) or not set(ours) <= want:
+                raise ValueError(f"checkpoint {path}: {what} names differ from the model's "
+                                 f"({sorted(want ^ set(theirs))[:5]} ...)")
             for name, tensor in ours.items():
                 part = theirs[name] if local is None else local(name, theirs[name])
                 if tensor.shape != part.shape:

@@ -1,7 +1,6 @@
 """Step-based training loop, on one device or over a mesh of processes.
 
-Counterpart of ``bsi_tpu/train/loop.py::Trainer`` (without the pipeline): an
-explicit loop with
+Counterpart of ``bsi_tpu/train/loop.py::Trainer``: an explicit loop with
 
 - the train step of :mod:`.step` (gradient accumulation included),
 - a sanity validation before the first step, the NaN guard (``ckpt_nan``),
@@ -25,13 +24,19 @@ With a ``mesh`` (:func:`bsi_torch.parallel.make_mesh` under a process
 group) the state is laid out over it (:class:`~bsi_torch.parallel.StateLayout`:
 replicated, FSDP with ``fsdp``, the DiT's tensor parallelism where the
 model group has more than one rank, its sequence parallelism with
-``sequence_parallel``) and the data module gives this data rank's rows.
+``sequence_parallel``, its pipeline stages where the pipe axis has more
+than one) and the data module gives this data rank's rows. Under a pipe
+axis the train step, the eval step and the sampler run the pipelined model
+(:func:`bsi_torch.parallel.make_pipeline_apply`, ``pp_microbatches``
+microbatches, the pipe size by default), the model needs
+``scan_blocks=True``, and each rank's models keep only its stage's blocks.
 Validation sums its metrics over the data group; FID draws the global
-sample batch in lockstep, each data rank embeds its rows and only model
-rank 0 of each replica adds them. Rank 0 alone writes checkpoints (the
-full state, gathered first: the file is the same whatever the layout) and
-every rank waits for the write; ``restore`` reads the full state and cuts
-this rank's shards.
+sample batch in lockstep, each data rank embeds its rows and only pipe and
+model rank 0 of each replica adds them. Rank 0 alone writes checkpoints
+(the full state, gathered first: the file is the same whatever the layout)
+and every rank waits for the write; ``restore`` reads the full state and
+cuts this rank's shards, so a checkpoint of any layout restores under any
+other.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ import torch.distributed as dist
 
 from bsi_torch.core.common import resolve_device
 from bsi_torch.metrics.fid import fid_from_stats, images_to_uint8, reduce_stats_across_processes
-from bsi_torch.parallel import Mesh, StateLayout, apply_sequence_parallelism, check_host_batch
+from bsi_torch.parallel import Mesh, StateLayout, apply_sequence_parallelism, check_host_batch, make_pipeline_apply
 from bsi_torch.utils.logging import MetricLogger, count_params
 
 from .checkpoint import AsyncCheckpointWriter, load_checkpoint, save_checkpoint, state_to_host
@@ -93,6 +98,7 @@ class Trainer:
         mesh: Optional[Mesh] = None,
         fsdp: bool = False,
         sequence_parallel: bool = False,
+        pp_microbatches: Optional[int] = None,
     ):
         self.device = resolve_device(device)
         self.algorithm = algorithm
@@ -149,8 +155,17 @@ class Trainer:
         self.layout = StateLayout.build(self.mesh, dict(self.model.named_parameters()), fsdp=fsdp,
                                         tensor=tensor) if self.mesh.distributed else None
 
-        self.train_apply = module_apply(self.model, train=True)
-        self.eval_apply = module_apply(self.eval_model, train=False)
+        if self.mesh.pipe_size > 1:
+            # GPipe stages of the DiT's blocks over the pipe axis
+            # (bsi_torch/parallel/pipeline.py); each model keeps its stage's blocks
+            self.train_apply = make_pipeline_apply(self.model, self.mesh, pp_microbatches, train=True)
+            self.eval_apply = make_pipeline_apply(self.eval_model, self.mesh, pp_microbatches, train=False)
+            stage = self.train_apply.pipeline
+            for m in models:
+                m.keep_blocks(stage.lo, stage.hi)
+        else:
+            self.train_apply = module_apply(self.model, train=True)
+            self.eval_apply = module_apply(self.eval_model, train=False)
         self._train_step = make_train_step(algorithm, self.train_apply, optimizer, self.ema_cfg,
                                            accum_steps=self.accum, layout=self.layout)
         self._eval_step = make_eval_step(algorithm, self.eval_apply, n_recon_samples=n_elbo_recon_samples,
@@ -182,17 +197,38 @@ class Trainer:
                 f"accumulate_grad_batches={self.accum} x data-axis size {n_data} "
                 f"so every micro-batch shards evenly"
             )
+        if self.mesh.pipe_size > 1:
+            m = self.train_apply.pipeline.micro
+            for label, bs in (
+                ("batch_size", getattr(self.data, "batch_size", None)),
+                ("eval_batch_size", getattr(self.data, "eval_batch_size", None)),
+            ):
+                if bs is not None and (bs // n_data) % m != 0:
+                    raise ValueError(
+                        f"data.{label}={bs} gives {bs // n_data} examples per "
+                        f"data-parallel device, not divisible by "
+                        f"pp_microbatches={m}; the pipeline needs equal "
+                        f"microbatches on every device"
+                    )
+            bs = getattr(self.data, "batch_size", None)
+            if self.accum > 1 and bs is not None and (bs // (self.accum * n_data)) % m != 0:
+                raise ValueError(
+                    f"data.batch_size={bs} gives {bs // (self.accum * n_data)} examples per "
+                    f"accumulation micro-batch and data-parallel device, not divisible by "
+                    f"pp_microbatches={m}; the pipeline needs equal microbatches on every device"
+                )
 
     def init_state(self) -> TrainState:
         """A state at step 0: the model's parameters (initialised from the
         run seed by ``build_task``) copied, this rank's shards of them under
-        a layout, the EMA a copy of them, fresh Adam moments, and the
-        generator and dropout seed derived from the run seed."""
+        a layout (those of its stage under a pipe axis), the EMA a copy of
+        them, fresh Adam moments, and the generator and dropout seed derived
+        from the run seed."""
         gen_seed, dropout_seed = (int(w) for w in np.random.SeedSequence([int(self.seed), 0x57A7E]).generate_state(
             2, np.uint64))
         cut = self.layout.local if self.layout is not None else lambda name, p: p.clone()
         params = {name: cut(name, p.detach().to(self.device)).requires_grad_()
-                  for name, p in self.model.named_parameters()}
+                  for name, p in self.model.named_parameters() if self.layout is None or self.layout.holds(name)}
         generator = torch.Generator(device=self.device).manual_seed(gen_seed)
         state = TrainState.create(params=params, opt_state=self.optimizer.init(params), generator=generator,
                                   dropout_seed=dropout_seed)
@@ -403,9 +439,10 @@ class Trainer:
 
         Under a layout ``n`` is this data rank's rows: every rank draws the
         global batch's noise in lockstep from the replicated generator and
-        samples its own rows alone; only model rank 0 of each replica embeds
-        them (the model ranks of one replica hold the same rows), and
-        ``validate`` sums the statistics over every process."""
+        samples its own rows alone; only pipe and model rank 0 of each
+        replica embeds them (the pipe and model ranks of one replica hold the
+        same rows), and ``validate`` sums the statistics over every
+        process."""
         m = self.mesh
         global_eval = getattr(self.data, "eval_batch_size", None)
         if self.layout is not None and global_eval is not None and n * m.data_size != int(global_eval):
@@ -416,7 +453,7 @@ class Trainer:
             )
         rows = slice(m.data_rank * n, (m.data_rank + 1) * n) if self.layout is not None else None
         samples = self.sample_fn(self.state, generator, n * m.data_size, rows=rows)
-        if m.model_rank != 0:
+        if m.model_rank != 0 or m.pipe_rank != 0:
             return
         samples01 = self.data.discretization().to_unit_interval(samples)
         fid.update(images_to_uint8(samples01.cpu().numpy()[mask]))
@@ -432,11 +469,11 @@ class Trainer:
         assert self.state is not None, "save() needs a state"
         path = self.run_dir / f"ckpt_{tag}"
         if self.layout is not None and not self.mesh.writes:
-            state_to_host(self.state, full=self.layout.full, host=False)
+            state_to_host(self.state, full=self.layout.full_items, host=False)
             if wait:
                 dist.barrier()
             return path
-        full = self.layout.full if self.layout is not None else None
+        full = self.layout.full_items if self.layout is not None else None
         kwargs = dict(config=self.config, data_state=self.data.state_dict(), full=full,
                       extra={"best_bpd": self.best_bpd, "data_shards": self.mesh.data_size})
         t0 = time.perf_counter()
@@ -484,8 +521,9 @@ class Trainer:
         self.flush_checkpoints()
         if self.state is None:
             self.state = self.init_state()
-        self.state, meta = load_checkpoint(path, self.state,
-                                           local=self.layout.local if self.layout is not None else None)
+        layout = self.layout
+        self.state, meta = load_checkpoint(path, self.state, local=layout.local if layout is not None else None,
+                                           names=layout.names if layout is not None else None)
         if meta.get("data_state"):
             self.data.load_state_dict(self._rescaled_cursor(meta["data_state"],
                                                             (meta.get("extra") or {}).get("data_shards", 1)))

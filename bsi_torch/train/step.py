@@ -35,6 +35,13 @@ by row: they come from (``dropout_seed``, step, micro-batch, data rank),
 equal on the model ranks of one replica (under sequence parallelism each
 keeps its tokens' part of them); data rank 0 draws what one process
 draws.
+
+Under pipeline parallelism ``model_apply`` is
+:func:`bsi_torch.parallel.make_pipeline_apply`'s: every pipe rank of a
+replica draws the same noise, holds its stage's blocks and the rest of the
+parameters, and returns the same loss, metrics and samples. A stage that
+does not read a parameter it holds (the patch embedding past stage 0)
+takes a zero gradient for it, which the layout sums over the pipe group.
 """
 
 from __future__ import annotations
@@ -147,6 +154,7 @@ def make_train_step(
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     spread = layout is not None and layout.distributed
+    unused = spread and layout.pipelined
 
     def loss_and_grads(params: dict, batch: torch.Tensor, t, eps, seed: int):
         model_fn = lambda mu, tt: model_apply(params, mu, tt)
@@ -154,7 +162,9 @@ def make_train_step(
             seed = layout.dropout_seed(seed)
         with _dropout_rng(batch.device, seed):
             loss = algorithm._train_loss_on(model_fn, batch, t, eps).mean()
-        return loss.detach(), list(torch.autograd.grad(loss, list(params.values())))
+        leaves = list(params.values())
+        grads = torch.autograd.grad(loss, leaves, allow_unused=unused)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
 
     def draws(state: TrainState, batch: torch.Tensor, *micro):
         like = layout.global_like(batch) if spread else batch

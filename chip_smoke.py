@@ -62,8 +62,18 @@ group, its profile showing NCCL's all-gather and reduce-scatter, its
 checkpoint restored here without a group (``[parallel.launch]``); and two
 ranks on the one card over gloo on a 2-block DiT-L/2, TP 2 with SP, and TP 2
 with and without SP at dropout 0.05, each against one process
-(``[parallel.gloo2]``); ``chip_smoke.py --child ...`` is how the
-script starts those processes.
+(``[parallel.gloo2]``). The pipeline (``bsi_torch/parallel/pipeline.py``):
+the DiT's kernels at its microbatches' shapes (``[pipeline.shapes]``);
+two stages of DiT-L/2 at full width and depth on the one card over gloo,
+4 microbatches, against one process with dropout off and on, and with
+remat against the same process without it, a dropout seed repeated bit for
+bit (``[pipeline.gloo2]``); the entry point on the
+imagenet32 recipe over two stages, against ``[parallel.launch]``'s run
+without a group, its checkpoint restored in one process
+(``[pipeline.launch]``). ``chip_smoke.py --child ...`` is how the script
+starts those processes. After ``[dit.train]``, ``bench.py``'s
+``dit-train`` rows with ``remat=True``: b64 (``[dit.remat]``) and the
+optimizer batch 512 as 16x32 (``[dit.b512]``).
 Prints one line per phase, a JSON line
 with every kernel's numbers, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -190,6 +200,7 @@ IMAGENET_MICRO = 64
 IMAGENET_STEPS = 2
 IMAGENET_EVAL_BATCH = 512
 IMAGENET_K = 50  # configs/task/algorithm/*.yaml: the plots' sampling steps
+PLOTS_K_CUT = 8  # [imagenet32.vdm] and [imagenet32.bfn]'s plots
 
 
 # The parallel layouts (bsi_torch/parallel/). The card's machine has one GPU,
@@ -210,6 +221,40 @@ GLOO2_BATCH = 8
 GLOO2_DEPTH = 2
 # [parallel.gloo2]'s layouts, each against one process: (name, SP, dropout)
 GLOO2_CASES = (("tp_sp", True, None), ("tp_dropout", False, DIT_DROPOUT), ("tp_sp_dropout", True, DIT_DROPOUT))
+# The pipeline (bsi_torch/parallel/pipeline.py) on the one card: two ranks over
+# gloo, PIPE_STAGES stages of DiT-L/2's 24 blocks at full width and depth,
+# PIPE_MICRO microbatches. [pipeline.gloo2]: PIPE_STEPS train steps of a
+# global batch of PIPE_BATCH, f32, against the same steps in one process (the
+# parent's), without dropout and at DIT_DROPOUT under two dropout seeds, and
+# with remat at DIT_DROPOUT;
+# [pipeline.launch]: the entry point on the imagenet32 recipe as
+# [parallel.launch] runs it (batch PARALLEL_BATCH, PARALLEL_STEPS steps, one
+# validation, no plots, a checkpoint), against [parallel.launch]'s run without
+# a group, the checkpoint then restored in one process.
+PIPE_STAGES = 2
+PIPE_MICRO = 4
+PIPE_BATCH = 16
+PIPE_STEPS = 2
+PIPE_SEEDS = (SEED + 21, SEED + 22)
+PIPE_LR = 1e-4
+DIT_TOKENS = 256  # DiT-L/2 on 32x32: 16x16 patches
+# [pipeline.gloo2]'s cases: (name, dropout, dropout seed, remat); the first two
+# are held to one process, the third must repeat the second bit for bit, the
+# fourth differ from it; the fifth, with remat, is held to the second's one
+# process (PIPE_REFS: the one-process run a case is held to; those runs
+# have no remat)
+PIPE_CASES = (("off", None, PIPE_SEEDS[0], False), ("dropout", DIT_DROPOUT, PIPE_SEEDS[0], False),
+              ("dropout_again", DIT_DROPOUT, PIPE_SEEDS[0], False),
+              ("dropout_seed2", DIT_DROPOUT, PIPE_SEEDS[1], False), ("remat", DIT_DROPOUT, PIPE_SEEDS[0], True))
+PIPE_REFS = {"off": "off", "dropout": "dropout", "remat": "dropout"}
+# [dit.remat] and [dit.b512]: bench.py's dit-train rows, which run remat=True:
+# b64 (REMAT_STEPS timed steps after a warm-up), and the imagenet32 recipe's
+# optimizer batch 512 as B512_ACCUM micro-batches of B512_MICRO, B512_STEPS
+# steps.
+REMAT_STEPS = 3
+B512_ACCUM = 16
+B512_MICRO = 32
+B512_STEPS = 2
 COUNTER_NAMES = ("flash_attention", "flash_attention_dropout", "flash_attention_bwd", "groupnorm_silu_fwd",
                  "groupnorm_silu_bwd", "flash_attention_fused", "flash_attention_packed", "layernorm_modulate_fwd",
                  "flash_attention_fused_bwd", "flash_attention_packed_bwd", "layernorm_modulate_bwd")
@@ -350,6 +395,171 @@ def child_gloo2(rank: int, store: str, out_json: str) -> int:
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+def pipe_steps(dev, mesh, dropout, dropout_seed, remat=False):
+    """PIPE_STEPS train steps of DiT-L/2 (full width and depth, ``ada_out``
+    filled, f32, ``scan_blocks``, ``remat``) on a global batch of PIPE_BATCH: pipelined
+    over ``mesh``'s stages in PIPE_MICRO microbatches, or in one process
+    where ``mesh`` is None. Returns (metrics, the parameters this rank holds
+    after, the launches of the steps, peak bytes, ms of each step)."""
+    import torch
+
+    from bsi_torch import BSI
+    from bsi_torch.models import DenoisingDiT
+    from bsi_torch.nn import FourierFeatures
+    from bsi_torch.parallel import StateLayout, make_pipeline_apply
+    from bsi_torch.profile_sampling import DIT_L2
+    from bsi_torch.train import EMAConfig, TrainState, make_optimizer, make_train_step, module_apply
+
+    torch.manual_seed(SEED)
+    model = DenoisingDiT(fourier_features=FourierFeatures(6, 8), device=dev, dropout=dropout, scan_blocks=True,
+                         remat=remat, **DIT_L2)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".ada_out." in name:  # adaLN-Zero: at init every block is the identity
+                p.normal_(0.0, 0.02)
+    full = dict(model.named_parameters())
+    if mesh is None:
+        layout, apply, params = None, module_apply(model), full
+    else:
+        model.set_layout(mesh)
+        layout = StateLayout.build(mesh, full, tensor=True)
+        apply = make_pipeline_apply(model, mesh, PIPE_MICRO)
+        params = {n: layout.local(n, p.detach()).requires_grad_() for n, p in full.items() if layout.holds(n)}
+        del full
+        model.keep_blocks(apply.pipeline.lo, apply.pipeline.hi)
+    tx = make_optimizer(PIPE_LR)
+    state = TrainState.create(params=params, opt_state=tx.init(params),
+                              generator=torch.Generator(device=dev).manual_seed(SEED + 11), dropout_seed=dropout_seed)
+    step = make_train_step(BSI(data_shape=DIT_L2["data_shape"], lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6),
+                           apply, tx, EMAConfig(), layout=layout)
+    batch = torch.randint(0, 256, (PIPE_BATCH,) + DIT_L2["data_shape"],
+                          generator=torch.Generator(device=dev).manual_seed(SEED + 12), device=dev) / 255.0 * 2.0 - 1.0
+    if layout is not None:
+        rows = PIPE_BATCH // mesh.data_size
+        batch = batch[mesh.data_rank * rows:(mesh.data_rank + 1) * rows]
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in counters.values():
+        w.launches = 0
+    metrics, ms = [], []
+    for _ in range(PIPE_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {name: w.launches for name, w in counters.items()}
+    return (metrics, {n: p.detach() for n, p in state.params.items()}, launches, torch.cuda.max_memory_allocated(),
+            ms)
+
+
+def worst_leaf(got: dict, want: dict, lr_steps: float) -> tuple[float, str]:
+    """The largest root-mean-square distance of a leaf of ``got`` to
+    ``want``'s over the largest move Adam could have made (``lr_steps``, lr
+    summed over the steps), and its name. The key bias has no gradient
+    (softmax ignores a shift shared by every key): its k columns are
+    rounding noise on both sides, left to Adam's bound alone."""
+    worst, name_of = 0.0, None
+    for name, g in got.items():
+        diff = (g - want[name].to(g.device)).double()
+        if name.endswith("attn.to_qkv.bias"):
+            diff = diff.reshape(8, 3, 128)[:, [0, 2]]  # (group, q|k|v, 2 heads of 64)
+        rms = float(diff.square().mean().sqrt()) / lr_steps
+        if rms > worst:
+            worst, name_of = rms, name
+    return worst, name_of
+
+
+def child_pipe2(rank: int, store: str, ref_dir: str, out_json: str) -> int:
+    """``--child pipe2``: one of two pipeline stages on cuda:0 over gloo. It
+    checks the point-to-point transfers on CUDA tensors (through host
+    memory), then runs pipe_steps under PIPE_CASES and writes each case's
+    metrics, launches, peak memory and step times, and the worst leaf
+    against the parent's one-process run (``ref_dir/<case>.pt``)."""
+    import torch
+    import torch.distributed as dist
+
+    from bsi_torch.parallel import collectives as C
+    from bsi_torch.parallel import make_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+    mine = torch.arange(6, dtype=torch.float32, device=dev).reshape(2, 3) + rank
+    if rank == 0:
+        C.send_to(mine, 1, None)
+        got = C.recv_from((2, 3), torch.float32, dev, 1, None)
+    else:
+        got = C.recv_from((2, 3), torch.float32, dev, 0, None)
+        C.send_to(mine, 0, None)
+    bf = torch.full((3,), float(rank), dtype=torch.bfloat16, device=dev)
+    C.broadcast_from(bf, 1, None)
+    probe = {"send_recv": bool(torch.equal(got, mine - rank + (1 - rank))) and got.device == dev,
+             "broadcast_bf16": bool((bf == 1).all())}
+    # what a transfer costs: a microbatch's tokens (f32 [PIPE_BATCH / PIPE_MICRO,
+    # 256, 1024]) from stage 0 to stage 1, and the output's broadcast, each
+    # through host memory; the median of 10, the card synchronised around each
+    tokens = (DIT_TOKENS, 1024)
+    x = torch.ones((PIPE_BATCH // PIPE_MICRO,) + tokens, device=dev)
+    out = torch.ones((PIPE_BATCH,) + tokens, device=dev)
+    times = {"send_recv_ms": [], "broadcast_ms": []}
+    for _ in range(10):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if rank == 0:
+            C.send_to(x, 1, None)
+        else:
+            C.recv_from(x.shape, x.dtype, dev, 0, None)
+        torch.cuda.synchronize()
+        times["send_recv_ms"].append((time.perf_counter() - t0) * 1e3)
+        dist.barrier()
+        t0 = time.perf_counter()
+        C.broadcast_from(out, 1, None)
+        torch.cuda.synchronize()
+        times["broadcast_ms"].append((time.perf_counter() - t0) * 1e3)
+    probe.update({key: statistics.median(v) for key, v in times.items()},
+                 transfer_mib=x.numel() * 4 / 2**20, broadcast_mib=out.numel() * 4 / 2**20)
+    del x, out
+    mesh = make_mesh(pipeline_parallelism=PIPE_STAGES)
+    cases, kept = {}, None
+    for case, dropout, seed, remat in PIPE_CASES:
+        metrics, params, launches, peak, ms = pipe_steps(dev, mesh, dropout, seed, remat)
+        entry = {"metrics": metrics, "launches": launches, "peak_bytes": peak, "ms": ms,
+                 "finite": all(math.isfinite(v) for m in metrics for v in m.values()), "held": len(params),
+                 "stage": mesh.pipe_rank}
+        if case in PIPE_REFS:
+            want = torch.load(Path(ref_dir) / f"{PIPE_REFS[case]}.pt", mmap=True, weights_only=True)
+            entry["worst_rms_over_lr_sum"], entry["worst_leaf"] = worst_leaf(params, want, PIPE_LR * PIPE_STEPS)
+            del want
+        if case == "dropout":
+            kept = {n: p.clone() for n, p in params.items()}
+        elif case == "dropout_again":
+            entry["params_equal_to_dropout"] = all(torch.equal(params[n], kept[n]) for n in kept)
+            kept = None
+        cases[case] = entry
+        del params
+        torch.cuda.empty_cache()
+    Path(out_json).write_text(json.dumps({"probe": probe, "cases": cases}))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def child_pipe_train(rank: int, store: str, out_json: str, overrides: list[str]) -> int:
+    """``--child pipe_train``: one of two ranks on cuda:0 joined to gloo,
+    then ``python -m bsi_torch.train``'s ``main`` (which keeps the group) as
+    ``--child train`` runs it."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+    return child_train(out_json, overrides)
 
 
 def parallel_shards(entries: dict, randn, dev, gen, flush) -> None:
@@ -750,6 +960,10 @@ def main() -> int:
         kind, args = sys.argv[2], sys.argv[3:]
         if kind == "train":
             return child_train(args[0], args[1:])
+        if kind == "pipe2":
+            return child_pipe2(int(args[0]), args[1], args[2], args[3])
+        if kind == "pipe_train":
+            return child_pipe_train(int(args[0]), args[1], args[2], args[3:])
         return child_gloo2(int(args[0]), args[1], args[2])
     import numpy as np
     from torch.nn import functional as F
@@ -1531,6 +1745,45 @@ def main() -> int:
               tol="k4f, k4b dx 1e-5; k4b dshift, dscale 1e-4 of the largest element")
         del x4, mod4, shift4, scale4
 
+    # ------------- K2, K3, K4f, K4b at the pipeline's and the b512 row's shapes
+    # The pipeline runs the kernels on microbatches: [pipeline.gloo2] on
+    # PIPE_BATCH / PIPE_MICRO rows, [pipeline.launch] on PARALLEL_BATCH /
+    # PIPE_MICRO (f32, K2 and K3 at rate 0.05 in training, K2 at 0 in
+    # validation); [dit.b512] on micro-batches of B512_MICRO in bf16. Each
+    # against its twin with the tolerances above.
+    for cb, dtype in ((PIPE_BATCH // PIPE_MICRO, f32), (PARALLEL_BATCH // PIPE_MICRO, f32),
+                      (B512_MICRO, torch.bfloat16)):
+        bf16 = dtype == torch.bfloat16
+        errs = {}
+        for rate in (DIT_DROPOUT, 0.0):
+            qkv = randn(cb, seq, 3 * heads * d, dtype=dtype)
+            sd = fap.draw_seeds(cb, heads, dev, gen) if rate else None
+            kp = fap._philox_keep_mask(sd, seq, 1.0 - rate) if rate else None
+            errs[f"k2_rate_{rate}"] = check_close(f"K2 {dtype} {cb} rate {rate}",
+                                                  fap.flash_attention_fused_cuda(qkv, heads, sd, rate),
+                                                  fap._fused_fwd_math(qkv, heads, kp, 1.0 - rate),
+                                                  2e-2 if bf16 else 1e-5)
+            if rate:
+                g_out = randn(cb, seq, heads * d, dtype=dtype)
+                errs["k3"] = check_attn_bwd(f"K3 {dtype} {cb}", fap.flash_attention_fused_bwd_cuda(
+                    qkv, g_out, heads, sd, rate), fap._fused_bwd_math(qkv, g_out, heads, kp, 1.0 - rate), dtype)
+                del g_out
+            del qkv, kp
+        x4 = randn(cb, seq, dim, dtype=dtype) * 2.0 + 0.5
+        mod4 = randn(cb, 6 * dim, dtype=dtype)
+        shift4, scale4 = mod4[:, :dim], mod4[:, dim:2 * dim]
+        g4 = randn(cb, seq, dim, dtype=dtype)
+        errs["k4f"] = check_close(f"K4f {dtype} {cb}", lm.layernorm_modulate_cuda(x4, shift4, scale4),
+                                  lm._reference_math(x4, shift4, scale4), *((2e-2, 2**-7) if bf16 else (1e-5, 0.0)))
+        errs.update(zip(("k4b_dx", "k4b_dshift", "k4b_dscale"), check_bwd(
+            f"K4b {dtype} {cb}", lm.layernorm_modulate_bwd_cuda(x4, scale4, g4), lm._bwd_math(x4, scale4, g4), dtype,
+            parts=("dx", "dshift", "dscale"))))
+        phase("pipeline.shapes", path="[dit.b512]" if bf16 else "[pipeline.gloo2]" if cb == PIPE_BATCH // PIPE_MICRO
+              else "[pipeline.launch]", rows=cb, seq=seq, dtype=str(dtype),
+              **{key: f"{err:.3e}" for key, err in errs.items()},
+              tol="as [k2.check], [k3.check], [k4f.check], [k4b.check] for the dtype")
+        del x4, mod4, shift4, scale4, g4
+
     # [parallel.shards]: the DiT's kernels at the local shapes of TP and SP
     parallel_shards(dict(k2=k2, k3=k3, k4f=k4f, k4b=k4b), randn, dev, gen, flush)
 
@@ -2007,7 +2260,62 @@ def main() -> int:
           peak_mem_gib=f"{peak / 2**30:.3f}", final_loss=f"{final_loss:.6g}", grad_norm=f"{grad_norm:.6g}",
           launches_per_step={name: n // TRAIN_STEPS for name, n in train_launches.items() if n})
     path_launches["dit_train"] = train_launches
-    del dit_train, params, tx_dit, state, train_step, batch, metrics
+    no_remat = {"ms_per_step": ms_step, "peak": peak}
+    del params, state, train_step, metrics
+
+    # ----------------------- [dit.remat], [dit.b512]: bench.py's dit-train rows
+    # The same model, optimizer and batch with remat=True, as bench.py runs
+    # the row: each block recomputes its forward in the backward (K2 and K4f
+    # twice a step, K3 and K4b once), from the RNG state it started from.
+    # Then the recipe's optimizer batch 512 as B512_ACCUM micro-batches of
+    # B512_MICRO (bench.py's dit-train-b512 row).
+    import gc
+
+    dit_train.dit.remat = True
+    for label, accum, rows, steps in (("dit.remat", 1, DIT_TRAIN_BATCH, REMAT_STEPS),
+                                      ("dit.b512", B512_ACCUM, B512_MICRO, B512_STEPS)):
+        params = dict(dit_train.named_parameters())
+        state = TrainState.create(params=params, opt_state=tx_dit.init(params),
+                                  generator=torch.Generator(device=dev).manual_seed(SEED + 5))
+        train_step = make_train_step(algo_dit, module_apply(dit_train), tx_dit, ema_dit, accum_steps=accum)
+        rbatch = torch.randint(0, 256, (accum * rows,) + DATA_SHAPE, generator=data_gen, device=dev) / 255.0 * 2.0 - 1.0
+        if accum > 1:
+            rbatch = rbatch.reshape((accum, rows) + DATA_SHAPE)
+        else:
+            state, metrics = train_step(state, rbatch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        step_ms = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, rbatch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        n = steps * accum
+        got = expect_counts(f"{label}: {steps} steps of {accum}x{rows} with remat",
+                            flash_attention_fused=2 * K2_PER_FORWARD * n,
+                            layernorm_modulate_fwd=2 * K4F_PER_FORWARD * n,
+                            flash_attention_fused_bwd=K3_PER_STEP * n, layernorm_modulate_bwd=K4B_PER_STEP * n)
+        loss, norm = metrics["train/loss"].item(), metrics["train/grad_norm"].item()
+        if not (math.isfinite(loss) and loss > 0 and math.isfinite(norm)):
+            raise AssertionError(f"{label}: loss {loss}, grad norm {norm}")
+        rpeak = torch.cuda.max_memory_allocated()
+        fields = {}
+        if accum == 1:
+            fields = dict(ms_per_step_without_remat=f"{no_remat['ms_per_step']:.3f}",
+                          peak_mem_gib_without_remat=f"{no_remat['peak'] / 2**30:.3f}")
+        phase(label, batch=f"{accum * rows}" + (f" as {accum}x{rows}" if accum > 1 else ""), dtype="bfloat16",
+              dropout=DIT_DROPOUT, moments="bfloat16", remat=True, steps=steps,
+              ms_per_step=[f"{x:.3f}" for x in step_ms],
+              examples_per_s=f"{accum * rows * steps / (sum(step_ms) / 1e3):.3f}",
+              peak_mem_gib=f"{rpeak / 2**30:.3f}", **fields, final_loss=f"{loss:.6g}", grad_norm=f"{norm:.6g}",
+              launches_per_step={name: v // steps for name, v in got.items() if v})
+        path_launches[label.replace(".", "_")] = got
+        del params, state, train_step, rbatch, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+    del dit_train, tx_dit, batch
 
     # --------------------------------- the 16x16 UNet, card against CPU
     # The same full-width UNet on 16x16 images, f32, TF32 off, batch 2: its
@@ -2666,10 +2974,12 @@ def main() -> int:
     phase("imagenet.shards", **{f"imagenet{n}": f"{c[0]} train in {c[2]} shards, {c[1]} val"
                                 for n, c in IMAGENET_SHARDS.items()}, seed=SEED, write_s=f"{time.perf_counter() - t0:.3f}")
     def imagenet_fit(label: str, n: int, task: str, *extra: str, sanity: bool, test: bool, plots: bool,
-                     eval_batch: int, accum: int = IMAGENET_ACCUM) -> tuple[Path, list[dict], dict]:
+                     eval_batch: int, accum: int = IMAGENET_ACCUM,
+                     k: int = IMAGENET_K) -> tuple[Path, list[dict], dict]:
         """One recipe run through ``main``, its launches checked exactly, its
         losses and bpd finite, its PNGs and checkpoints present; prints its
-        phase line and returns (run dir, metrics records, fields)."""
+        phase line and returns (run dir, metrics records, fields). ``k``:
+        the sampling steps of the plots (the recipe's IMAGENET_K)."""
         run_root = imagenet_root / label
         args = [f"experiment=imagenet{n}", f"task={task}", f"data.root={imagenet_root / f'data{n}'}",
                 f"data.batch_size={accum * IMAGENET_MICRO}", f"data.eval_batch_size={eval_batch}",
@@ -2677,7 +2987,7 @@ def main() -> int:
                 f"trainer.max_steps={IMAGENET_STEPS}", f"trainer.val_check_interval={IMAGENET_STEPS}",
                 "trainer.log_every_n_steps=1", "trainer.limit_eval_batches=1",
                 f"trainer.num_sanity_val_steps={int(sanity)}", f"trainer.plots={'yes' if plots else 'no'}",
-                f"eval_testset={'yes' if test else 'no'}", f"run_root={run_root}", *extra]
+                f"eval_testset={'yes' if test else 'no'}", f"run_root={run_root}", f"task.algorithm.k={k}", *extra]
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
@@ -2692,7 +3002,7 @@ def main() -> int:
         micro_steps = IMAGENET_STEPS * accum
         validations = 1 + int(sanity) + int(test)
         eval_forwards = (1 if task == "vdm" else 2) * 2 * validations
-        plot_forwards = (2 * (IMAGENET_K + (task != "vdm")) + 1) * (1 + int(test)) if plots else 0
+        plot_forwards = (2 * (k + (task != "vdm")) + 1) * (1 + int(test)) if plots else 0
         forwards = micro_steps + eval_forwards + plot_forwards
         counts = expect_counts(label, flash_attention_fused=K2_PER_FORWARD * forwards,
                                layernorm_modulate_fwd=K4F_PER_FORWARD * forwards,
@@ -2740,12 +3050,14 @@ def main() -> int:
           f"{IMAGENET_STEPS} steps; 1 eval batch a split")
     shutil.rmtree(run_dir, ignore_errors=True)
     # VDM and BFN, cut to keep the new phases near 3 minutes: batch 256 as
-    # 4x64 (the kernels' shapes stay the micro-batch's), eval batch 128
+    # 4x64 (the kernels' shapes stay the micro-batch's), eval batch 128, the
+    # plots sampled at k=PLOTS_K_CUT (the pipeline's phases took the time)
     for task in ("vdm", "bfn"):
         run_dir, _, fields = imagenet_fit(f"imagenet32.{task}", 32, task, sweep_seed, sanity=False, test=False,
-                                          plots=True, eval_batch=128, accum=4)
+                                          plots=True, eval_batch=128, accum=4, k=PLOTS_K_CUT)
         phase(f"imagenet32.{task}", **fields, cut=f"as imagenet32.fit; batch 256 as 4x64, eval batch 128; no sanity "
-                                                  "validation, no test pass")
+                                                  f"validation, no test pass; plots at k={PLOTS_K_CUT} "
+                                                  f"({IMAGENET_K})")
         shutil.rmtree(run_dir, ignore_errors=True)
 
     # imagenet64 (preload: no): the batches the trainer gathered through the
@@ -2859,6 +3171,7 @@ def main() -> int:
     restore_equal = restored.layout is None and restored.state.step == PARALLEL_STEPS and all(
         torch.equal(p.detach().cpu(), c["params"][name]) for name, p in restored.state.params.items())
     fsdp_in_config = load_checkpoint_config(nccl_dir / "ckpt_last")["trainer"]["fsdp"]
+    alone_names = set(c["params"])
     del restored, c
     gc.collect()
     torch.cuda.empty_cache()
@@ -2881,6 +3194,10 @@ def main() -> int:
           wall_s={"nccl": f"{nccl_wall:.1f}", "alone": f"{alone_wall:.1f}"}, restored_without_group=restore_equal,
           launches={k: v for k, v in nccl["launches"].items() if v})
     path_launches["parallel_launch"] = nccl["launches"]
+    # the two runs' four checkpoints (7.7 GB each) leave the disk: the card's
+    # machine holds the disk's high-water mark to 45 GiB
+    for label in ("parallel_nccl", "parallel_alone"):
+        shutil.rmtree(imagenet_root / label, ignore_errors=True)
 
     # --------------------------- [parallel.gloo2]: two ranks on the one card, gloo
     store = imagenet_root / "gloo2_store"
@@ -2928,6 +3245,178 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"parallel.gloo2 {case}: {[r['cases'][case] for r in ranks]}")
     path_launches["parallel_gloo2"] = g0["cases"]["tp_sp"]["launches"]
+
+    # ------------------------- [pipeline.gloo2]: two pipeline stages on the one card
+    # The one-process runs first, here; their final parameters go to disk for
+    # the stages to hold theirs to.
+    pipe_dir = imagenet_root / "pipeline"
+    pipe_dir.mkdir()
+    pipe_refs = {}
+    for case, dropout, seed, _ in PIPE_CASES[:2]:
+        metrics, params, launches, peak, ms = pipe_steps(dev, None, dropout, seed)
+        torch.save({n: p.cpu() for n, p in params.items()}, pipe_dir / f"{case}.pt")
+        pipe_refs[case] = {"metrics": metrics, "peak_bytes": peak, "ms": ms}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    outs = [pipe_dir / f"rank{r}.json" for r in range(PIPE_STAGES)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--child", "pipe2", str(r),
+                               str(pipe_dir / "store"), str(pipe_dir), str(outs[r])], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(PIPE_STAGES)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    pipe_wall = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            print(log[-4000:], file=sys.stderr)
+            raise AssertionError(f"pipeline.gloo2: rank {r} exited {p.returncode}")
+    stages = [json.loads(o.read_text()) for o in outs]
+    per_stage = DIT_L2["depth"] // PIPE_STAGES * PIPE_MICRO * PIPE_STEPS
+    pipe_launches = {name: 0 for name in COUNTER_NAMES}
+    pipe_launches.update(flash_attention_fused=per_stage, flash_attention_fused_bwd=per_stage,
+                         layernorm_modulate_fwd=2 * per_stage, layernorm_modulate_bwd=2 * per_stage)
+    if not all(st["probe"]["send_recv"] and st["probe"]["broadcast_bf16"] for st in stages):
+        raise AssertionError(f"pipeline.gloo2: transfers {[st['probe'] for st in stages]}")
+    rel = lambda got, want, key: max(abs(g[key] - w[key]) / abs(w[key]) for g, w in zip(got, want))
+    for case, dropout, seed, remat in PIPE_CASES:
+        c0, c1 = (st["cases"][case] for st in stages)
+        # remat runs each block's forward again in the backward: K2 and K4f twice
+        want_launches = dict(pipe_launches, flash_attention_fused=2 * per_stage,
+                             layernorm_modulate_fwd=4 * per_stage) if remat else pipe_launches
+        ok = (c0["metrics"] == c1["metrics"] and c0["launches"] == c1["launches"] == want_launches
+              and c0["finite"] and c1["finite"])
+        fields = {}
+        if case in PIPE_REFS:
+            want = pipe_refs[PIPE_REFS[case]]["metrics"]
+            fields = dict(loss_rel_err=f"{rel(c0['metrics'], want, 'train/loss'):.3e}",
+                          grad_norm_rel_err=f"{rel(c0['metrics'], want, 'train/grad_norm'):.3e}",
+                          worst_leaf_rms_over_lr_sum=[f"{c['worst_rms_over_lr_sum']:.3e}" for c in (c0, c1)],
+                          worst_leaf=[c["worst_leaf"] for c in (c0, c1)],
+                          held_to=f"one process, {PIPE_REFS[case]}, no remat",
+                          one_process_peak_gib=f"{pipe_refs[PIPE_REFS[case]]['peak_bytes'] / 2**30:.3f}",
+                          one_process_ms_per_step=[f"{x:.1f}" for x in pipe_refs[PIPE_REFS[case]]["ms"]],
+                          tol="1e-5; leaves' RMS 1e-3 of Adam's largest move")
+            ok = ok and (rel(c0["metrics"], want, "train/loss") <= 1e-5
+                         and rel(c0["metrics"], want, "train/grad_norm") <= 1e-5
+                         and max(c0["worst_rms_over_lr_sum"], c1["worst_rms_over_lr_sum"]) <= 1e-3)
+        if case == "dropout_again":
+            fields["bit_equal_to_dropout"] = (c0["metrics"] == stages[0]["cases"]["dropout"]["metrics"]
+                                              and c0["params_equal_to_dropout"] and c1["params_equal_to_dropout"])
+            ok = ok and fields["bit_equal_to_dropout"]
+        if case == "dropout_seed2":
+            fields["differs_from_seed1"] = c0["metrics"] != stages[0]["cases"]["dropout"]["metrics"]
+            ok = ok and fields["differs_from_seed1"]
+        phase("pipeline.gloo2", case=case, ranks=PIPE_STAGES, device="cuda:0 (both)", backend="gloo",
+              model="DiT-L/2, dim 1024, depth 24 (12 blocks a stage), 16 heads of 64", dropout=dropout or "off",
+              remat=remat,
+              dropout_seed=seed, dtype="float32", tf32=False, batch=PIPE_BATCH, microbatches=PIPE_MICRO,
+              steps=PIPE_STEPS, transfers_by_rank=[st["probe"] for st in stages], loss=[f"{m['train/loss']:.9g}" for m in c0["metrics"]],
+              ranks_equal=c0["metrics"] == c1["metrics"], held_leaves=[c0["held"], c1["held"]],
+              peak_gib=[f"{c['peak_bytes'] / 2**30:.3f}" for c in (c0, c1)],
+              ms_per_step=[[f"{x:.1f}" for x in c["ms"]] for c in (c0, c1)], **fields,
+              launches_per_rank={k: v for k, v in c0["launches"].items() if v}, wall_s=f"{pipe_wall:.1f}")
+        if not ok:
+            raise AssertionError(f"pipeline.gloo2 {case}: {[st['cases'][case] for st in stages]} "
+                                 f"against {pipe_refs.get(PIPE_REFS.get(case))}")
+    path_launches["pipeline_gloo2"] = stages[0]["cases"]["off"]["launches"]
+    shutil.rmtree(pipe_dir, ignore_errors=True)
+
+    # ---------------- [pipeline.launch]: the entry point over two pipeline stages
+    # python -m bsi_torch.train's main in two processes on cuda:0, each joined
+    # to gloo first (chip_smoke.py --child pipe_train): [parallel.launch]'s
+    # run without FSDP and the profile, at trainer.pipeline_parallelism=2,
+    # pp_microbatches=4; held to [parallel.launch]'s run without a group, then
+    # its checkpoint restored here in one process.
+    launch_root = imagenet_root / "pipeline_launch"
+    launch_root.mkdir()
+    args = ["experiment=imagenet32", "task=bsi", sweep_seed, f"data.root={imagenet_root / 'data32'}",
+            f"data.batch_size={PARALLEL_BATCH}", f"data.eval_batch_size={PARALLEL_BATCH}",
+            "trainer.accumulate_grad_batches=1", f"trainer.max_steps={PARALLEL_STEPS}",
+            f"trainer.val_check_interval={PARALLEL_STEPS}", "trainer.log_every_n_steps=1",
+            "trainer.limit_eval_batches=1", "trainer.num_sanity_val_steps=0", "trainer.plots=no",
+            "eval_testset=no", f"trainer.pipeline_parallelism={PIPE_STAGES}", f"trainer.pp_microbatches={PIPE_MICRO}",
+            f"run_root={launch_root}"]
+    outs = [launch_root / f"rank{r}.json" for r in range(PIPE_STAGES)]
+    environ = {k: v for k, v in os.environ.items() if k not in torchrun_env()}
+    t0 = time.perf_counter()
+    logs = [open(launch_root / f"console{r}.log", "w") for r in range(PIPE_STAGES)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--child", "pipe_train", str(r),
+                               str(launch_root / "store"), str(outs[r]), *args], env=environ, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(PIPE_STAGES)]
+    try:
+        for p in procs:
+            p.wait(timeout=900)
+    finally:
+        for p, log in zip(procs, logs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    launch_wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            print((launch_root / f"console{r}.log").read_text()[-4000:], file=sys.stderr)
+            raise AssertionError(f"pipeline.launch: rank {r} exited {p.returncode}")
+    ranks = [json.loads(o.read_text()) for o in outs]
+    forwards = PARALLEL_STEPS + 2 * 2
+    per_stage = DIT_L2["depth"] // PIPE_STAGES * PIPE_MICRO
+    want_launches = {name: 0 for name in COUNTER_NAMES}
+    want_launches.update(flash_attention_fused=per_stage * forwards, layernorm_modulate_fwd=2 * per_stage * forwards,
+                         flash_attention_fused_bwd=per_stage * PARALLEL_STEPS,
+                         layernorm_modulate_bwd=2 * per_stage * PARALLEL_STEPS)
+    for r, got in enumerate(ranks):
+        if got["rc"] != 0 or got["launches"] != want_launches or got["backend"] != "gloo" or got["world"] != 2:
+            raise AssertionError(f"pipeline.launch rank {r}: {got}, want launches {want_launches}")
+    (pipe_run,) = [q.parent for q in launch_root.glob("**/metrics.jsonl")]
+    pipe_records = [json.loads(line) for line in (pipe_run / "metrics.jsonl").read_text().splitlines()]
+    rels = {}
+    for key in ("train/loss", "train/grad_norm", "val/bpd", "train/bpd"):
+        got, want = series(pipe_records, key), series(alone_records, key)
+        rels[key] = max(abs(g - w) / abs(w) for g, w in zip(got, want)) if got and len(got) == len(want) else None
+    if not all(v is not None and v <= 1e-5 for v in rels.values()):
+        raise AssertionError(f"pipeline.launch against the run without a group: {rels}")
+    # the checkpoint (rank 0's, gathered over the pipe) restored in one process
+    gc.collect()
+    torch.cuda.empty_cache()
+    saved = torch.load(pipe_run / "ckpt_last" / "state.pt", mmap=True, weights_only=True)
+    restored, _, _ = load_trainer(str(pipe_run / "ckpt_last"), [f"trainer.pipeline_parallelism=1"],
+                                  run_dir=imagenet_root / "pipeline_restore")
+    restore_equal = (restored.layout is None and restored.state.step == PARALLEL_STEPS
+                     and set(saved["params"]) == alone_names == set(restored.state.params)
+                     and all(torch.equal(t.detach().cpu(), saved[part][name])
+                             for part, named in (("params", restored.state.params),
+                                                 ("ema_params", restored.state.ema_params))
+                             for name, t in named.items())
+                     and all(torch.equal(t.cpu(), saved["opt_state"][m][name])
+                             for m, named in (("mu", restored.state.opt_state.mu), ("nu", restored.state.opt_state.nu))
+                             for name, t in named.items()))
+    pipe_config = load_checkpoint_config(pipe_run / "ckpt_last")["trainer"]
+    del restored, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not restore_equal or pipe_config["pipeline_parallelism"] != PIPE_STAGES:
+        raise AssertionError(f"pipeline.launch: restore in one process: equal {restore_equal}, config {pipe_config}")
+    phase("pipeline.launch", entry="bsi_torch.train.__main__.main in two processes on cuda:0 over gloo",
+          recipe="imagenet32", task="bsi", model="DiT-L/2, dim 1024, depth 24, 16 heads of 64, dropout 0.05",
+          dtype="float32", tf32=False, layout=f"pipeline_parallelism={PIPE_STAGES}, pp_microbatches={PIPE_MICRO}",
+          batch=PARALLEL_BATCH, steps=PARALLEL_STEPS,
+          cut=f"as [parallel.launch]: batch {PARALLEL_BATCH}, {PARALLEL_STEPS} steps, one validation over one eval "
+              f"batch a split, no plots, no test pass",
+          **{f"{key.replace('/', '_')}_rel_err_vs_no_group": f"{v:.3e}" for key, v in rels.items()}, tol="1e-5",
+          loss=[f"{x:.9g}" for x in series(pipe_records, "train/loss")],
+          ms_per_step=[f"{1e3 / r:.1f}" for r in series(pipe_records, "train/steps_per_sec")],
+          ms_per_step_no_group=[f"{1e3 / r:.1f}" for r in series(alone_records, "train/steps_per_sec")],
+          peak_mem_gib=[f"{got['peak_bytes'] / 2**30:.3f}" for got in ranks],
+          peak_mem_gib_no_group=f"{alone['peak_bytes'] / 2**30:.3f}", wall_s=f"{launch_wall:.1f}",
+          restored_in_one_process_bit_for_bit=restore_equal, launches_per_rank={k: v for k, v in
+                                                                                ranks[0]["launches"].items() if v})
+    path_launches["pipeline_launch"] = ranks[0]["launches"]
     shutil.rmtree(imagenet_root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()

@@ -204,7 +204,8 @@ def test_mesh_without_a_process_group():
     with pytest.raises(ValueError, match=r"^1 devices not divisible by model_parallelism=2 x pipeline_parallelism=1"
                                          r" x dcn_data_parallelism=1$"):
         make_mesh(model_parallelism=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
+    with pytest.raises(ValueError, match=r"^1 devices not divisible by model_parallelism=1 x pipeline_parallelism=2"
+                                         r" x dcn_data_parallelism=1$"):
         make_mesh(pipeline_parallelism=2)
     with pytest.raises(ValueError, match=r"global_batch % num_hosts == 0"):
         check_host_batch(3, 8, 2)

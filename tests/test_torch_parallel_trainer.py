@@ -2,7 +2,8 @@
 f64: data parallelism and FSDP (the UNet and the DiT), the DiT's tensor
 parallelism with and without sequence parallelism, each also with
 attention and block dropout on, resume under FSDP and TP, a one-process
-checkpoint restored under FSDP, and every guard's message. One launch of
+checkpoint restored under FSDP, and every guard's message (the pipeline's
+own layouts are in ``tests/test_torch_pipeline.py``). One launch of
 ``tests/torch_parallel_worker.py`` runs them all; each rank runs its
 one-process baseline beside the layout. Tolerances are the JAX package's
 (``tests/test_multiprocess.py``): 1e-5 relative on the trajectory, the
@@ -67,8 +68,12 @@ def test_a_replicated_checkpoint_restores_under_fsdp(ranks):
 
 @pytest.mark.parametrize("guard, message", [
     ("sp_without_tp", "ValueError: sequence_parallel=true requires model_parallelism > 1"),
-    ("pipeline", "NotImplementedError: pipeline_parallelism=2 is not ported yet; it waits for the stacked layout "
-                 "and pipeline parallelism, ROADMAP.md queue 1 item 3"),
+    ("pipeline", "ValueError: data.batch_size=8 gives 8 examples per data-parallel device, not divisible by "
+                 "pp_microbatches=3; the pipeline needs equal microbatches on every device"),
+    ("pipeline_unet", "ValueError: pipeline_parallelism=2 needs the DiT (task/model=dit)"),
+    ("pipeline_accum", "ValueError: data.batch_size=8 gives 1 examples per accumulation micro-batch and "
+                       "data-parallel device, not divisible by pp_microbatches=2"),
+    ("pipeline_depth", "ValueError: model depth 3 not divisible by pipe axis 2"),
     ("indivisible_batch", "ValueError: data.batch_size=9 is not divisible by the mesh's data-axis size 2"),
     ("qkv_groups", "ValueError: model_parallelism=2 does not divide the 1 qkv head groups of 2 heads"),
     ("world_vs_tp", "ValueError: 2 devices not divisible by model_parallelism=3"),

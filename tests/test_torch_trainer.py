@@ -235,13 +235,12 @@ def test_accumulation_through_the_trainer(tmp_path):
 
 
 def test_build_task_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    # the pipeline waits for the DiT's stacked layout
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
-        tiny_trainer(tmp_path, "trainer.pipeline_parallelism=2")
-    # the other layouts are ported (tests/test_torch_parallel_*.py); in one
-    # process without a group their guards speak, as the JAX package's do
-    # on one device
-    for extra, message in ((["trainer.model_parallelism=2"], "1 devices not divisible by model_parallelism=2"),
+    # every layout is ported (tests/test_torch_parallel_*.py,
+    # tests/test_torch_pipeline.py); in one process without a group their
+    # guards speak, as the JAX package's do on one device
+    for extra, message in ((["trainer.pipeline_parallelism=2"],
+                            "1 devices not divisible by model_parallelism=1 x pipeline_parallelism=2"),
+                           (["trainer.model_parallelism=2"], "1 devices not divisible by model_parallelism=2"),
                            (["trainer.dcn_data_parallelism=2"], "dcn_data_parallelism=2"),
                            (["trainer.sequence_parallel=yes"], "requires model_parallelism > 1")):
         with pytest.raises(ValueError, match=message):

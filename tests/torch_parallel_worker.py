@@ -85,10 +85,13 @@ def build(tmp: Path, model: str, *extra: str, dropout=None, mesh_less: bool = Fa
     overrides = TINY + _model_args(model, dropout) + [f"trainer.max_steps={steps}", f"run_root={tmp}", *extra]
     if mesh_less:
         overrides = [o for o in overrides if not o.startswith(("trainer.model_parallelism", "trainer.fsdp",
-                                                                 "trainer.sequence_parallel"))]
+                                                                 "trainer.sequence_parallel",
+                                                                 "trainer.pipeline_parallelism",
+                                                                 "trainer.pp_microbatches"))]
     config = ConfigLoader(CONFIGS).load("train", overrides)
     tp = int(config["trainer"].get("model_parallelism", 1))
-    shard_id, num_shards = (0, 1) if mesh_less else host_shard(tp)
+    pp = int(config["trainer"].get("pipeline_parallelism", 1))
+    shard_id, num_shards = (0, 1) if mesh_less else host_shard(tp, pp)
     value = 2 * (128 / 255) - 1  # an exact 8-bit bin centre
     data = ArrayDataModule(np.full((32,) + SHAPE, value), np.full((16,) + SHAPE, value),
                            batch_size=8, eval_batch_size=8, train_eval_size=8, seed=0, shard_id=shard_id,
@@ -112,9 +115,7 @@ def build(tmp: Path, model: str, *extra: str, dropout=None, mesh_less: bool = Fa
 
 
 def full_params(trainer) -> dict:
-    layout = trainer.layout
-    return {n: (layout.full(n, p.detach()) if layout is not None else p.detach()).clone()
-            for n, p in trainer.state.params.items()}
+    return full_params_of(trainer, "params")
 
 
 def summary(trainer) -> dict:
@@ -244,9 +245,15 @@ def resume(tmp: Path) -> dict:
 
 
 def full_params_of(trainer, part: str) -> dict:
+    """Every full leaf of the state's ``part`` (params, ema_params, mu or
+    nu), gathered over the layout (a collective every rank joins)."""
     layout = trainer.layout
-    tensors = trainer.state.ema_params if part == "ema_params" else getattr(trainer.state.opt_state, part)
-    return {n: (layout.full(n, p.detach()) if layout is not None else p.detach()).clone() for n, p in tensors.items()}
+    tensors = {"params": trainer.state.params, "ema_params": trainer.state.ema_params}.get(part)
+    if tensors is None:
+        tensors = getattr(trainer.state.opt_state, part)
+    tensors = {n: p.detach() for n, p in tensors.items()}
+    items = layout.full_items(tensors) if layout is not None else tensors.items()
+    return {n: p.clone() for n, p in items}
 
 
 def guards(tmp: Path) -> dict:
@@ -254,7 +261,10 @@ def guards(tmp: Path) -> dict:
     out = {}
     cases = {
         "sp_without_tp": ("dit", ("trainer.sequence_parallel=yes",)),
-        "pipeline": ("dit", ("trainer.pipeline_parallelism=2",)),
+        "pipeline": ("dit", ("trainer.pipeline_parallelism=2", "trainer.pp_microbatches=3")),
+        "pipeline_unet": ("unet", ("trainer.pipeline_parallelism=2",)),
+        "pipeline_accum": ("dit", ("trainer.pipeline_parallelism=2", "trainer.accumulate_grad_batches=8")),
+        "pipeline_depth": ("dit", ("trainer.pipeline_parallelism=2", "task.model.depth=3")),
         "indivisible_batch": ("dit", ("trainer.model_parallelism=1",)),
         "qkv_groups": ("dit", ("trainer.model_parallelism=2", "task.model.dim=128")),
         "world_vs_tp": ("dit", ("trainer.model_parallelism=3",)),
@@ -339,6 +349,272 @@ def jax_step(tmp: Path) -> dict:
     if dist.get_rank() == 0:
         torch.save(after, tmp / "params.pt")
     return {"metrics": metrics, "local_numel": sum(p.numel() for p in state.params.values())}
+
+
+# ------------------------------------------------------- the pipeline
+
+
+def _pipe_model(inputs: dict, mesh, *, sp: bool = False, dropout=None):
+    """The tiny DiT of ``inputs`` with ``scan_blocks=True`` on ``mesh`` (its
+    Megatron pairs over the model group, with ``sp`` its token stream too)."""
+    from bsi_torch.models import DenoisingDiT
+    from bsi_torch.nn import FourierFeatures
+    from bsi_torch.parallel import apply_sequence_parallelism
+
+    model = DenoisingDiT(fourier_features=FourierFeatures(6, 7), device="cpu", scan_blocks=True, dropout=dropout,
+                         **inputs["model"]).double()
+    model.load_state_dict(inputs["params"])
+    if sp:
+        apply_sequence_parallelism(model, mesh)
+    else:
+        model.set_layout(mesh)
+    return model
+
+
+def _staged(model, mesh, microbatches: int, **kw):
+    """``(apply, layout, params)``: the pipelined apply, the layout and this
+    rank's leaves, the foreign blocks freed."""
+    from bsi_torch.parallel import StateLayout, make_pipeline_apply
+
+    layout = StateLayout.build(mesh, dict(model.named_parameters()), tensor=True, **kw)
+    apply = make_pipeline_apply(model, mesh, microbatches)
+    params = {n: layout.local(n, p.detach()).requires_grad_() for n, p in model.named_parameters()
+              if layout.holds(n)}
+    model.keep_blocks(apply.pipeline.lo, apply.pipeline.hi)
+    return apply, layout, params
+
+
+def pipe_apply(tmp: Path) -> dict:
+    """The pipelined forward of the tiny DiT and the gradients of the mean
+    square of its output, under each of ``inputs["cases"][world]`` (P, M,
+    TP, SP), on the weights and inputs of ``../inputs.pt``: each rank saves
+    its output, the full gradient of every leaf it holds (after the
+    layout's reduction) and its point-to-point transfers to
+    ``<case>_rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from bsi_torch.parallel import make_mesh
+
+    inputs = torch.load(tmp.parent / "inputs.pt", weights_only=False)
+    out = {}
+    for case in inputs["cases"][dist.get_world_size()]:
+        pipe, micro, tp, sp = case
+        name = f"p{pipe}_m{micro}_tp{tp}" + ("_sp" if sp else "")
+        mesh = make_mesh(model_parallelism=tp, pipeline_parallelism=pipe)
+        model = _pipe_model(inputs, mesh, sp=sp)
+        apply, layout, params = _staged(model, mesh, micro)
+        apply.pipeline.trace = trace = []
+        y = apply(params, inputs["mu"], inputs["t"])
+        leaves = list(params.values())
+        grads = torch.autograd.grad((y ** 2).mean(), leaves, allow_unused=True)
+        grads = layout.reduce_grads(list(params), [torch.zeros_like(p) if g is None else g
+                                                   for p, g in zip(leaves, grads)])
+        full = {n: layout.full(n, g) for n, g in zip(params, grads)}
+        torch.save({"y": y.detach(), "grads": full, "trace": trace, "stage": mesh.pipe_rank},
+                   tmp / f"{name}_rank{dist.get_rank()}.pt")
+        out[name] = {"stage": mesh.pipe_rank, "held": len(params), "blocks": [apply.pipeline.lo, apply.pipeline.hi]}
+    return out
+
+
+def pipe_step(tmp: Path) -> dict:
+    """``make_train_step`` with the pipelined apply at P 2 x DP 2 on the
+    weights, batch and draws of ``../inputs.pt`` (JAX's, through
+    ``noise=``): each step's metrics and, on rank 0, the full parameters
+    after (``params.pt``)."""
+    import torch
+    import torch.distributed as dist
+
+    from bsi_torch.core import BSI
+    from bsi_torch.parallel import make_mesh
+    from bsi_torch.train import EMAConfig, TrainState, make_optimizer, make_train_step, warmup_cosine_schedule
+
+    inputs = torch.load(tmp.parent / "inputs.pt", weights_only=False)
+    mesh = make_mesh(pipeline_parallelism=2)
+    model = _pipe_model(inputs, mesh)
+    apply, layout, params = _staged(model, mesh, 2)
+    tx = make_optimizer(warmup_cosine_schedule(**inputs["sched"]))
+    state = TrainState.create(params=params, opt_state=tx.init(params), generator=torch.Generator())
+    draws = inputs["draws"]
+    step = make_train_step(BSI(**inputs["algo"]), apply, tx, EMAConfig(**inputs["ema"]),
+                           noise=lambda n, like: draws[n], layout=layout)
+    rows = inputs["batch"].shape[0] // mesh.data_size
+    batch = inputs["batch"][mesh.data_rank * rows:(mesh.data_rank + 1) * rows]
+    metrics = []
+    for _ in range(len(draws)):
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    after = dict(layout.full_items({n: p.detach() for n, p in state.params.items()}))
+    if dist.get_rank() == 0:
+        torch.save(after, tmp / "params.pt")
+    return {"metrics": metrics, "local_numel": sum(p.numel() for p in state.params.values()),
+            "mesh": [mesh.data_rank, mesh.pipe_rank]}
+
+
+def pipe_masks(tmp: Path) -> dict:
+    """The pre-MLP nn.Dropout mask of every block and microbatch of one
+    pipelined train-mode forward (P 2, M 2, dropout 0.5) under two step
+    seeds, the first twice, and the one-process masks under the first: as
+    the MLP sees them (zeros dropped), bits packed into hex, by block."""
+    import numpy as np
+    import torch
+
+    from bsi_torch.parallel import make_mesh
+    from bsi_torch.train.step import _dropout_rng, module_apply
+
+    inputs = torch.load(tmp.parent / "inputs.pt", weights_only=False)
+    mesh = make_mesh(pipeline_parallelism=2)
+
+    def masks_of(model, apply, params, seed):
+        seen = {}
+
+        def hook(i):
+            def record(module, args):
+                seen.setdefault(i, []).append(np.packbits((args[0] == 0).numpy()).tobytes().hex())
+            return record
+
+        blocks = [(i, getattr(model.dit, f"block_{i}")) for i in range(model.depth)]
+        handles = [block.mlp.register_forward_pre_hook(hook(i)) for i, block in blocks
+                   if next(block.parameters()).device.type != "meta"]
+        with torch.no_grad(), _dropout_rng(torch.device("cpu"), seed):
+            y = apply(params, inputs["mu"], inputs["t"])
+        for h in handles:
+            h.remove()
+        return {str(i): v for i, v in seen.items()}, float(y.double().square().sum())
+
+    model = _pipe_model(inputs, mesh, dropout=0.5)
+    apply, _, params = _staged(model, mesh, 2)
+    runs = {key: masks_of(model, apply, params, seed) for key, seed in (("a", 11), ("a_again", 11), ("b", 12))}
+    one = _pipe_model(inputs, mesh, dropout=0.5)
+    one_params = dict(one.named_parameters())
+    runs["one_process"] = masks_of(one, module_apply(one), one_params, 11)
+    return {key: {"masks": m, "out": o} for key, (m, o) in runs.items()}
+
+
+def remat_runs(tmp: Path, *extra: str, one: bool = False) -> dict:
+    """The Trainer with ``remat`` under the layout ``extra``, dropout on,
+    against one process without it and against the layout without it; with
+    ``one`` also one process with ``remat`` against one without."""
+    remat = "task.model.remat=yes"
+    base = build(tmp / "base", "dit", dropout=0.1, mesh_less=True)
+    base.fit()
+    off = build(tmp / "off", "dit", *extra, dropout=0.1)
+    off.fit()
+    on = build(tmp / "on", "dit", *extra, remat, dropout=0.1)
+    on.fit()
+    out = {"layout": compare(on, base), "layout_off": compare(on, off)}
+    if one:
+        alone = build(tmp / "one", "dit", remat, dropout=0.1, mesh_less=True)
+        alone.fit()
+        out["one"] = compare(alone, base)
+    return out
+
+
+def pipe_trainer2(tmp: Path) -> dict:
+    """The Trainer at P 2 (with attention and block dropout, at M 4, and
+    with remat) against one process, and the checkpoints across P 1 and
+    P 2."""
+    return {
+        "dropout": fit_pair(tmp / "dropout", "dit", "trainer.pipeline_parallelism=2", dropout=0.1),
+        "m4": fit_pair(tmp / "m4", "dit", "trainer.pipeline_parallelism=2", "trainer.pp_microbatches=4"),
+        "remat": remat_runs(tmp / "remat", "trainer.pipeline_parallelism=2", one=True),
+        "ckpt": pipe_checkpoints(tmp / "ckpt"),
+    }
+
+
+def pipe_trainer4(tmp: Path) -> dict:
+    """The Trainer at P 2 x DP 2 with FSDP, and at P 2 x TP 2 with SP and
+    dropout (also with remat), against one process."""
+    tp_sp = ("trainer.pipeline_parallelism=2", "trainer.model_parallelism=2", "trainer.sequence_parallel=yes")
+    return {
+        "fsdp": fit_pair(tmp / "fsdp", "dit", "trainer.pipeline_parallelism=2", "trainer.fsdp=yes"),
+        "tp_sp": fit_pair(tmp / "tp_sp", "dit", *tp_sp, dropout=0.1),
+        "remat": remat_runs(tmp / "remat", *tp_sp),
+    }
+
+
+def pipe_entry(tmp: Path) -> dict:
+    """``python -m bsi_torch.train``'s ``main`` at P 2 (the group already
+    joined, which ``initialize_distributed`` keeps), then its checkpoint
+    restored without the pipe as the eval scripts restore one
+    (``load_trainer`` with ``trainer.pipeline_parallelism=1``; the group
+    makes that a data axis of 2)."""
+    import torch
+    import torch.distributed as dist
+
+    from bsi_torch.scripts._common import load_trainer
+    from bsi_torch.train.__main__ import main
+
+    args = TINY + _model_args("dit") + ["trainer.max_steps=2", f"run_root={tmp}", "trainer.pipeline_parallelism=2"]
+    assert main(args) == 0
+    ckpt = [str(next(tmp.glob("*/*/ckpt_last"))) if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(ckpt, src=0)
+    ckpt = Path(ckpt[0])
+    records = [json.loads(line) for line in (ckpt.parent / "metrics.jsonl").read_text().splitlines()]
+    trainer, config, _ = load_trainer(str(ckpt), ["trainer.pipeline_parallelism=1"],
+                                      run_dir=tmp / f"eval{dist.get_rank()}")
+    saved = torch.load(ckpt / "state.pt", weights_only=True)["params"]
+    full = full_params(trainer)
+    return {"val_bpd": [r["val/bpd"] for r in records if "val/bpd" in r],
+            "loss": [r["train/loss"] for r in records if "train/loss" in r],
+            "restored": trainer.mesh.pipe_size == 1 and trainer.state.step == 2 and set(full) == set(saved)
+            and all(torch.equal(p, saved[n]) for n, p in full.items()),
+            "pipeline_parallelism": config["trainer"]["pipeline_parallelism"]}
+
+
+def pipe_checkpoints(tmp: Path) -> dict:
+    """A P 2 checkpoint restored at P 1 and a P 1 checkpoint at P 2, each
+    state held bit for bit to the file; the P 2 run resumed from its own
+    checkpoint (dropout on) against the straight run, bit for bit; and the
+    P 1 checkpoint continued at P 2 against P 1 straight."""
+    import torch
+    import torch.distributed as dist
+
+    p2 = ("trainer.pipeline_parallelism=2",)
+    parts = ("params", "ema_params", "mu", "nu")
+
+    def saved_parts(ckpt: Path) -> dict:
+        saved = torch.load(ckpt / "state.pt", weights_only=True)
+        return {"params": saved["params"], "ema_params": saved["ema_params"], **saved["opt_state"]}
+
+    def equal(trainer, saved: dict) -> bool:
+        got = {part: full_params_of(trainer, part) for part in parts}
+        return all(set(got[k]) == set(saved[k]) and all(torch.equal(got[k][n], saved[k][n]) for n in saved[k])
+                   for k in parts)
+
+    out = {}
+    # P 2 -> P 1, and P 2 resumed from its own checkpoint
+    first = build(tmp / "p2_first", "dit", *p2, steps=3, dropout=0.1, fid=False)
+    first.fit()
+    ckpt = first.save("p2")
+    dist.barrier()
+    saved = saved_parts(ckpt)
+    out["p2_gathers_the_file"] = equal(first, saved)
+    one = build(tmp / "p1_from_p2", "dit", steps=3, dropout=0.1, mesh_less=True, fid=False)
+    one.restore(ckpt)
+    out["p2_to_p1_bit_equal"] = equal(one, saved) and one.state.step == 3
+    straight = build(tmp / "p2_straight", "dit", *p2, steps=6, dropout=0.1, fid=False)
+    straight.fit()
+    resumed = build(tmp / "p2_resumed", "dit", *p2, steps=6, dropout=0.1, fid=False)
+    resumed.fit(from_checkpoint=str(ckpt))
+    out["p2_resume_bit_equal"] = all(
+        all(torch.equal(a, b) for a, b in zip(full_params_of(straight, k).values(),
+                                               full_params_of(resumed, k).values()))
+        for k in parts)
+    # P 1 -> P 2 (each rank wrote its own one-process checkpoint)
+    base = build(tmp / "p1_first", "dit", steps=3, mesh_less=True, fid=False)
+    base.fit()
+    ckpt1 = base.save("p1")
+    saved1 = saved_parts(ckpt1)
+    staged = build(tmp / "p2_from_p1", "dit", *p2, steps=6, fid=False)
+    staged.restore(ckpt1)
+    out["p1_to_p2_bit_equal"] = equal(staged, saved1) and staged.state.step == 3
+    base6 = build(tmp / "p1_straight", "dit", steps=6, mesh_less=True, fid=False)
+    base6.fit()
+    staged.fit()
+    out["p1_to_p2_then_3_steps"] = compare(staged, base6)
+    out["held"] = sorted(staged.state.params)
+    return out
 
 
 def launch(tmp: Path, world: int, phases: str, *, env: bool = False, timeout: float = 300.0) -> list[dict]:
