@@ -14,6 +14,12 @@ wall ms per step, device-busy ms per step (kernel time summed), the device's
 idle share, the kernels grouped by kind (the port's kernels, matmuls and
 convolutions, the rest) and by name, and the step's FLOPs counted from the
 layer shapes. ``--out`` also writes the numbers as JSON. Needs a CUDA device.
+
+It also holds what the port's benches share (``bsi_torch/bench.py``,
+``bsi_torch/scripts/bench_train.py``, ``profile_train``, ``chip_smoke.py``):
+the bench models (``UNET``, ``DIT_L2``, ``build_model``, ``build_algo``), the
+FLOP count from the layer shapes, and the card's name, power limit and peak
+(``card``, ``peak_flops``).
 """
 
 from __future__ import annotations
@@ -31,8 +37,13 @@ from bsi_torch import BSI
 from bsi_torch.models import DenoisingDiT, DenoisingVDMUNet
 from bsi_torch.nn import Attention2D, FourierFeatures, NyquistPositionalEmbedding, TokenAttention
 
+# The CIFAR-10 VDM-UNet (configs/experiment/cifar10-vdm.yaml), the JAX
+# package's UNet bench model (bench.py, scripts/bench_train.py).
+UNET = dict(dim=128, levels=32, pos_emb_mult=4, n_attention_heads=1)
 # DiT-L/2 at 32x32, the JAX package's DiT serving shape (bench.py).
 DIT_L2 = dict(data_shape=(32, 32, 3), patch_size=2, dim=1024, depth=24, heads=16)
+# Dense bf16 FLOP/s by card name (NVIDIA's data sheet: the H100 SXM).
+PEAK_FLOPS = {"NVIDIA H100 80GB HBM3": 989e12}
 
 
 def _kind(name: str) -> str:
@@ -111,6 +122,32 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def card(device: torch.device) -> dict:
+    """The card's name and its power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (None
+    for both off a card)."""
+    if device.type != "cuda":
+        return {"device": None, "power_limit": None}
+    lines = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return {"device": torch.cuda.get_device_name(device), "power_limit": lines[min(index, len(lines) - 1)]}
+
+
+def peak_flops(device: torch.device) -> float | None:
+    """The card's dense bf16 peak, by its name; None off a card or for a
+    card not in ``PEAK_FLOPS``."""
+    if device.type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(device)
+    return next((peak for kind, peak in PEAK_FLOPS.items() if name.startswith(kind)), None)
+
+
+def synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def summarize(prof, steps: int, wall_ms: float, flops: dict[str, float]) -> dict:
     """The card, wall and device-busy ms per step, the idle share, device ms
     by kernel kind and the top kernels from a profile of ``steps`` steps."""
@@ -124,12 +161,10 @@ def summarize(prof, steps: int, wall_ms: float, flops: dict[str, float]) -> dict
     by_kind: dict[str, float] = defaultdict(float)
     for name, (ms, _) in by_name.items():
         by_kind[_kind(name)] += ms
+    gpu = card(torch.device("cuda"))
     return {
-        "device": torch.cuda.get_device_name(0),
-        "nvidia_smi": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True,
-        ).stdout.strip(),
+        "device": gpu["device"],
+        "nvidia_smi": gpu["power_limit"],
         "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy if busy > 0 else None,
         "device_idle_share": (1.0 - busy / wall_ms) if busy > 0 else None,
@@ -143,30 +178,44 @@ def summarize(prof, steps: int, wall_ms: float, flops: dict[str, float]) -> dict
     }
 
 
-def fill_ada_out(model: torch.nn.Module, generator: torch.Generator, std: float = 0.02) -> None:
+def fill_ada_out(model: torch.nn.Module, seed: int, std: float = 0.02) -> None:
     """Fill every DiT block's ``ada_out`` (zero at adaLN-Zero init, which makes
-    each block the identity) with normals of ``std`` from ``generator``."""
+    each block the identity) with normals of ``std`` from a generator seeded
+    with ``seed`` on the model's device."""
+    generator = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
     with torch.no_grad():
         for name, param in model.named_parameters():
             if ".ada_out." in name:
                 param.copy_(torch.randn(param.shape, generator=generator, device=generator.device) * std)
 
 
-def build_model(name: str, device, dtype=torch.bfloat16, seed: int = 0, image_size: int = 32) -> torch.nn.Module:
-    """The full-width sampling model ``name`` ("unet" or "dit") on
-    ``image_size`` square RGB images, with random weights from ``seed``, in
-    eval mode."""
+def build_model(name: str, device, dtype=torch.bfloat16, seed: int = 0, image_size: int = 32,
+                **kw) -> torch.nn.Module:
+    """The full-width bench model ``name`` ("unet" or "dit") on ``image_size``
+    square RGB images, with random weights from ``seed``, in eval mode:
+    Fourier features 6..8, the UNet's timestep embedding
+    ``NyquistPositionalEmbedding(32, 100)``, the DiT's ``ada_out`` filled.
+    ``kw`` (``dropout``, ``remat``, ``actfn``, ...) goes to the model's
+    constructor."""
     torch.manual_seed(seed)
     ff = FourierFeatures(6, 8)
     shape = (image_size, image_size, 3)
     if name == "unet":
-        return DenoisingVDMUNet(
-            shape, NyquistPositionalEmbedding(32, 100), dim=128, levels=32, pos_emb_mult=4,
-            n_attention_heads=1, fourier_features=ff, dtype=dtype, device=device,
-        ).eval()
-    model = DenoisingDiT(fourier_features=ff, dtype=dtype, device=device, **{**DIT_L2, "data_shape": shape}).eval()
-    fill_ada_out(model, torch.Generator(device=device).manual_seed(seed))
+        return DenoisingVDMUNet(shape, NyquistPositionalEmbedding(32, 100), fourier_features=ff, dtype=dtype,
+                                device=device, **UNET, **kw).eval()
+    if name != "dit":
+        raise ValueError(f"unknown model {name!r}")
+    model = DenoisingDiT(fourier_features=ff, dtype=dtype, device=device, **{**DIT_L2, "data_shape": shape},
+                         **kw).eval()
+    fill_ada_out(model, seed)
     return model
+
+
+def build_algo(k: int, image_size: int = 32) -> BSI:
+    """BSI as the JAX package's benches run it: lambda_0 1e-2, alpha_M 1e6,
+    alpha_R 2e6, EDM preconditioning, ``k`` sampling steps."""
+    shape = (image_size, image_size, 3)
+    return BSI(data_shape=shape, lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=k, preconditioning="edm")
 
 
 def main(argv=None) -> dict:
@@ -183,7 +232,7 @@ def main(argv=None) -> dict:
     dev = torch.device("cuda")
     shape = (args.image_size, args.image_size, 3)
     model = build_model(args.model, dev, seed=args.seed, image_size=args.image_size)
-    algo = BSI(data_shape=shape, lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=128)
+    algo = build_algo(128, args.image_size)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     mu = torch.randn((args.batch,) + shape, generator=gen, device=dev)
     t = torch.full((args.batch,), 0.5, device=dev)

@@ -2,8 +2,9 @@
 
     python -m bsi_torch.profile_train [--model unet|dit] [--image-size 32|16] [--batch N] [--steps 3] [--out FILE]
 
-Builds the JAX package's train bench (``scripts/bench_train.py::build``) for
-``--model``, with random weights and synthetic 8-bit images from a seed:
+Builds the train bench (``bsi_torch/scripts/bench_train.py::build``, the JAX
+package's ``scripts/bench_train.py``) for ``--model``, with random weights
+and synthetic 8-bit images from a seed:
 
 - ``unet``: the full-width CIFAR-10 VDM-UNet, batch 128, dropout 0.1, AdamW
   2e-4;
@@ -36,43 +37,9 @@ import time
 
 import torch
 
-from bsi_torch import BSI
-from bsi_torch.models import DenoisingDiT, DenoisingVDMUNet
-from bsi_torch.nn import FourierFeatures, NyquistPositionalEmbedding
-from bsi_torch.profile_sampling import DIT_L2, count_flops, fill_ada_out, summarize
-from bsi_torch.train import (
-    EMAConfig,
-    TrainState,
-    make_optimizer,
-    make_train_step,
-    module_apply,
-    warmup_cosine_schedule,
-)
-
-
-def build(name: str, device, seed: int = 0, image_size: int = 32):
-    """The train bench of ``name`` ("unet" or "dit") on ``image_size`` square
-    images: ``(model, algorithm, optimizer, EMA config, default batch)``, the
-    model in train mode with random weights from ``seed``."""
-    torch.manual_seed(seed)
-    ff = FourierFeatures(6, 8)
-    shape = (image_size, image_size, 3)
-    if name == "unet":
-        model = DenoisingVDMUNet(
-            shape, NyquistPositionalEmbedding(32, 100), dim=128, levels=32, pos_emb_mult=4,
-            n_attention_heads=1, dropout=0.1, fourier_features=ff, dtype=torch.bfloat16, device=device,
-        )
-        lr, cast, batch = 2e-4, {}, 128
-    elif name == "dit":
-        model = DenoisingDiT(fourier_features=ff, dropout=0.05, dtype=torch.bfloat16, device=device,
-                             **{**DIT_L2, "data_shape": shape})
-        fill_ada_out(model, torch.Generator(device=device).manual_seed(seed))
-        lr, cast, batch = 5e-4, dict(mu_dtype="bfloat16", nu_dtype="bfloat16"), 64
-    else:
-        raise ValueError(f"unknown model {name!r}")
-    algo = BSI(data_shape=shape, lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=50, preconditioning="edm")
-    tx = make_optimizer(warmup_cosine_schedule(lr, warmup_steps=100, max_steps=10**6), **cast)
-    return model.train(), algo, tx, EMAConfig(update_after_step=1000), batch
+from bsi_torch.profile_sampling import count_flops, summarize
+from bsi_torch.scripts.bench_train import build
+from bsi_torch.train import TrainState, make_train_step, module_apply
 
 
 def main(argv=None) -> dict:
@@ -87,7 +54,8 @@ def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
     dev = torch.device("cuda")
-    model, algo, tx, ema, batch_size = build(args.model, dev, args.seed, args.image_size)
+    moments = dict(mu_dtype="bfloat16", nu_dtype="bfloat16") if args.model == "dit" else {}
+    model, algo, tx, ema, batch_size = build(args.model, dev, args.seed, args.image_size, **moments)
     batch_size = args.batch or batch_size
     params = dict(model.named_parameters())
     state = TrainState.create(params=params, opt_state=tx.init(params),

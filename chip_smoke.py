@@ -73,7 +73,17 @@ without a group, its checkpoint restored in one process
 (``[pipeline.launch]``). ``chip_smoke.py --child ...`` is how the script
 starts those processes. After ``[dit.train]``, ``bench.py``'s
 ``dit-train`` rows with ``remat=True``: b64 (``[dit.remat]``) and the
-optimizer batch 512 as 16x32 (``[dit.b512]``).
+optimizer batch 512 as 16x32 (``[dit.b512]``). The bench rows (``[sample]``,
+``[train]``, ``[dit.sample]``, ``[dit.train]``, ``[dit.remat]``,
+``[dit.b512]``, and ``[unet16.train]``) are timed by the port's bench
+(``bsi_torch/bench.py::bench_sampling``,
+``bsi_torch/scripts/bench_train.py::run``) on the models of
+``profile_sampling.build_model``, cut to fewer steps; ``[bench]`` prints
+their combined record as ``python -m bsi_torch.bench`` prints its last
+line. Last, the kill-and-requeue soak (``python -m
+bsi_torch.scripts.soak_test``, ``[soak]``) and ``bench_parallel`` under
+``torchrun`` at ``--dp 1`` with and without FSDP (``[bench.parallel]``), each
+in processes of their own.
 Prints one line per phase, a JSON line
 with every kernel's numbers, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -85,6 +95,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import functools
+import gc
 import json
 import math
 import os
@@ -102,15 +113,14 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
 
-# Full-width CIFAR-10 VDM-UNet (configs/experiment/cifar10-vdm.yaml); bench.py
-# times the same model and sampler.
+# The full-width CIFAR-10 VDM-UNet (``profile_sampling.UNET``, built by
+# ``profile_sampling.build_model``) and its bench rows (bsi_torch/bench.py):
+# sampling at K_STEPS, batch BATCH; the train bench (bench_train.py) at batch
+# TRAIN_BATCH, TRAIN_STEPS timed steps after a warm-up. The shapes the
+# kernels are held at; main() checks them against the bench's.
 DATA_SHAPE = (32, 32, 3)
-UNET = dict(dim=128, levels=32, pos_emb_mult=4, n_attention_heads=1)
 BATCH = 64
 K_STEPS = 128
-# The train bench: batch 128, dropout 0.1, AdamW 2e-4 with warmup 100 and a
-# cosine to 1e6 steps, clip 1.0, EMA after step 1000; 1 warm-up step, then
-# TRAIN_STEPS timed ones.
 TRAIN_BATCH = 128
 TRAIN_STEPS = 10
 # One UNet forward: 34 GroupNorm+SiLU at 128 channels (32 down, centre in
@@ -139,10 +149,10 @@ K4F_OPS_PER_ELEM = 7
 # g's sum (dshift), g * n and its sum (dscale), dn = g * (1 + scale), its sum,
 # dn * n and its sum, and dx's subtract, multiply-subtract and scale.
 K4B_OPS_PER_ELEM = 15
-# The DiT train step (bench.py's dit-train row): batch 64, dropout 0.05 on the
-# attention probabilities and before each MLP; 1 warm-up step, then
-# TRAIN_STEPS timed ones. Per step: K2 and K3 once per block, K4f and K4b
-# twice.
+# The DiT train step (bench.py's dit-train row, without remat): batch 64,
+# dropout 0.05 on the attention probabilities and before each MLP; 1 warm-up
+# step, then TRAIN_STEPS timed ones. Per step: K2 and K3 once per block, K4f
+# and K4b twice.
 DIT_TRAIN_BATCH = 64
 DIT_DROPOUT = 0.05
 K3_PER_STEP = 24
@@ -158,10 +168,6 @@ K5B_PER_STEP = 1
 EVAL_BATCH = 64
 EVAL_STEPS = 5
 K5_RATE = 0.1
-# The UNet with downsampling_attention (gelu: flax cannot build it with silu):
-# an attention tail on each of the 66 residual blocks plus the centre's, all
-# over the image's pixels.
-TAIL_ATTENTIONS = 2 * UNET["levels"] + 2 + 1
 
 
 # The trainer path: the port's entry point (python -m bsi_torch.train) on the
@@ -200,7 +206,7 @@ IMAGENET_MICRO = 64
 IMAGENET_STEPS = 2
 IMAGENET_EVAL_BATCH = 512
 IMAGENET_K = 50  # configs/task/algorithm/*.yaml: the plots' sampling steps
-PLOTS_K_CUT = 8  # [imagenet32.vdm] and [imagenet32.bfn]'s plots
+PLOTS_K_CUT = 8  # the plots of [trainer.fit] and [imagenet32.fit], .vdm and .bfn
 
 
 # The parallel layouts (bsi_torch/parallel/). The card's machine has one GPU,
@@ -247,14 +253,26 @@ PIPE_CASES = (("off", None, PIPE_SEEDS[0], False), ("dropout", DIT_DROPOUT, PIPE
               ("dropout_again", DIT_DROPOUT, PIPE_SEEDS[0], False),
               ("dropout_seed2", DIT_DROPOUT, PIPE_SEEDS[1], False), ("remat", DIT_DROPOUT, PIPE_SEEDS[0], True))
 PIPE_REFS = {"off": "off", "dropout": "dropout", "remat": "dropout"}
-# [dit.remat] and [dit.b512]: bench.py's dit-train rows, which run remat=True:
-# b64 (REMAT_STEPS timed steps after a warm-up), and the imagenet32 recipe's
-# optimizer batch 512 as B512_ACCUM micro-batches of B512_MICRO, B512_STEPS
-# steps.
+# [dit.remat] and [dit.b512]: bench.py's dit-train and dit-train-b512 rows
+# (remat, the latter the imagenet32 recipe's optimizer batch 512 as 16
+# micro-batches of 32), cut to REMAT_STEPS and B512_STEPS timed steps after
+# a warm-up.
 REMAT_STEPS = 3
-B512_ACCUM = 16
-B512_MICRO = 32
 B512_STEPS = 2
+# [soak]: python -m bsi_torch.scripts.soak_test at the CIFAR-10 recipe's
+# widths, cut: batch SOAK_BATCH (128), SOAK_STEPS steps (50,000) killed at
+# SOAK_STEPS / 2, 4,096 synthetic train images (50,000). A run logs a rate
+# window every 10 steps, and the soak compares the two runs' medians past
+# the first two. The steps are host-paced at batches 32 to 128 (146 to 250
+# ms), and a window's rate swings by ~10 % on the card's shared host: with
+# five windows a run the medians parted by 14.9 % and 18.0 % of the 15 %
+# allowed in two of six runs (PERF.md). Fifteen a run steady the medians.
+SOAK_STEPS = 320
+SOAK_BATCH = 64
+SOAK_N_TRAIN = 4096
+# [bench.parallel]: torchrun --nproc_per_node 1 -m bsi_torch.scripts.bench_parallel
+# --dp 1, with and without --fsdp, cut to BENCH_PARALLEL_STEPS steps (40).
+BENCH_PARALLEL_STEPS = 8
 COUNTER_NAMES = ("flash_attention", "flash_attention_dropout", "flash_attention_bwd", "groupnorm_silu_fwd",
                  "groupnorm_silu_bwd", "flash_attention_fused", "flash_attention_packed", "layernorm_modulate_fwd",
                  "flash_attention_fused_bwd", "flash_attention_packed_bwd", "layernorm_modulate_bwd")
@@ -934,6 +952,21 @@ def card_vs_cpu_grads(what: str, models, algo, x, t, eps):
     return grads[0], worst, worst_name, all(bool(torch.isfinite(g).all()) for g in grads[1].values()), losses
 
 
+def bench_fields(record: dict) -> dict:
+    """A bench record's rate, its share of the card's peak (where the card
+    is in ``profile_sampling.PEAK_FLOPS``) and the card, as a phase prints them."""
+    mfu = record.get("mfu")
+    return dict(tflop_per_s=f"{record['tflops_per_sec']:.1f}", mfu=f"{mfu:.4f}" if mfu is not None else None,
+                device=repr(record["device"]), power_limit=repr(record["power_limit"]))
+
+
+def check_train(record: dict) -> None:
+    """A train bench's last loss is positive (``bench_train.run`` has held
+    it and the gradient norm finite, and the moments to their dtypes)."""
+    if not record["final_loss"] > 0:
+        raise AssertionError(f"{record['metric']}: final loss {record['final_loss']}")
+
+
 def predicted_train_peak_gib(batch: int, pixels: int, dim: int, levels: int) -> float:
     """Activations autograd keeps for one bf16 train step, from the shapes:
     per residual block its input (GroupNorm and skip), the GroupNorm output
@@ -968,31 +1001,32 @@ def main() -> int:
     import numpy as np
     from torch.nn import functional as F
 
-    from bsi_torch import BFN, BSI, VDM, Discretization
+    from bsi_torch import BFN, VDM, Discretization, bench
     from bsi_torch.data import ImageNetDataModule, NpyRowSource
     from bsi_torch.data.imagenet import write_synthetic_shards
-    from bsi_torch.models import DenoisingDiT, DenoisingVDMUNet
-    from bsi_torch.nn import FourierFeatures, NyquistPositionalEmbedding
     from bsi_torch.ops import _build
     from bsi_torch.ops import flash_attention as fa
     from bsi_torch.ops import flash_attention_packed as fap
     from bsi_torch.ops import groupnorm_silu as gn
     from bsi_torch.ops import ln_modulate as lm
     from bsi_torch.ops.dropout_mask import keep_probe, keep_probe_bwd, keep_probe_bwd_counts, keep_probe_counts
-    from bsi_torch.profile_sampling import DIT_L2, build_model, count_flops
-    from bsi_torch.profile_train import build as build_train
-    from bsi_torch.train import (
-        EMAConfig,
-        TrainState,
-        make_eval_step,
-        make_optimizer,
-        make_sample_fn,
-        make_train_step,
-        module_apply,
-        warmup_cosine_schedule,
-    )
+    from bsi_torch.profile_sampling import DIT_L2, UNET, build_algo, build_model, count_flops
+    from bsi_torch.scripts import bench_train
+    from bsi_torch.train import TrainState, make_eval_step, make_sample_fn, module_apply
 
     dev = torch.device("cuda")
+    # The shapes the kernels are held at are the bench rows' (module constants).
+    want_rows = dict(batch=BATCH, k=K_STEPS, train_batch=TRAIN_BATCH, dit_train_batch=DIT_TRAIN_BATCH,
+                     dit_dropout=DIT_DROPOUT)
+    rows = dict(batch=bench.BATCH, k=bench.K_STEPS, train_batch=bench_train.BATCH["unet"],
+                dit_train_batch=bench_train.BATCH["dit"], dit_dropout=bench_train.DROPOUT["dit"])
+    if rows != want_rows:
+        raise AssertionError(f"chip_smoke.py's shapes {want_rows} are not the bench's {rows}")
+    # The UNet with downsampling_attention (gelu: flax cannot build it with
+    # silu): an attention tail on each of the 66 residual blocks plus the
+    # centre's, all over the image's pixels.
+    tail_attentions = 2 * UNET["levels"] + 2 + 1
+    b512_micro = bench.TRAIN_ROWS["dit-train-b512"]["batch"] // bench.TRAIN_ROWS["dit-train-b512"]["accum"]
     # f32 results are compared against the CPU and the plain versions: no TF32.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1749,10 +1783,10 @@ def main() -> int:
     # The pipeline runs the kernels on microbatches: [pipeline.gloo2] on
     # PIPE_BATCH / PIPE_MICRO rows, [pipeline.launch] on PARALLEL_BATCH /
     # PIPE_MICRO (f32, K2 and K3 at rate 0.05 in training, K2 at 0 in
-    # validation); [dit.b512] on micro-batches of B512_MICRO in bf16. Each
+    # validation); [dit.b512] on micro-batches of b512_micro in bf16. Each
     # against its twin with the tolerances above.
     for cb, dtype in ((PIPE_BATCH // PIPE_MICRO, f32), (PARALLEL_BATCH // PIPE_MICRO, f32),
-                      (B512_MICRO, torch.bfloat16)):
+                      (b512_micro, torch.bfloat16)):
         bf16 = dtype == torch.bfloat16
         errs = {}
         for rate in (DIT_DROPOUT, 0.0):
@@ -1945,12 +1979,9 @@ def main() -> int:
         k5b_call, sd, K5_RATE, out=stats1[0], lse=stats1[1])))
 
     # --------------------------------------- whole model, card against CPU
-    pos_emb = NyquistPositionalEmbedding(32, 100)
-    ff = FourierFeatures(n_min=6, n_max=8)
-    torch.manual_seed(SEED)
-    model_cpu = DenoisingVDMUNet(DATA_SHAPE, pos_emb, fourier_features=ff, device="cpu", **UNET).eval()
+    model_cpu = build_model("unet", "cpu", dtype=None, seed=SEED)
     weights = model_cpu.state_dict()
-    model_f32 = DenoisingVDMUNet(DATA_SHAPE, pos_emb, fourier_features=ff, device=dev, **UNET).eval()
+    model_f32 = build_model("unet", dev, dtype=None)
     model_f32.load_state_dict(weights)
     cpu_gen = torch.Generator().manual_seed(SEED)
     mu = torch.randn((2,) + DATA_SHAPE, generator=cpu_gen)
@@ -1967,8 +1998,7 @@ def main() -> int:
     phase("model.check", batch=2, dtype="float32", max_abs_err=f"{err:.3e}", atol=f"{model_tol:.3e}",
           output_max_abs=f"{scale:.3e}", finite=bool(torch.isfinite(out).all()))
 
-    algo = BSI(data_shape=DATA_SHAPE, lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=K_STEPS,
-               preconditioning="edm")
+    algo = build_algo(K_STEPS)
     # The sampler, card against CPU, k=4 on the same noise. At random weights
     # the Fourier features (frequencies up to 2 pi 2^8) make the UNet so
     # sensitive to its input that two free-running samplers part by orders of
@@ -2001,8 +2031,7 @@ def main() -> int:
     # a weight's gradient sums ~2,000 pixel terms of random sign, so its
     # norm is ~45x below the sum of the terms' sizes, and the backward's
     # order of sums (cuDNN's against the CPU's) adds its own 1e-6.
-    algo_train = BSI(data_shape=DATA_SHAPE, lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=50,
-                     preconditioning="edm")
+    algo_train = build_algo(50)
     x_small = torch.rand((2,) + DATA_SHAPE, generator=cpu_gen) * 2.0 - 1.0
     t_small, eps_small = algo_train.train_noise(cpu_gen, x_small)
     grads, worst, worst_name, finite, _ = card_vs_cpu_grads(
@@ -2012,80 +2041,48 @@ def main() -> int:
     del model_f32, grads
 
     # ------------------------------------------------ main path: sampling
+    # bench.py's unet-sampling row through its own timing function: a warm-up
+    # run, then 3 timed ones, each run's launches gated between them.
     del scrub, q, k, v, x, x_nchw
-    model = DenoisingVDMUNet(DATA_SHAPE, pos_emb, fourier_features=ff, dtype=torch.bfloat16,
-                             device=dev, **UNET).eval()
+    model = build_model("unet", dev)
     model.load_state_dict(weights)
-    sample_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    algo.sample(model, sample_gen, BATCH)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    secs = []
-    for _ in range(3):
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        samples = algo.sample(model, sample_gen, BATCH)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        launches = expect_counts("a UNet sampling run", flash_attention=K1_PER_FORWARD * (K_STEPS + 1),
-                                 groupnorm_silu_fwd=K7_PER_FORWARD * (K_STEPS + 1))
-        if samples.shape != (BATCH,) + DATA_SHAPE or not torch.isfinite(samples).all():
-            raise AssertionError(f"bad samples: shape {tuple(samples.shape)}, "
-                                 f"finite {bool(torch.isfinite(samples).all())}")
-    peak = torch.cuda.max_memory_allocated()
-    phase("sample", k=K_STEPS, batch=BATCH, dtype="bfloat16", run_s=secs,
-          samples_per_s=f"{BATCH / statistics.median(secs):.3f}", peak_mem_gib=f"{peak / 2**30:.3f}",
-          launches=launches, finite=True, shape=tuple(samples.shape))
+    runs = []
+
+    def gate(what: str, **want):
+        return lambda samples: runs.append(expect_counts(what, **want))
+
+    sample_rec = bench.bench_sampling(model, algo, batch=BATCH, seed=SEED + 1, before_run=reset_counts,
+                                      after_run=gate("a UNet sampling run",
+                                                     flash_attention=K1_PER_FORWARD * (K_STEPS + 1),
+                                                     groupnorm_silu_fwd=K7_PER_FORWARD * (K_STEPS + 1)))
+    launches = runs[-1]
+    phase("sample", k=K_STEPS, batch=BATCH, dtype="bfloat16", run_s=sample_rec["run_s"],
+          samples_per_s=f"{sample_rec['value']:.3f}", peak_mem_gib=f"{sample_rec['peak_mem_gib']:.3f}",
+          launches=launches, finite=True, shape=(BATCH,) + DATA_SHAPE, **bench_fields(sample_rec))
     path_launches = {"unet_sample": launches}
-    del model, samples
+    bench_rows = {"unet-sampling": sample_rec}
+    del model
 
     # ---------------------------------------------- main path: train step
+    # bench.py's unet-train row (bench_train.run) cut to TRAIN_STEPS steps.
     predicted_gib = predicted_train_peak_gib(TRAIN_BATCH, 1024, UNET["dim"], UNET["levels"])
-    train_model = DenoisingVDMUNet(DATA_SHAPE, pos_emb, fourier_features=ff, dropout=0.1,
-                                   dtype=torch.bfloat16, device=dev, **UNET)
-    train_model.load_state_dict(weights)
-    params = dict(train_model.named_parameters())
-    tx = make_optimizer(warmup_cosine_schedule(2e-4, warmup_steps=100, max_steps=10**6))
-    state = TrainState.create(params=params, opt_state=tx.init(params),
-                              generator=torch.Generator(device=dev).manual_seed(SEED + 2))
-    train_step = make_train_step(algo_train, module_apply(train_model), tx, EMAConfig(update_after_step=1000))
-    # synthetic 8-bit-quantised images in [-1, 1], as the bench makes them
-    data_gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    batch = torch.randint(0, 256, (TRAIN_BATCH,) + DATA_SHAPE, generator=data_gen, device=dev) / 255.0 * 2.0 - 1.0
-    with torch.no_grad():
-        forward_flops = sum(count_flops(train_model, lambda: train_model(
-            batch, torch.full((TRAIN_BATCH,), 0.5, device=dev))).values())
-    state, metrics = train_step(state, batch)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
-        state, metrics = train_step(state, batch)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
+    train_rec = bench_train.run(**{**bench.TRAIN_ROWS["unet-train"], "steps": TRAIN_STEPS}, device=dev,
+                                seed=SEED + 2, window=reset_counts)
     train_launches = expect_counts(
         f"{TRAIN_STEPS} UNet train steps", flash_attention=K1_PER_FORWARD * TRAIN_STEPS,
         groupnorm_silu_fwd=K7_PER_FORWARD * TRAIN_STEPS, groupnorm_silu_bwd=K7B_PER_STEP * TRAIN_STEPS)
-    final_loss = metrics["train/loss"].item()
-    grad_norm = metrics["train/grad_norm"].item()
-    if not (math.isfinite(final_loss) and final_loss > 0 and math.isfinite(grad_norm)):
-        raise AssertionError(f"bad train metrics: loss {final_loss}, grad norm {grad_norm}")
-    peak = torch.cuda.max_memory_allocated()
-    ms_step = train_s / TRAIN_STEPS * 1e3
-    # MFU: the forward's FLOPs from the layer shapes, times three for the
-    # backward, over the step time, against the dense bf16 peak
-    step_flops = 3 * forward_flops
-    phase("train", batch=TRAIN_BATCH, dtype="bfloat16", dropout=0.1, steps=TRAIN_STEPS, step=state.step,
-          ms_per_step=f"{ms_step:.3f}", examples_per_s=f"{TRAIN_BATCH * TRAIN_STEPS / train_s:.3f}",
-          tflop_per_step=f"{step_flops / 1e12:.3f}",
-          mfu=f"{step_flops / (ms_step / 1e3) / BF16_TENSOR_FLOPS:.4f}",
-          peak_mem_gib=f"{peak / 2**30:.3f}", predicted_peak_gib=f"{predicted_gib:.3f}",
-          final_loss=f"{final_loss:.6g}", grad_norm=f"{grad_norm:.6g}",
+    check_train(train_rec)
+    phase("train", batch=TRAIN_BATCH, dtype="bfloat16", dropout=bench_train.DROPOUT["unet"], steps=TRAIN_STEPS,
+          step=train_rec["step"], ms_per_step=f"{train_rec['step_ms']:.3f}",
+          examples_per_s=f"{train_rec['value']:.3f}", tflop_per_step=f"{train_rec['tflop_per_step']:.3f}",
+          mfu=f"{train_rec['mfu']:.4f}", peak_mem_gib=f"{train_rec['peak_mem_gib']:.3f}",
+          predicted_peak_gib=f"{predicted_gib:.3f}", final_loss=f"{train_rec['final_loss']:.6g}",
+          grad_norm=f"{train_rec['grad_norm']:.6g}",
           launches_per_step={name: n // TRAIN_STEPS for name, n in train_launches.items() if n})
     path_launches["unet_train"] = train_launches
-    del train_model, params, tx, state, train_step, batch, metrics
+    bench_rows["unet-train"] = train_rec
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---------------------------------------- DiT-L/2, card against CPU
     # adaLN-Zero: at init every gate is 0 and every block the identity, so a
@@ -2093,7 +2090,7 @@ def main() -> int:
     # ada_out filled with normals of std 0.02 first.
     dit_cpu = build_model("dit", "cpu", dtype=None, seed=SEED)
     dit_weights = dit_cpu.state_dict()
-    dit_f32 = DenoisingDiT(fourier_features=ff, device=dev, **DIT_L2).eval()
+    dit_f32 = build_model("dit", dev, dtype=None)
     dit_f32.load_state_dict(dit_weights)
     mu = torch.randn((2,) + DATA_SHAPE, generator=cpu_gen)
     t = torch.rand(2, generator=cpu_gen)
@@ -2180,142 +2177,78 @@ def main() -> int:
     del dit_cpu, dit_f32, grads
 
     # -------------------------------------------- main path: DiT sampling
-    dit = DenoisingDiT(fourier_features=ff, dtype=torch.bfloat16, device=dev, **DIT_L2).eval()
+    # bench.py's dit-sampling row, timed as [sample].
+    dit = build_model("dit", dev)
     dit.load_state_dict(dit_weights)
     del dit_weights
-    mu64 = torch.randn((BATCH,) + DATA_SHAPE, device=dev)
-    with torch.inference_mode():
-        dit_flops = sum(count_flops(dit, lambda: dit(mu64, torch.full((BATCH,), 0.5, device=dev))).values())
-    sample_gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    algo.sample(dit, sample_gen, BATCH)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    secs = []
-    for _ in range(3):
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        samples = algo.sample(dit, sample_gen, BATCH)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        launches = expect_counts("a DiT sampling run", flash_attention_fused=K2_PER_FORWARD * (K_STEPS + 1),
-                                 layernorm_modulate_fwd=K4F_PER_FORWARD * (K_STEPS + 1))
-        if samples.shape != (BATCH,) + DATA_SHAPE or not torch.isfinite(samples).all():
-            raise AssertionError(f"bad DiT samples: shape {tuple(samples.shape)}, "
-                                 f"finite {bool(torch.isfinite(samples).all())}")
-    peak = torch.cuda.max_memory_allocated()
-    run_s = statistics.median(secs)
-    phase("dit.sample", k=K_STEPS, batch=BATCH, dtype="bfloat16", run_s=secs,
-          samples_per_s=f"{BATCH / run_s:.3f}", peak_mem_gib=f"{peak / 2**30:.3f}",
+    runs.clear()
+    dit_sample_rec = bench.bench_sampling(dit, algo, batch=BATCH, seed=SEED + 4, before_run=reset_counts,
+                                          after_run=gate("a DiT sampling run",
+                                                         flash_attention_fused=K2_PER_FORWARD * (K_STEPS + 1),
+                                                         layernorm_modulate_fwd=K4F_PER_FORWARD * (K_STEPS + 1)))
+    launches = runs[-1]
+    dit_flops = dit_sample_rec["tflop_per_run"] * 1e12 / (K_STEPS + 1)
+    phase("dit.sample", k=K_STEPS, batch=BATCH, dtype="bfloat16", run_s=dit_sample_rec["run_s"],
+          samples_per_s=f"{dit_sample_rec['value']:.3f}", peak_mem_gib=f"{dit_sample_rec['peak_mem_gib']:.3f}",
           tflop_per_forward=f"{dit_flops / 1e12:.3f}", gflop_per_example=f"{dit_flops / BATCH / 1e9:.1f}",
-          tflop_per_s=f"{dit_flops * (K_STEPS + 1) / run_s / 1e12:.1f}",
-          launches={name: n for name, n in launches.items() if n}, finite=True, shape=tuple(samples.shape))
+          launches={name: n for name, n in launches.items() if n}, finite=True, shape=(BATCH,) + DATA_SHAPE,
+          **bench_fields(dit_sample_rec))
     path_launches["dit_sample"] = launches
-    del dit, samples
+    bench_rows["dit-sampling"] = dit_sample_rec
+    del dit
 
     # -------------------------------------------- main path: DiT training
-    # bench.py's dit-train row (scripts/bench_train.py::build): DiT-L/2, batch
-    # 64, bf16 compute on f32 parameters, dropout 0.05, AdamW 5e-4 with bf16
-    # moments, warmup 100, cosine to 1e6, clip 1.0, EMA after 1000; ada_out
-    # filled. No remat: the activations fit the card without it.
-    dit_train, algo_dit, tx_dit, ema_dit, _ = build_train("dit", dev, SEED)
-    params = dict(dit_train.named_parameters())
-    state = TrainState.create(params=params, opt_state=tx_dit.init(params),
-                              generator=torch.Generator(device=dev).manual_seed(SEED + 5))
-    train_step = make_train_step(algo_dit, module_apply(dit_train), tx_dit, ema_dit)
-    data_gen = torch.Generator(device=dev).manual_seed(SEED + 6)
-    batch = torch.randint(0, 256, (DIT_TRAIN_BATCH,) + DATA_SHAPE, generator=data_gen,
-                          device=dev) / 255.0 * 2.0 - 1.0
-    with torch.no_grad():
-        forward_flops = sum(count_flops(dit_train, lambda: dit_train(
-            batch, torch.full((DIT_TRAIN_BATCH,), 0.5, device=dev))).values())
-    state, metrics = train_step(state, batch)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
-        state, metrics = train_step(state, batch)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
+    # bench.py's dit-train row (bench_train.run: DiT-L/2, batch 64, bf16
+    # compute on f32 parameters, dropout 0.05, AdamW 5e-4 with bf16 moments,
+    # warmup 100, cosine to 1e6, clip 1.0, EMA after 1000; ada_out filled)
+    # without remat: the activations fit the card without it.
+    dit_rec = bench_train.run(**{**bench.TRAIN_ROWS["dit-train"], "steps": TRAIN_STEPS, "remat": False}, device=dev,
+                              seed=SEED + 5, window=reset_counts)
     train_launches = expect_counts(
         f"{TRAIN_STEPS} DiT-L/2 train steps", flash_attention_fused=K2_PER_FORWARD * TRAIN_STEPS,
         flash_attention_fused_bwd=K3_PER_STEP * TRAIN_STEPS, layernorm_modulate_fwd=K4F_PER_FORWARD * TRAIN_STEPS,
         layernorm_modulate_bwd=K4B_PER_STEP * TRAIN_STEPS)
-    final_loss = metrics["train/loss"].item()
-    grad_norm = metrics["train/grad_norm"].item()
-    if not (math.isfinite(final_loss) and final_loss > 0 and math.isfinite(grad_norm)):
-        raise AssertionError(f"bad DiT train metrics: loss {final_loss}, grad norm {grad_norm}")
-    moments = {m.dtype for m in (*state.opt_state.mu.values(), *state.opt_state.nu.values())}
-    if moments != {torch.bfloat16}:
-        raise AssertionError(f"Adam moments stored as {moments}, want bf16")
-    peak = torch.cuda.max_memory_allocated()
-    ms_step = train_s / TRAIN_STEPS * 1e3
-    step_flops = 3 * forward_flops
-    phase("dit.train", batch=DIT_TRAIN_BATCH, dtype="bfloat16", dropout=DIT_DROPOUT, moments="bfloat16",
-          steps=TRAIN_STEPS, step=state.step, ms_per_step=f"{ms_step:.3f}",
-          examples_per_s=f"{DIT_TRAIN_BATCH * TRAIN_STEPS / train_s:.3f}",
-          tflop_per_step=f"{step_flops / 1e12:.3f}",
-          mfu=f"{step_flops / (ms_step / 1e3) / BF16_TENSOR_FLOPS:.4f}",
-          peak_mem_gib=f"{peak / 2**30:.3f}", final_loss=f"{final_loss:.6g}", grad_norm=f"{grad_norm:.6g}",
+    check_train(dit_rec)
+    phase("dit.train", batch=DIT_TRAIN_BATCH, dtype="bfloat16", dropout=DIT_DROPOUT, moments=dit_rec["mu_dtype"],
+          steps=TRAIN_STEPS, step=dit_rec["step"], ms_per_step=f"{dit_rec['step_ms']:.3f}",
+          examples_per_s=f"{dit_rec['value']:.3f}", tflop_per_step=f"{dit_rec['tflop_per_step']:.3f}",
+          mfu=f"{dit_rec['mfu']:.4f}", peak_mem_gib=f"{dit_rec['peak_mem_gib']:.3f}",
+          final_loss=f"{dit_rec['final_loss']:.6g}", grad_norm=f"{dit_rec['grad_norm']:.6g}",
           launches_per_step={name: n // TRAIN_STEPS for name, n in train_launches.items() if n})
     path_launches["dit_train"] = train_launches
-    no_remat = {"ms_per_step": ms_step, "peak": peak}
-    del params, state, train_step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # ----------------------- [dit.remat], [dit.b512]: bench.py's dit-train rows
-    # The same model, optimizer and batch with remat=True, as bench.py runs
-    # the row: each block recomputes its forward in the backward (K2 and K4f
-    # twice a step, K3 and K4b once), from the RNG state it started from.
-    # Then the recipe's optimizer batch 512 as B512_ACCUM micro-batches of
-    # B512_MICRO (bench.py's dit-train-b512 row).
-    import gc
-
-    dit_train.dit.remat = True
-    for label, accum, rows, steps in (("dit.remat", 1, DIT_TRAIN_BATCH, REMAT_STEPS),
-                                      ("dit.b512", B512_ACCUM, B512_MICRO, B512_STEPS)):
-        params = dict(dit_train.named_parameters())
-        state = TrainState.create(params=params, opt_state=tx_dit.init(params),
-                                  generator=torch.Generator(device=dev).manual_seed(SEED + 5))
-        train_step = make_train_step(algo_dit, module_apply(dit_train), tx_dit, ema_dit, accum_steps=accum)
-        rbatch = torch.randint(0, 256, (accum * rows,) + DATA_SHAPE, generator=data_gen, device=dev) / 255.0 * 2.0 - 1.0
-        if accum > 1:
-            rbatch = rbatch.reshape((accum, rows) + DATA_SHAPE)
-        else:
-            state, metrics = train_step(state, rbatch)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        step_ms = []
-        for _ in range(steps):
-            t0 = time.perf_counter()
-            state, metrics = train_step(state, rbatch)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
+    # -------------- [dit.remat], [dit.b512]: bench.py's dit-train and b512 rows
+    # With remat each block recomputes its forward in the backward (K2 and
+    # K4f twice a micro-batch, K3 and K4b once), from the RNG state it
+    # started from.
+    for label, row, steps in (("dit.remat", "dit-train", REMAT_STEPS), ("dit.b512", "dit-train-b512", B512_STEPS)):
+        rec = bench_train.run(**{**bench.TRAIN_ROWS[row], "steps": steps}, device=dev, seed=SEED + 5,
+                              window=reset_counts)
+        accum = rec["accum"]
+        rows = bench.TRAIN_ROWS[row].get("batch", DIT_TRAIN_BATCH) // accum
         n = steps * accum
         got = expect_counts(f"{label}: {steps} steps of {accum}x{rows} with remat",
                             flash_attention_fused=2 * K2_PER_FORWARD * n,
                             layernorm_modulate_fwd=2 * K4F_PER_FORWARD * n,
                             flash_attention_fused_bwd=K3_PER_STEP * n, layernorm_modulate_bwd=K4B_PER_STEP * n)
-        loss, norm = metrics["train/loss"].item(), metrics["train/grad_norm"].item()
-        if not (math.isfinite(loss) and loss > 0 and math.isfinite(norm)):
-            raise AssertionError(f"{label}: loss {loss}, grad norm {norm}")
-        rpeak = torch.cuda.max_memory_allocated()
+        check_train(rec)
         fields = {}
         if accum == 1:
-            fields = dict(ms_per_step_without_remat=f"{no_remat['ms_per_step']:.3f}",
-                          peak_mem_gib_without_remat=f"{no_remat['peak'] / 2**30:.3f}")
+            fields = dict(ms_per_step_without_remat=f"{dit_rec['step_ms']:.3f}",
+                          peak_mem_gib_without_remat=f"{dit_rec['peak_mem_gib']:.3f}")
         phase(label, batch=f"{accum * rows}" + (f" as {accum}x{rows}" if accum > 1 else ""), dtype="bfloat16",
-              dropout=DIT_DROPOUT, moments="bfloat16", remat=True, steps=steps,
-              ms_per_step=[f"{x:.3f}" for x in step_ms],
-              examples_per_s=f"{accum * rows * steps / (sum(step_ms) / 1e3):.3f}",
-              peak_mem_gib=f"{rpeak / 2**30:.3f}", **fields, final_loss=f"{loss:.6g}", grad_norm=f"{norm:.6g}",
+              dropout=DIT_DROPOUT, moments=rec["mu_dtype"], remat=rec["remat"], steps=steps,
+              ms_per_step=f"{rec['step_ms']:.3f}", examples_per_s=f"{rec['value']:.3f}",
+              peak_mem_gib=f"{rec['peak_mem_gib']:.3f}", **fields, final_loss=f"{rec['final_loss']:.6g}",
+              grad_norm=f"{rec['grad_norm']:.6g}", mfu=f"{rec['mfu']:.4f}",
               launches_per_step={name: v // steps for name, v in got.items() if v})
         path_launches[label.replace(".", "_")] = got
-        del params, state, train_step, rbatch, metrics
+        bench_rows[row] = rec
         gc.collect()
         torch.cuda.empty_cache()
-    del dit_train, tx_dit, batch
+    bench_rows = {label: bench.finish(label, rec) for label, rec in bench_rows.items()}
 
     # --------------------------------- the 16x16 UNet, card against CPU
     # The same full-width UNet on 16x16 images, f32, TF32 off, batch 2: its
@@ -2323,10 +2256,9 @@ def main() -> int:
     # train-loss gradients within 1e-3 of each leaf's norm (as
     # [train.check]), dropout off, through K5f, K5b, K7f and K7b on the card;
     # and the eval step's bpd on the same draws, within 1e-4 of its size.
-    torch.manual_seed(SEED + 7)
-    unet16_cpu = DenoisingVDMUNet(DATA16, pos_emb, fourier_features=ff, device="cpu", **UNET).eval()
+    unet16_cpu = build_model("unet", "cpu", dtype=None, seed=SEED + 7, image_size=DATA16[0])
     weights16 = unet16_cpu.state_dict()
-    unet16_f32 = DenoisingVDMUNet(DATA16, pos_emb, fourier_features=ff, device=dev, **UNET).eval()
+    unet16_f32 = build_model("unet", dev, dtype=None, image_size=DATA16[0])
     unet16_f32.load_state_dict(weights16)
     mu = torch.randn((2,) + DATA16, generator=cpu_gen)
     t = torch.rand(2, generator=cpu_gen)
@@ -2341,7 +2273,7 @@ def main() -> int:
     err = check_close("16x16 UNet f32 card vs CPU", out, ref, tol16)
     phase("unet16.model.check", batch=2, dtype="float32", max_abs_err=f"{err:.3e}", atol=f"{tol16:.3e}",
           output_max_abs=f"{scale:.3e}", finite=bool(torch.isfinite(out).all()))
-    algo16_train = BSI(data_shape=DATA16, lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=50, preconditioning="edm")
+    algo16_train = build_algo(50, DATA16[0])
     x_small = torch.rand((2,) + DATA16, generator=cpu_gen) * 2.0 - 1.0
     t_small, eps_small = algo16_train.train_noise(cpu_gen, x_small)
     reset_counts()
@@ -2352,7 +2284,7 @@ def main() -> int:
                   groupnorm_silu_bwd=K7B_PER_STEP)
     phase("unet16.train.check", batch=2, dtype="float32", leaves=len(grads), worst_rel_err=f"{worst:.3e}",
           worst_leaf=worst_name, tol="1e-3 of each leaf's norm", finite=finite)
-    algo16 = BSI(data_shape=DATA16, lambda_0=1e-2, alpha_M=1e6, alpha_R=2e6, k=K_STEPS, preconditioning="edm")
+    algo16 = build_algo(K_STEPS, DATA16[0])
     draws = algo16.elbo_noise(cpu_gen, x_small)
     reset_counts()
     evals = []
@@ -2374,18 +2306,13 @@ def main() -> int:
     del unet16_cpu, unet16_f32, grads, model_e, params_e, state_e, step_e
 
     # ------------------------------- main path: 16x16 sampling, make_sample_fn
-    # The train state's EMA parameters (at step 0 the weights) through a bf16
-    # model in eval mode, k=128, batch 64.
-    train16 = DenoisingVDMUNet(DATA16, pos_emb, fourier_features=ff, dropout=0.1, dtype=torch.bfloat16, device=dev,
-                               **UNET)
-    train16.load_state_dict(weights16)
-    params16 = dict(train16.named_parameters())
-    tx16 = make_optimizer(warmup_cosine_schedule(2e-4, warmup_steps=100, max_steps=10**6))
-    state16 = TrainState.create(params=params16, opt_state=tx16.init(params16),
+    # The state's EMA parameters (the weights) through a bf16 model in eval
+    # mode, k=128, batch 64.
+    unet16 = build_model("unet", dev, image_size=DATA16[0])
+    unet16.load_state_dict(weights16)
+    state16 = TrainState.create(params={name: p.detach() for name, p in unet16.named_parameters()}, opt_state=None,
                                 generator=torch.Generator(device=dev).manual_seed(SEED + 8))
-    sample16 = make_sample_fn(algo16, module_apply(
-        DenoisingVDMUNet(DATA16, pos_emb, fourier_features=ff, dtype=torch.bfloat16, device=dev, **UNET),
-        train=False))
+    sample16 = make_sample_fn(algo16, module_apply(unet16, train=False))
     sample_gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     sample16(state16, sample_gen, BATCH)  # warm-up
     torch.cuda.synchronize()
@@ -2409,52 +2336,36 @@ def main() -> int:
           samples_per_s=f"{BATCH / statistics.median(secs):.3f}", peak_mem_gib=f"{peak / 2**30:.3f}",
           launches={name: n for name, n in launches.items() if n}, finite=True, shape=tuple(samples.shape))
     path_launches["unet16_sample"] = launches
-    del samples, sample16
+    del samples, sample16, unet16
 
     # ---------------------------------------------- main path: 16x16 training
-    # As [train]: batch 128, bf16 on f32 parameters, dropout 0.1 (in the
-    # residual blocks; the attention has none), AdamW 2e-4, warmup 100, cosine
-    # to 1e6, clip 1.0, EMA after 1000.
-    train_step16 = make_train_step(algo16_train, module_apply(train16), tx16, EMAConfig(update_after_step=1000))
-    data_gen = torch.Generator(device=dev).manual_seed(SEED + 10)
-    batch = torch.randint(0, 256, (TRAIN_BATCH,) + DATA16, generator=data_gen, device=dev) / 255.0 * 2.0 - 1.0
-    with torch.no_grad():
-        forward_flops = sum(count_flops(train16, lambda: train16(
-            batch, torch.full((TRAIN_BATCH,), 0.5, device=dev))).values())
-    state16, metrics = train_step16(state16, batch)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
-        state16, metrics = train_step16(state16, batch)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
+    # The UNet train bench (bench_train.run) on 16x16 images: batch 128, bf16
+    # on f32 parameters, dropout 0.1 (in the residual blocks; the attention
+    # has none), AdamW 2e-4, warmup 100, cosine to 1e6, clip 1.0, EMA after
+    # 1000.
+    rec16 = bench_train.run(**{**bench.TRAIN_ROWS["unet-train"], "steps": TRAIN_STEPS}, device=dev, seed=SEED + 10,
+                            image_size=DATA16[0], window=reset_counts)
     train_launches = expect_counts(
         f"{TRAIN_STEPS} 16x16 UNet train steps", flash_attention_dropout=K5F_PER_FORWARD * TRAIN_STEPS,
         flash_attention_bwd=K5B_PER_STEP * TRAIN_STEPS, groupnorm_silu_fwd=K7_PER_FORWARD * TRAIN_STEPS,
         groupnorm_silu_bwd=K7B_PER_STEP * TRAIN_STEPS)
-    final_loss = metrics["train/loss"].item()
-    grad_norm = metrics["train/grad_norm"].item()
-    if not (math.isfinite(final_loss) and final_loss > 0 and math.isfinite(grad_norm)):
-        raise AssertionError(f"bad 16x16 train metrics: loss {final_loss}, grad norm {grad_norm}")
-    peak = torch.cuda.max_memory_allocated()
-    ms_step = train_s / TRAIN_STEPS * 1e3
-    step_flops = 3 * forward_flops
-    phase("unet16.train", batch=TRAIN_BATCH, dtype="bfloat16", dropout=0.1, steps=TRAIN_STEPS, step=state16.step,
-          ms_per_step=f"{ms_step:.3f}", examples_per_s=f"{TRAIN_BATCH * TRAIN_STEPS / train_s:.3f}",
-          tflop_per_step=f"{step_flops / 1e12:.3f}",
-          mfu=f"{step_flops / (ms_step / 1e3) / BF16_TENSOR_FLOPS:.4f}",
-          peak_mem_gib=f"{peak / 2**30:.3f}", final_loss=f"{final_loss:.6g}", grad_norm=f"{grad_norm:.6g}",
+    check_train(rec16)
+    phase("unet16.train", batch=TRAIN_BATCH, dtype="bfloat16", dropout=bench_train.DROPOUT["unet"],
+          steps=TRAIN_STEPS, step=rec16["step"], ms_per_step=f"{rec16['step_ms']:.3f}",
+          examples_per_s=f"{rec16['value']:.3f}", tflop_per_step=f"{rec16['tflop_per_step']:.3f}",
+          mfu=f"{rec16['mfu']:.4f}", peak_mem_gib=f"{rec16['peak_mem_gib']:.3f}",
+          final_loss=f"{rec16['final_loss']:.6g}", grad_norm=f"{rec16['grad_norm']:.6g}",
           launches_per_step={name: n // TRAIN_STEPS for name, n in train_launches.items() if n})
     path_launches["unet16_train"] = train_launches
-    del train_step16, train16, params16, tx16, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -------------------------------------------- main path: 16x16 ELBO eval
     # make_eval_step on the EMA parameters through the f32 model (TF32 off),
     # n_recon = n_measure = 1, batch 64 with its last 8 images masked out.
-    eval16 = DenoisingVDMUNet(DATA16, pos_emb, fourier_features=ff, device=dev, **UNET)
+    eval16 = build_model("unet", dev, dtype=None, image_size=DATA16[0])
     eval_step16 = make_eval_step(algo16, module_apply(eval16, train=False))
+    data_gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     batch = torch.randint(0, 256, (EVAL_BATCH,) + DATA16, generator=data_gen, device=dev) / 255.0 * 2.0 - 1.0
     mask = (torch.arange(EVAL_BATCH, device=dev) < EVAL_BATCH - 8).float()
     eval_gen = torch.Generator(device=dev).manual_seed(SEED + 11)
@@ -2488,17 +2399,16 @@ def main() -> int:
     del eval16, eval_step16, state16, batch
 
     # ---------------------- the UNet with an attention in every residual block
-    # downsampling_attention on the full-width UNet, gelu: TAIL_ATTENTIONS
+    # downsampling_attention on the full-width UNet, gelu: tail_attentions
     # attentions a forward over the image's pixels, K1 at 32x32 (S = 1024) and
     # K5f at 16x16 (S = 256), and no K7f (a gelu block's norms are plain). f32
     # card vs CPU at batch 2, TF32 off, within 1e-4 of the output's scale (as
     # [model.check]); the bf16 forward at batch 64, wall ms, median of 3 after
     # a warm-up.
     for shape, kernel in ((DATA_SHAPE, "flash_attention"), (DATA16, "flash_attention_dropout")):
-        tail_kw = dict(actfn="gelu", downsampling_attention=True, fourier_features=ff, **UNET)
-        torch.manual_seed(SEED + 12)
-        tail_cpu = DenoisingVDMUNet(shape, pos_emb, device="cpu", **tail_kw).eval()
-        tail_f32 = DenoisingVDMUNet(shape, pos_emb, device=dev, **tail_kw).eval()
+        tail_kw = dict(image_size=shape[0], actfn="gelu", downsampling_attention=True)
+        tail_cpu = build_model("unet", "cpu", dtype=None, seed=SEED + 12, **tail_kw)
+        tail_f32 = build_model("unet", dev, dtype=None, **tail_kw)
         tail_f32.load_state_dict(tail_cpu.state_dict())
         mu = torch.randn((2,) + shape, generator=cpu_gen)
         t = torch.rand(2, generator=cpu_gen)
@@ -2507,11 +2417,11 @@ def main() -> int:
         with torch.inference_mode():
             ref = tail_cpu(mu, t)
             out = tail_f32(mu.to(dev), t.to(dev)).cpu()
-        counts = expect_counts(f"{what}, f32", **{kernel: TAIL_ATTENTIONS})
+        counts = expect_counts(f"{what}, f32", **{kernel: tail_attentions})
         scale = ref.abs().max().item()
         tail_tol = 1e-4 * max(1.0, scale)
         err = check_close(f"{what}: f32 card vs CPU", out, ref, tail_tol)
-        tail_bf16 = DenoisingVDMUNet(shape, pos_emb, dtype=torch.bfloat16, device=dev, **tail_kw).eval()
+        tail_bf16 = build_model("unet", dev, **tail_kw)
         tail_bf16.load_state_dict(tail_cpu.state_dict())
         del tail_cpu, tail_f32
         mu64 = torch.randn((BATCH,) + shape, device=dev)
@@ -2526,11 +2436,11 @@ def main() -> int:
                 out64 = tail_bf16(mu64, t64)
                 torch.cuda.synchronize()
                 secs.append(time.perf_counter() - t0)
-                expect_counts(f"{what}, bf16 batch {BATCH}", **{kernel: TAIL_ATTENTIONS})
+                expect_counts(f"{what}, bf16 batch {BATCH}", **{kernel: tail_attentions})
         if out64.shape != (BATCH,) + shape or not torch.isfinite(out64).all():
             raise AssertionError(f"{what}: bad bf16 output {tuple(out64.shape)}, "
                                  f"finite {bool(torch.isfinite(out64).all())}")
-        phase("unet.attn_tail", image=shape, actfn="gelu", attentions=TAIL_ATTENTIONS,
+        phase("unet.attn_tail", image=shape, actfn="gelu", attentions=tail_attentions,
               launches_per_forward={name: n for name, n in counts.items() if n}, f32_batch=2,
               f32_max_abs_err=f"{err:.3e}", atol=f"{tail_tol:.3e}", output_max_abs=f"{scale:.3e}",
               bf16_batch=BATCH, bf16_forward_ms=f"{statistics.median(secs) * 1e3:.3f}",
@@ -2542,16 +2452,15 @@ def main() -> int:
     # UNet forward there is f32 at 32x32, K1 once and K7f 66 times; a train
     # step's backward runs K7b 66 times (K1's backward at S = 1024 is the
     # plain VJP). fit: a sanity validation, 6 steps, validations after steps
-    # 3 and 6, the plots at each (k = 50 sampling of 64, filmstrips of 16,
-    # denoisings of 8), then the recipe's test pass on ckpt_best (with its
-    # plots).
-    import gc
+    # 3 and 6, the plots at each (sampling of 64 at k = PLOTS_K_CUT, the
+    # recipe's 50; filmstrips of 16, denoisings of 8), then the recipe's test
+    # pass on ckpt_best (with its plots).
     import tempfile
 
     trainer_root = Path(tempfile.mkdtemp(prefix="bsi_torch_trainer_"))
     fit_args = TRAINER_RECIPE + [f"run_root={trainer_root / 'fit'}", f"trainer.max_steps={TRAINER_STEPS}",
                                  f"trainer.val_check_interval={TRAINER_VAL_EVERY}", "trainer.num_sanity_val_steps=1",
-                                 "trainer.plots=yes"]
+                                 "trainer.plots=yes", f"task.algorithm.k={PLOTS_K_CUT}"]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -2599,7 +2508,8 @@ def main() -> int:
           eval_batch=TRAINER_EVAL_BATCH,
           optimizer="AdamW 2e-4 (0.9, 0.99) wd 1e-2, warmup 1000, clip 1.0", dropout_prng_impl="rbg (ignored)",
           cut=f"data synthetic 32x32x3 (512 train, 128 val); {TRAINER_STEPS} steps; validation every "
-              f"{TRAINER_VAL_EVERY} over 1 eval batch a split", fit_wall_s=f"{fit_s:.3f}",
+              f"{TRAINER_VAL_EVERY} over 1 eval batch a split; plots at k={PLOTS_K_CUT} (50)",
+          fit_wall_s=f"{fit_s:.3f}",
           steps_per_s=[f"{r:.3f}" for r in rates], ms_per_step_median_2_6=f"{statistics.median(step_ms[1:]):.3f}",
           loss=[f"{x:.6g}" for x in losses], val_bpd=[f"{x:.6g}" for x in val_bpd],
           validate_s=[f"{x:.3f}" for x in metric(records, "time/val_s")],
@@ -3042,12 +2952,13 @@ def main() -> int:
 
     # imagenet32, task=bsi: the recipe as a user runs it (a sanity validation,
     # the plots, ckpt_last/ckpt_best, the test pass on ckpt_best with its
-    # plots), the sweep's first seed
+    # plots), the sweep's first seed; the plots sampled at k=PLOTS_K_CUT (the
+    # soak's and bench_parallel's phases took the time)
     sweep_seed = "seed=9551795317880672191"
     run_dir, _, fields = imagenet_fit("imagenet32.fit", 32, "bsi", sweep_seed, sanity=True, test=True, plots=True,
-                                      eval_batch=IMAGENET_EVAL_BATCH)
+                                      eval_batch=IMAGENET_EVAL_BATCH, k=PLOTS_K_CUT)
     phase("imagenet32.fit", **fields, cut=f"shards from seed {SEED} ({IMAGENET_SHARDS[32][0]} train); "
-          f"{IMAGENET_STEPS} steps; 1 eval batch a split")
+          f"{IMAGENET_STEPS} steps; 1 eval batch a split; plots at k={PLOTS_K_CUT} ({IMAGENET_K})")
     shutil.rmtree(run_dir, ignore_errors=True)
     # VDM and BFN, cut to keep the new phases near 3 minutes: batch 256 as
     # 4x64 (the kernels' shapes stay the micro-batch's), eval batch 128, the
@@ -3421,6 +3332,58 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ------------------------------ [soak]: python -m bsi_torch.scripts.soak_test
+    # The kill-and-requeue soak in a process of its own, which starts
+    # python -m bsi_torch.train twice (SOAK_* above): every assertion of the
+    # soak, the steps/s drift check included, each run with at least 15
+    # rate windows.
+    soak_root = Path(tempfile.mkdtemp(prefix="bsi_torch_soak_"))
+    repo = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    soak = subprocess.run([sys.executable, "-m", "bsi_torch.scripts.soak_test", "--max-steps", str(SOAK_STEPS),
+                           "--kill-at", str(SOAK_STEPS // 2), "--batch", str(SOAK_BATCH), "--n-train",
+                           str(SOAK_N_TRAIN), "--root", str(soak_root / "root"), "--out", str(soak_root / "soak.json")],
+                          cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=600)
+    soak_s = time.perf_counter() - t0
+    if soak.returncode != 0:
+        print(soak.stdout[-4000:], file=sys.stderr)
+        raise AssertionError(f"soak_test exited {soak.returncode}")
+    timeline = json.loads((soak_root / "soak.json").read_text())
+    rates = timeline["steps_per_sec"]
+    if not (rates["run1_windows"] >= 15 and rates["run2_windows"] >= 15 and "drift" in rates):
+        raise AssertionError(f"soak: the drift check did not run: {rates}")
+    events = {e["event"]: e for e in timeline["events"]}
+    phase("soak", entry="python -m bsi_torch.scripts.soak_test", model="UNet dim 128, 32 levels, dropout 0.1, "
+          "pos_emb_mult 4", dtype="float32", batch=SOAK_BATCH, max_steps=SOAK_STEPS, kill_at=SOAK_STEPS // 2,
+          cut=f"batch {SOAK_BATCH} (128), {SOAK_STEPS} steps (50,000), kill at {SOAK_STEPS // 2} (25,000), "
+              f"{SOAK_N_TRAIN} train images (50,000)",
+          events=[(e["event"], e["t"]) for e in timeline["events"]],
+          interrupt_step=events["interrupt_ckpt_verified"]["step"],
+          cursor=events["interrupt_ckpt_verified"]["cursor_examples"],
+          final_cursor=events["continuation_verified"]["cursor_examples"],
+          run1_median_steps_per_s=f"{rates['run1_median']:.4f}", run2_median_steps_per_s=f"{rates['run2_median']:.4f}",
+          drift=f"{rates['drift']:.4f}", windows=(rates["run1_windows"], rates["run2_windows"]), wall_s=f"{soak_s:.1f}")
+    shutil.rmtree(soak_root, ignore_errors=True)
+
+    # --------------- [bench.parallel]: torchrun -m bsi_torch.scripts.bench_parallel
+    # --dp 1 over NCCL at one rank, DiT-L/2 (BENCH_PARALLEL_STEPS steps), with
+    # and without FSDP, beside [dit.train]'s examples/s.
+    for fsdp in (False, True):
+        t0 = time.perf_counter()
+        launched = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                                   "-m", "bsi_torch.scripts.bench_parallel", "--dp", "1", "--steps",
+                                   str(BENCH_PARALLEL_STEPS)] + (["--fsdp"] if fsdp else []),
+                                  cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, timeout=600)
+        if launched.returncode != 0:
+            print(launched.stdout[-4000:], launched.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"bench_parallel exited {launched.returncode}")
+        record = json.loads(launched.stdout.strip().splitlines()[-1])
+        if not (math.isfinite(record["value"]) and record["value"] > 0
+                and record["device"] == torch.cuda.get_device_name(0)):
+            raise AssertionError(f"bench_parallel: {record}")
+        phase("bench.parallel", fsdp=fsdp, record=json.dumps(record), steps=BENCH_PARALLEL_STEPS,
+              dit_train_examples_per_s=f"{dit_rec['value']:.3f}", call_s=f"{time.perf_counter() - t0:.1f}")
+
     # Each kernel's launches on the main path that runs it (K6f, K6b: none does).
     for entry in kernels:
         entry["launches_by_path"] = {path: counts[entry["name"]] for path, counts in path_launches.items()}
@@ -3451,6 +3414,9 @@ def main() -> int:
     phase("k5f.library_f32", kernels=k5f["at_f32_eval_shape"]["library_kernels"],
           max_abs_err_vs_fwd_math=f"{k5f['at_f32_eval_shape']['library_max_abs_err']:.3e}",
           within_1e_5=k5f["at_f32_eval_shape"]["library_within_1e_5"])
+    # The bench's combined record (bsi_torch/bench.py) from this run's rows,
+    # cut as the phases say.
+    print("[bench] " + json.dumps(bench.combine(bench_rows)), flush=True)
     phase("card.end", sm_clock=repr(sm_clock()), script_s=f"{time.perf_counter() - script_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
