@@ -20,6 +20,8 @@ from typing import Callable, Optional
 
 import torch
 
+from bsi_torch.utils import profiling
+
 from .common import (ModelFn, broadcast_right, cut_rows, index_draws, mc_var, normal_draws, protect_const,
                      quantile_draws, resolve_device, sample_lds_t)
 from .discretization import Discretization
@@ -269,7 +271,8 @@ class BSI:
         with torch.inference_mode():
             t, eps0, step_eps = self._noise(generator, n_samples, device, t, dtype, rows)
             mu, _ = self._sample_loop(model_fn, eps0, step_eps, t)
-            return self._predict_x(model_fn, mu, protect_const(t.new_ones((mu.shape[0],))))
+            with profiling.span("sample.denoise", device=mu.device):
+                return self._predict_x(model_fn, mu, protect_const(t.new_ones((mu.shape[0],))))
 
     def sample_history(
         self,
@@ -291,9 +294,10 @@ class BSI:
             mu_final, (mus, x_hats, ys) = self._sample_loop(
                 model_fn, eps0, step_eps, t, with_history=True
             )
-            final_x_hat = self._predict_x(
-                model_fn, mu_final, protect_const(t.new_ones((n_samples,)))
-            )
+            with profiling.span("sample.denoise", device=mu_final.device):
+                final_x_hat = self._predict_x(
+                    model_fn, mu_final, protect_const(t.new_ones((n_samples,)))
+                )
             return (
                 torch.stack(mus),
                 torch.stack(x_hats + [final_x_hat]),
@@ -337,9 +341,11 @@ class BSI:
         mu = torch.rsqrt(lambda_[0]) * eps0
         mus, x_hats, ys = [mu], [], []
         for i in range(alpha.shape[0]):
-            x_hat = self._predict_x(model_fn, mu, t[i].expand(n_samples))
-            y = x_hat + torch.rsqrt(alpha[i]) * step_eps(i)
-            mu = (alpha[i] * y + lambda_[i] * mu) / lambda_[i + 1]
+            with profiling.span("sample.step", i=i):
+                with profiling.span("sample.denoise", device=mu.device):
+                    x_hat = self._predict_x(model_fn, mu, t[i].expand(n_samples))
+                y = x_hat + torch.rsqrt(alpha[i]) * step_eps(i)
+                mu = (alpha[i] * y + lambda_[i] * mu) / lambda_[i + 1]
             if with_history:
                 mus.append(mu)
                 x_hats.append(x_hat)

@@ -15,6 +15,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from bsi_torch.core.discretization import Discretization
+from bsi_torch.utils import profiling
 
 from .sampler import InfiniteIndexStream, eval_shard, padded_batches
 
@@ -100,13 +101,14 @@ class ArrayDataModule:
         if per_host_batch is None:
             per_host_batch = self.batch_size // self.num_shards
         while True:
-            idx = self.stream.next_indices(per_host_batch)
-            flip = (
-                self._aug_rng.random(len(idx)) < 0.5 if self.augment_flip else None
-            )
-            batch = self._prepare(self._train[idx])
-            if flip is not None:
-                batch = np.where(flip[:, None, None, None], batch[:, :, ::-1, :], batch)
+            with profiling.span("data.batch"):
+                idx = self.stream.next_indices(per_host_batch)
+                flip = (
+                    self._aug_rng.random(len(idx)) < 0.5 if self.augment_flip else None
+                )
+                batch = self._prepare(self._train[idx])
+                if flip is not None:
+                    batch = np.where(flip[:, None, None, None], batch[:, :, ::-1, :], batch)
             yield batch
 
     # ------------------------------------------------------------------ eval

@@ -28,6 +28,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from bsi_torch.utils import profiling
+
 from .flash_attention import MAX_FUSED_TRAIN_SEQ, _xla_attention, fused_attention
 from .flash_attention_packed import (
     _merge_heads,
@@ -79,7 +81,11 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     batch's (:class:`DrawShard`).
     """
     b, h, s = q.shape[:3]
-    if _kernel_applicable(q) and (dropout_rate == 0.0 or q.shape[-2] <= MAX_FUSED_TRAIN_SEQ):
+    kernel = _kernel_applicable(q) and (dropout_rate == 0.0 or s <= MAX_FUSED_TRAIN_SEQ)
+    if profiling.enabled():
+        fused = dropout_rate > 0.0 or s <= MAX_FUSED_TRAIN_SEQ  # K5f, else K1 (and a plain backward)
+        profiling.count_call("K5f" if fused else "K1", "K5b" if fused else None, kernel, q, k, v)
+    if kernel:
         seeds = _seeds(b, h, q.device, dropout_rate, generator, shard)
         return fused_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                None if seeds is None else seeds.reshape(-1), dropout_rate)
@@ -165,6 +171,8 @@ def multi_head_attention_fused_qkv(qkv: torch.Tensor, *, heads: int, dropout_rat
         raise ValueError(f"fused qkv dim {three_hd} not divisible by 3*heads={3 * heads}")
     hd_total = three_hd // 3
     if qkv.device.type == "cuda" and packed_applicable(hd_total, heads, s):
+        if profiling.enabled():
+            profiling.count_call("K2", "K3", True, qkv)
         seeds = _seeds(b, heads, qkv.device, dropout_rate, generator, shard)
         return _FusedQKVAttention.apply(qkv.contiguous(), seeds, heads, float(dropout_rate), _takes_grad(qkv))
     q, k, v = split_qkv_grouped(qkv, heads)

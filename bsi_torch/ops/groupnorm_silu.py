@@ -54,6 +54,8 @@ from typing import NamedTuple
 
 import torch
 
+from bsi_torch.utils import profiling
+
 from . import _build
 
 SOURCE = "groupnorm_silu.cu"
@@ -309,4 +311,6 @@ def groupnorm_silu(x3, gamma, beta, groups: int):
     they cannot take the shape); a CPU tensor runs the plain versions.
     Differentiable.
     """
+    if profiling.enabled():
+        profiling.count_call("K7f", "K7b", x3.device.type == "cuda", x3, gamma, beta)
     return _GroupNormSiLU.apply(x3, gamma, beta, groups)

@@ -43,6 +43,8 @@ from typing import NamedTuple
 
 import torch
 
+from bsi_torch.utils import profiling
+
 from . import _build
 
 SOURCE = "ln_modulate.cu"
@@ -320,6 +322,9 @@ def layernorm_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor
     gradient; anything else runs the plain version, differentiable by
     autograd.
     """
-    if _kernel_applicable(x):
+    kernel = _kernel_applicable(x)
+    if profiling.enabled():
+        profiling.count_call("K4f", "K4b", kernel, x, shift, scale)
+    if kernel:
         return _LayerNormModulate.apply(x.contiguous(), shift, scale)
     return _reference_math(x, shift, scale)

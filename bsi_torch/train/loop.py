@@ -53,6 +53,7 @@ import torch.distributed as dist
 from bsi_torch.core.common import resolve_device
 from bsi_torch.metrics.fid import fid_from_stats, images_to_uint8, reduce_stats_across_processes
 from bsi_torch.parallel import Mesh, StateLayout, apply_sequence_parallelism, check_host_batch, make_pipeline_apply
+from bsi_torch.utils import profiling
 from bsi_torch.utils.logging import MetricLogger, count_params
 
 from .checkpoint import AsyncCheckpointWriter, load_checkpoint, save_checkpoint, state_to_host
@@ -236,10 +237,11 @@ class Trainer:
         return state
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
-        tensor = torch.from_numpy(np.ascontiguousarray(array))
-        if self.device.type == "cuda":
-            return tensor.pin_memory().to(self.device, non_blocking=True)
-        return tensor.to(self.device)
+        with profiling.span("train.to_device"):
+            tensor = torch.from_numpy(np.ascontiguousarray(array))
+            if self.device.type == "cuda":
+                return tensor.pin_memory().to(self.device, non_blocking=True)
+            return tensor.to(self.device)
 
     def _warm(self, path: str):
         """Context of one call on ``path``: the first call may build

@@ -52,6 +52,8 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from bsi_torch.utils import profiling
+
 from .ema import EMAConfig, ema_update, maybe_switch_ema
 from .optim import Optimizer, global_norm
 from .state import TrainState
@@ -156,14 +158,17 @@ def make_train_step(
     spread = layout is not None and layout.distributed
     unused = spread and layout.pipelined
 
-    def loss_and_grads(params: dict, batch: torch.Tensor, t, eps, seed: int):
+    def loss_and_grads(state: TrainState, params: dict, batch: torch.Tensor, seed: int, *micro):
         model_fn = lambda mu, tt: model_apply(params, mu, tt)
-        if spread:
-            seed = layout.dropout_seed(seed)
-        with _dropout_rng(batch.device, seed):
-            loss = algorithm._train_loss_on(model_fn, batch, t, eps).mean()
+        with profiling.span("step.forward", device=batch.device):
+            t, eps = draws(state, batch, *micro)
+            if spread:
+                seed = layout.dropout_seed(seed)
+            with _dropout_rng(batch.device, seed):
+                loss = algorithm._train_loss_on(model_fn, batch, t, eps).mean()
         leaves = list(params.values())
-        grads = torch.autograd.grad(loss, leaves, allow_unused=unused)
+        with profiling.span("step.backward", device=batch.device):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=unused)
         return loss.detach(), [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
 
     def draws(state: TrainState, batch: torch.Tensor, *micro):
@@ -177,16 +182,19 @@ def make_train_step(
         return t, eps
 
     def train_step(state: TrainState, batch: torch.Tensor):
+        with profiling.span("step", step=state.step):
+            return body(state, batch)
+
+    def body(state: TrainState, batch: torch.Tensor):
         params = layout.gather_params(state.params) if spread else state.params
         if accum_steps == 1:
-            loss, grads = loss_and_grads(params, batch, *draws(state, batch),
-                                         step_seed(state.dropout_seed, state.step))
+            loss, grads = loss_and_grads(state, params, batch, step_seed(state.dropout_seed, state.step))
         else:
             if batch.shape[0] != accum_steps:
                 raise ValueError(f"batch of shape {tuple(batch.shape)}: want [{accum_steps}, micro, ...]")
             for i in range(accum_steps):
-                mloss, mgrads = loss_and_grads(params, batch[i], *draws(state, batch[i], i),
-                                               micro_seed(state.dropout_seed, state.step, i))
+                mloss, mgrads = loss_and_grads(state, params, batch[i],
+                                               micro_seed(state.dropout_seed, state.step, i), i)
                 if i == 0:
                     loss, grads = mloss, mgrads
                 else:
@@ -196,16 +204,17 @@ def make_train_step(
             loss = loss * inv
             torch._foreach_mul_(grads, inv)
         del params
-        if spread:
-            names = list(state.params)
-            grads = layout.reduce_grads(names, grads)
-            norm = layout.grad_norm(names, grads)
-            loss = layout.mean_over_data(loss)
-        else:
-            norm = global_norm(grads)
-        tx.update(grads, state.opt_state, state.params, grad_norm=norm)
-        ema_update(ema_cfg, state.step, state.ema_params, state.params)
-        maybe_switch_ema(ema_cfg, state.step, state.ema_params, state.params)
+        with profiling.span("step.update", device=batch.device):
+            if spread:
+                names = list(state.params)
+                grads = layout.reduce_grads(names, grads)
+                norm = layout.grad_norm(names, grads)
+                loss = layout.mean_over_data(loss)
+            else:
+                norm = global_norm(grads)
+            tx.update(grads, state.opt_state, state.params, grad_norm=norm)
+            ema_update(ema_cfg, state.step, state.ema_params, state.params)
+            maybe_switch_ema(ema_cfg, state.step, state.ema_params, state.params)
         state.step += 1
         return state, {"train/loss": loss, "train/grad_norm": norm}
 
@@ -275,8 +284,10 @@ def make_sample_fn(algorithm, model_apply: ModelApply, *, use_ema: bool = True, 
 
     def sample(state: TrainState, generator: torch.Generator, n_samples: int, t=None, dtype=torch.float32,
                rows: Optional[slice] = None):
-        params = eval_params(state, use_ema=use_ema, layout=layout)
-        model_fn = lambda mu, tt: model_apply(params, mu, tt)
-        return algorithm.sample(model_fn, generator, n_samples, device=generator.device, t=t, dtype=dtype, rows=rows)
+        with profiling.span("sample"):
+            params = eval_params(state, use_ema=use_ema, layout=layout)
+            model_fn = lambda mu, tt: model_apply(params, mu, tt)
+            return algorithm.sample(model_fn, generator, n_samples, device=generator.device, t=t, dtype=dtype,
+                                    rows=rows)
 
     return sample

@@ -1,6 +1,6 @@
 """A tiny training config shared by the port's trainer, watchdog and CLI
 tests: the repo's ``configs/`` with a 32-wide one-level UNet (or a 16-wide
-MLP) on 4x4x3 synthetic images, batches of 4, on the CPU."""
+MLP, or a 32-wide two-block DiT) on 4x4x3 synthetic images, batches of 4, on the CPU."""
 
 from __future__ import annotations
 
@@ -20,6 +20,8 @@ TINY = [
 MODELS = {
     "unet": ["task.model.dim=32", "task.model.levels=1"],
     "mlp": ["task.model=mlp", "task.model.hidden_width=16"],
+    "dit": ["task.model=dit", "task.model.dim=32", "task.model.depth=2", "task.model.heads=2",
+            "task.model.dropout=0.1"],
 }
 
 
