@@ -19,6 +19,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from bsi_torch.ops.conv3x3 import conv3x3
+
 # flax's lecun_normal: a normal truncated at two standard deviations, rescaled
 # so the truncated distribution has variance 1 / fan_in.
 _TRUNC_STD = 0.87962566103423978
@@ -52,7 +54,8 @@ class Dense(nn.Linear):
 class Conv(nn.Conv2d):
     """flax ``nn.Conv`` with "SAME" padding at stride 1, odd square kernels.
 
-    ``weight`` is the flax HWIO ``kernel`` as OIHW.
+    ``weight`` is the flax HWIO ``kernel`` as OIHW. A 3x3 convolution goes
+    through :func:`bsi_torch.ops.conv3x3.conv3x3` (K8f in f32 on the card).
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, *,
@@ -67,7 +70,10 @@ class Conv(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = compute_dtype(self.dtype, x, self.weight)
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), padding=self.padding)
+        x, weight, bias = x.to(dt), self.weight.to(dt), self.bias.to(dt)
+        if self.kernel_size == (3, 3):
+            return conv3x3(x, weight, bias)
+        return F.conv2d(x, weight, bias, padding=self.padding)
 
 
 class LayerNorm(nn.Module):

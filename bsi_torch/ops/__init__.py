@@ -3,7 +3,8 @@
 K1, K5f and K5b live in :mod:`bsi_torch.ops.flash_attention`, K2, K6f, K3
 and K6b in :mod:`bsi_torch.ops.flash_attention_packed` (the attention
 kernels' dropout mask in :mod:`bsi_torch.ops.dropout_mask`), K4f and K4b in
-:mod:`bsi_torch.ops.ln_modulate` and K7 in :mod:`bsi_torch.ops.groupnorm_silu`;
+:mod:`bsi_torch.ops.ln_modulate`, K7 in :mod:`bsi_torch.ops.groupnorm_silu` and
+K8f, the f32 3x3 convolution, in :mod:`bsi_torch.ops.conv3x3`;
 their entry functions are not re-exported here, so the module names stay the
 modules.
 """

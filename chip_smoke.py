@@ -83,7 +83,14 @@ their combined record as ``python -m bsi_torch.bench`` prints its last
 line. Last, the kill-and-requeue soak (``python -m
 bsi_torch.scripts.soak_test``, ``[soak]``) and ``bench_parallel`` under
 ``torchrun`` at ``--dp 1`` with and without FSDP (``[bench.parallel]``), each
-in processes of their own.
+in processes of their own. After K1's check, K8f, the f32 3x3
+convolution (``bsi_torch/ops/conv3x3.py``): FFMA and no tensor-core
+instruction in its SASS, held to f64 ``F.conv2d`` and bit for bit between
+two launches at the UNet's three shapes and odd ones, timed at the UNet's
+three beside its FFMA bound, cuDNN's default (FFT at TF32 off) and cuDNN's
+autotuned best, the dispatch at ``encode``'s 21 channels, and the routes one
+f32 UNet forward takes (``[ops.conv3x3]``); every f32 UNet path below gates
+K8f's launches, 135 a forward, and every bf16 one none.
 Prints one line per phase, a JSON line
 with every kernel's numbers, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -127,6 +134,10 @@ TRAIN_STEPS = 10
 # and out) and 32 at 256 (the up blocks' concatenated input); one attention.
 K7_PER_FORWARD = 66
 K1_PER_FORWARD = 1
+# K8f once a 3x3 convolution of an f32 forward: 2 in each of the 66 residual
+# blocks, the attention's qkv and out, and encode (its 21 Fourier channels
+# zero-padded to 32); none in bf16.
+CONV3X3_PER_FORWARD = 2 * 66 + 2 + 1
 # A train step: one forward and one backward; K7b once per K7f, and K1's
 # backward at S=1024 is the plain VJP, as in the JAX package.
 K7B_PER_STEP = 66
@@ -275,11 +286,12 @@ SOAK_N_TRAIN = 4096
 BENCH_PARALLEL_STEPS = 8
 COUNTER_NAMES = ("flash_attention", "flash_attention_dropout", "flash_attention_bwd", "groupnorm_silu_fwd",
                  "groupnorm_silu_bwd", "flash_attention_fused", "flash_attention_packed", "layernorm_modulate_fwd",
-                 "flash_attention_fused_bwd", "flash_attention_packed_bwd", "layernorm_modulate_bwd")
+                 "flash_attention_fused_bwd", "flash_attention_packed_bwd", "layernorm_modulate_bwd", "conv3x3")
 
 
 def launch_counters() -> dict:
     """Every kernel wrapper by the name its JSON entry carries."""
+    from bsi_torch.ops import conv3x3 as cv
     from bsi_torch.ops import flash_attention as fa
     from bsi_torch.ops import flash_attention_packed as fap
     from bsi_torch.ops import groupnorm_silu as gn
@@ -288,7 +300,7 @@ def launch_counters() -> dict:
     wrappers = (fa.flash_attention_cuda, fa.flash_attention_dropout_cuda, fa.flash_attention_bwd_cuda,
                 gn.groupnorm_silu_cuda, gn.groupnorm_silu_bwd_cuda, fap.flash_attention_fused_cuda,
                 fap.flash_attention_packed_cuda, lm.layernorm_modulate_cuda, fap.flash_attention_fused_bwd_cuda,
-                fap.flash_attention_packed_bwd_cuda, lm.layernorm_modulate_bwd_cuda)
+                fap.flash_attention_packed_bwd_cuda, lm.layernorm_modulate_bwd_cuda, cv.conv3x3_cuda)
     return dict(zip(COUNTER_NAMES, wrappers))
 
 
@@ -980,6 +992,103 @@ def predicted_train_peak_gib(batch: int, pixels: int, dim: int, levels: int) -> 
     return (batch * pixels * blocks + attention) / 2**30
 
 
+# [ops.conv3x3]: K8f against f64 F.conv2d at (batch, Cin, Cout, H, W): the
+# UNet's three 3x3 shapes at the sample cell's batch, then batch 1, a
+# border-heavy 8x8 and tiles the pixels and Cout leave ragged; timed at the
+# first three.
+CONV3X3_SHAPES = ((128, 128, 128, 32, 32), (128, 256, 128, 32, 32), (128, 128, 384, 32, 32),
+                  (1, 128, 128, 32, 32), (16, 128, 128, 8, 8), (3, 48, 132, 5, 7))
+CONV3X3_TIMED = 3
+
+
+def conv3x3_phase(dev, randn, flush) -> dict:
+    """[ops.conv3x3]: K8f's build (FFMA, no tensor-core instruction in its
+    SASS), parity with f64 ``F.conv2d`` and two launches bit for bit at
+    ``CONV3X3_SHAPES``, its time at the UNet's three shapes beside its FFMA
+    bound, cuDNN's default (FFT at TF32 off) and cuDNN's autotuned best
+    (``cudnn.benchmark``, set here alone), and the routes of one f32 UNet
+    forward, encode's padded 21 channels included. Returns the kernel's
+    entry of the ``kernels`` line (128 -> 128)."""
+    import torch
+    from torch.nn import functional as F
+
+    from bsi_torch.nn import Conv
+    from bsi_torch.ops import _build
+    from bsi_torch.ops import conv3x3 as cv
+    from bsi_torch.profile_sampling import build_model
+    from bsi_torch.utils import profiling
+
+    library, _, _ = _build.build(cv.SOURCE)
+    sass = sass_instructions(library, ("FFMA", "HMMA", "HGMMA", "IMMA"))
+    if not sass or not all(c["FFMA"] and not (c["HMMA"] or c["HGMMA"] or c["IMMA"]) for c in sass.values()):
+        raise AssertionError(f"{cv.SOURCE}: a kernel without FFMA or with a tensor-core instruction: {sass}")
+    phase("ops.conv3x3", sass=sass)
+    entry = None
+    for i, (b, cin, cout, h, w) in enumerate(CONV3X3_SHAPES):
+        x = randn(b, cin, h, w).to(memory_format=torch.channels_last)
+        weight, bias = randn(cout, cin, 3, 3) / (9 * cin) ** 0.5, randn(cout)
+        got, again = cv.conv3x3_cuda(x, weight, bias), cv.conv3x3_cuda(x, weight, bias)
+        want = F.conv2d(x.double(), weight.double(), bias.double(), padding=1)
+        torch.cuda.synchronize()
+        # f32 sums of 9 Cin products of size ~1 / sqrt(9 Cin) into outputs up to
+        # ~5, rounded at each of up to 2,304 steps: ~1e-5 at the worst of 16 M
+        # outputs; TF32 products would miss by ~5e-4 typically
+        err = check_close(f"K8f {(b, cin, cout, h, w)}", got, want, 5e-5)
+        if not torch.equal(got, again):
+            raise AssertionError(f"K8f {(b, cin, cout, h, w)}: two launches differ")
+        fields = dict(shape=[b, cin, cout, h, w], max_abs_err=f"{err:.3e}", atol=5e-5, repeat="bit for bit")
+        if i < CONV3X3_TIMED:
+            ops = 2 * b * h * w * cin * cout * 9
+            kernel_ms = time_ms(lambda: cv.conv3x3_cuda(x, weight, bias), flush=flush)
+            cudnn = lambda: F.conv2d(x, weight, bias, padding=1)
+            cudnn_ms = time_ms(cudnn, flush=flush)
+            cudnn_kernels = cuda_kernel_names(cudnn)
+            torch.backends.cudnn.benchmark = True
+            try:
+                tuned_ms = time_ms(cudnn, flush=flush)
+                tuned_kernels = cuda_kernel_names(cudnn)
+            finally:
+                torch.backends.cudnn.benchmark = False
+            timed = dict(ms=kernel_ms, library_ms=cudnn_ms, library_autotuned_ms=tuned_ms,
+                         **bound(x.numel() * 4 + b * h * w * cout * 4 + weight.numel() * 4, ops, F32_FLOPS))
+            fields.update(timed, share_of_bound=f"{timed['bound_ms'] / kernel_ms:.3f}",
+                          tflops=f"{ops / kernel_ms / 1e9:.1f}", cudnn_kernels=cudnn_kernels,
+                          cudnn_autotuned_kernels=tuned_kernels)
+            if kernel_ms >= cudnn_ms:
+                raise AssertionError(f"K8f {(b, cin, cout, h, w)}: {kernel_ms:.4f} ms, not faster than cuDNN's "
+                                     f"default {cudnn_ms:.4f} ms")
+            if i == 0:
+                entry = dict(name="conv3x3", route="cuda", source="bsi_torch/ops/csrc/conv3x3.cu", replaces=None,
+                             shape=[b, cin, cout, h, w], dtype="float32", max_abs_err=err, **timed)
+        phase("ops.conv3x3", **fields)
+        del x, weight, bias, got, again, want
+    # the dispatch at encode's shape: 21 channels, zero-padded to 32
+    x = randn(128, 21, 32, 32).to(memory_format=torch.channels_last)
+    weight, bias = randn(128, 21, 3, 3) / (9 * 21) ** 0.5, randn(128)
+    err = check_close("K8f at encode's (128, 21, 128, 32, 32)", cv.conv3x3(x, weight, bias),
+                      F.conv2d(x.double(), weight.double(), bias.double(), padding=1), 5e-5)
+    phase("ops.conv3x3", shape=[128, 21, 128, 32, 32], route="conv3x3, Cin padded to 32", max_abs_err=f"{err:.3e}",
+          atol=5e-5)
+    del x, weight, bias
+    # the routes of one f32 forward of the full-width UNet
+    unet = build_model("unet", dev, dtype=None)
+    n_convs = sum(isinstance(m, Conv) and m.kernel_size == (3, 3) for m in unet.modules())
+    if n_convs != CONV3X3_PER_FORWARD:
+        raise AssertionError(f"the UNet has {n_convs} 3x3 convolutions, not {CONV3X3_PER_FORWARD}")
+    mu = randn(BATCH, *DATA_SHAPE)
+    profiling.clear()
+    with torch.no_grad(), torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        unet(mu, torch.full((BATCH,), 0.5, device=dev))
+        torch.cuda.synchronize()
+    routes = {key: n for key, n in profiling.counters().items() if key.startswith("ops.K8f.")}
+    profiling.clear()
+    if routes != {"ops.K8f.kernel": CONV3X3_PER_FORWARD}:
+        raise AssertionError(f"one f32 UNet forward: K8f routes {routes}, want {CONV3X3_PER_FORWARD} kernel")
+    phase("ops.conv3x3", unet_forward_routes=routes)
+    del unet, mu
+    return entry
+
+
 def main() -> int:
     import torch
 
@@ -1005,6 +1114,7 @@ def main() -> int:
     from bsi_torch.data import ImageNetDataModule, NpyRowSource
     from bsi_torch.data.imagenet import write_synthetic_shards
     from bsi_torch.ops import _build
+    from bsi_torch.ops import conv3x3 as cv
     from bsi_torch.ops import flash_attention as fa
     from bsi_torch.ops import flash_attention_packed as fap
     from bsi_torch.ops import groupnorm_silu as gn
@@ -1026,6 +1136,9 @@ def main() -> int:
     # silu): an attention tail on each of the 66 residual blocks plus the
     # centre's, all over the image's pixels.
     tail_attentions = 2 * UNET["levels"] + 2 + 1
+    # its f32 forward's K8f launches: two 3x3 convolutions a residual block and
+    # an attention, and encode
+    tail_convs = 2 * (2 * UNET["levels"] + 2) + 2 * tail_attentions + 1
     b512_micro = bench.TRAIN_ROWS["dit-train-b512"]["batch"] // bench.TRAIN_ROWS["dit-train-b512"]["accum"]
     # f32 results are compared against the CPU and the plain versions: no TF32.
     torch.backends.cudnn.allow_tf32 = False
@@ -1054,6 +1167,7 @@ def main() -> int:
         "flash_attention_fused_bwd": fap.flash_attention_fused_bwd_cuda,
         "flash_attention_packed_bwd": fap.flash_attention_packed_bwd_cuda,
         "layernorm_modulate_bwd": lm.layernorm_modulate_bwd_cuda,
+        "conv3x3": cv.conv3x3_cuda,
     }
 
     def reset_counts():
@@ -1077,10 +1191,11 @@ def main() -> int:
         return got
 
     # --------------------------------------------------------------- build
-    # nvcc builds K1, K5f, K5b, K2/K6f, K3/K6b, K7f/K7b and K4b, one process
-    # each, while Triton compiles K4f on its first launch.
+    # nvcc builds K1, K5f, K5b, K2/K6f, K3/K6b, K7f/K7b, K4b and K8f, one
+    # process each, while Triton compiles K4f on its first launch.
     start = time.perf_counter()
-    sources = (fa.SOURCE, fa.DROPOUT_SOURCE, fa.BWD_SOURCE, fap.SOURCE, fap.BWD_SOURCE, gn.SOURCE, lm.SOURCE)
+    sources = (fa.SOURCE, fa.DROPOUT_SOURCE, fa.BWD_SOURCE, fap.SOURCE, fap.BWD_SOURCE, gn.SOURCE, lm.SOURCE,
+               cv.SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         nvcc = {src: pool.submit(_build.build, src) for src in sources}
         x = torch.randn(2, 64, 64, device=dev)
@@ -1092,7 +1207,8 @@ def main() -> int:
     phase("build", k1_nvcc_s=f"{built[fa.SOURCE][1]:.2f}", k5f_nvcc_s=f"{built[fa.DROPOUT_SOURCE][1]:.2f}",
           k5b_nvcc_s=f"{built[fa.BWD_SOURCE][1]:.2f}", k2_nvcc_s=f"{built[fap.SOURCE][1]:.2f}",
           k3_nvcc_s=f"{built[fap.BWD_SOURCE][1]:.2f}", k7_nvcc_s=f"{built[gn.SOURCE][1]:.2f}",
-          k4b_nvcc_s=f"{built[lm.SOURCE][1]:.2f}", k4f_triton_first_launch_s=f"{triton_k4f_s:.2f}",
+          k4b_nvcc_s=f"{built[lm.SOURCE][1]:.2f}", k8f_nvcc_s=f"{built[cv.SOURCE][1]:.2f}",
+          k4f_triton_first_launch_s=f"{triton_k4f_s:.2f}",
           total_s=f"{time.perf_counter() - start:.2f}", libraries=[path.name for path, _, _ in built.values()])
     for source, (_, _, log) in built.items():
         for kernel, info in ptxas_report(log).items():
@@ -1184,6 +1300,9 @@ def main() -> int:
     )
     phase("k1.time", **{key: k1[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
     kernels.append(k1)
+
+    # ------------------------------------------- K8f vs f64 F.conv2d, cuDNN
+    kernels.append(conv3x3_phase(dev, randn, flush))
 
     # ------------------------------------------------------- K7f, K7b plans
     # The plan each of K7f's and K7b's shapes takes (csrc/groupnorm_silu.cu:
@@ -2267,7 +2386,7 @@ def main() -> int:
         ref = unet16_cpu(mu, t)
         out = unet16_f32(mu.to(dev), t.to(dev)).cpu()
     expect_counts("one f32 16x16 UNet forward", flash_attention_dropout=K5F_PER_FORWARD,
-                  groupnorm_silu_fwd=K7_PER_FORWARD)
+                  groupnorm_silu_fwd=K7_PER_FORWARD, conv3x3=CONV3X3_PER_FORWARD)
     scale = ref.abs().max().item()
     tol16 = 1e-4 * max(1.0, scale)
     err = check_close("16x16 UNet f32 card vs CPU", out, ref, tol16)
@@ -2281,7 +2400,7 @@ def main() -> int:
         "16x16 train gradient", (unet16_cpu, unet16_f32), algo16_train, x_small, t_small, eps_small)
     expect_counts("one f32 16x16 UNet train-loss gradient", flash_attention_dropout=K5F_PER_FORWARD,
                   flash_attention_bwd=K5B_PER_STEP, groupnorm_silu_fwd=K7_PER_FORWARD,
-                  groupnorm_silu_bwd=K7B_PER_STEP)
+                  groupnorm_silu_bwd=K7B_PER_STEP, conv3x3=CONV3X3_PER_FORWARD)
     phase("unet16.train.check", batch=2, dtype="float32", leaves=len(grads), worst_rel_err=f"{worst:.3e}",
           worst_leaf=worst_name, tol="1e-3 of each leaf's norm", finite=finite)
     algo16 = build_algo(K_STEPS, DATA16[0])
@@ -2296,7 +2415,7 @@ def main() -> int:
         evals.append({key: val.item() for key, val in step_e(state_e, x_small.to(device),
                                                            torch.ones(2, device=device)).items()})
     expect_counts("one f32 16x16 eval step", flash_attention_dropout=2 * K5F_PER_FORWARD,
-                  groupnorm_silu_fwd=2 * K7_PER_FORWARD)
+                  groupnorm_silu_fwd=2 * K7_PER_FORWARD, conv3x3=2 * CONV3X3_PER_FORWARD)
     bpd_err = abs(evals[1]["bpd_sum"] - evals[0]["bpd_sum"])
     if not bpd_err <= 1e-4 * abs(evals[0]["bpd_sum"]):
         raise AssertionError(f"16x16 eval bpd card vs CPU: {evals[1]['bpd_sum']} vs {evals[0]['bpd_sum']}")
@@ -2384,7 +2503,7 @@ def main() -> int:
         eval_secs.append(time.perf_counter() - t0)
     eval_launches = expect_counts(
         f"{EVAL_STEPS} 16x16 eval steps", flash_attention_dropout=2 * K5F_PER_FORWARD * EVAL_STEPS,
-        groupnorm_silu_fwd=2 * K7_PER_FORWARD * EVAL_STEPS)
+        groupnorm_silu_fwd=2 * K7_PER_FORWARD * EVAL_STEPS, conv3x3=2 * CONV3X3_PER_FORWARD * EVAL_STEPS)
     bpd = sums["bpd_sum"].item() / sums["count"].item()
     if not (math.isfinite(bpd) and bpd > 0 and sums["count"].item() == EVAL_BATCH - 8):
         raise AssertionError(f"bad 16x16 eval metrics: {({key: val.item() for key, val in sums.items()})}")
@@ -2417,7 +2536,7 @@ def main() -> int:
         with torch.inference_mode():
             ref = tail_cpu(mu, t)
             out = tail_f32(mu.to(dev), t.to(dev)).cpu()
-        counts = expect_counts(f"{what}, f32", **{kernel: tail_attentions})
+        counts = expect_counts(f"{what}, f32", **{kernel: tail_attentions}, conv3x3=tail_convs)
         scale = ref.abs().max().item()
         tail_tol = 1e-4 * max(1.0, scale)
         err = check_close(f"{what}: f32 card vs CPU", out, ref, tail_tol)
@@ -2449,8 +2568,8 @@ def main() -> int:
 
     # ------------------------------------------------ the trainer, end to end
     # python -m bsi_torch.train on the CIFAR-10 recipe (TRAINER_RECIPE): every
-    # UNet forward there is f32 at 32x32, K1 once and K7f 66 times; a train
-    # step's backward runs K7b 66 times (K1's backward at S = 1024 is the
+    # UNet forward there is f32 at 32x32, K1 once, K7f 66 times and K8f 135;
+    # a train step's backward runs K7b 66 times (K1's backward at S = 1024 is the
     # plain VJP). fit: a sanity validation, 6 steps, validations after steps
     # 3 and 6, the plots at each (sampling of 64 at k = PLOTS_K_CUT, the
     # recipe's 50; filmstrips of 16, denoisings of 8), then the recipe's test
@@ -2472,10 +2591,12 @@ def main() -> int:
     fit_s = time.perf_counter() - t0
     fit_peak = torch.cuda.max_memory_allocated()
     fit_counts = read_counts()
-    k1, k7f, k7b = (fit_counts[name] for name in ("flash_attention", "groupnorm_silu_fwd", "groupnorm_silu_bwd"))
+    k1, k7f, k7b, k8f = (fit_counts[name] for name in ("flash_attention", "groupnorm_silu_fwd", "groupnorm_silu_bwd",
+                                                      "conv3x3"))
     others = {name: n for name, n in fit_counts.items()
-              if n and name not in ("flash_attention", "groupnorm_silu_fwd", "groupnorm_silu_bwd")}
-    if not (k1 > 0 and k7f == K7_PER_FORWARD * k1 and k7b == K7B_PER_STEP * TRAINER_STEPS) or others:
+              if n and name not in ("flash_attention", "groupnorm_silu_fwd", "groupnorm_silu_bwd", "conv3x3")}
+    if not (k1 > 0 and k7f == K7_PER_FORWARD * k1 and k7b == K7B_PER_STEP * TRAINER_STEPS
+            and k8f == CONV3X3_PER_FORWARD * k1) or others:
         raise AssertionError(f"trainer.fit launches: {fit_counts}")
     rates = metric(records, "train/steps_per_sec")
     losses = metric(records, "train/loss")
@@ -2518,7 +2639,7 @@ def main() -> int:
           ckpt_bytes=ckpt_bytes, ckpt_copy_s=[f"{x:.3f}" for x in metric(records, "time/ckpt_last_copy_s")],
           ckpt_write_s=[f"{x:.3f}" for x in metric(records, "time/ckpt_last_write_s")],
           ckpt_best_write_s=[f"{x:.3f}" for x in metric(records, "time/ckpt_best_write_s")],
-          peak_mem_gib=f"{fit_peak / 2**30:.3f}", launches={"k1": k1, "k7f": k7f, "k7b": k7b}, pngs=len(pngs))
+          peak_mem_gib=f"{fit_peak / 2**30:.3f}", launches={"k1": k1, "k7f": k7f, "k7b": k7b, "k8f": k8f}, pngs=len(pngs))
     path_launches["trainer_fit"] = fit_counts
     # the eval suite's phases read the fit's best checkpoint
     fit_ckpt = run_dir / "ckpt_best"
@@ -2583,7 +2704,7 @@ def main() -> int:
     # the one validation after step 2: two splits, two forwards each
     accum_counts = expect_counts("trainer.accum", flash_attention=2 * 2 + 4,
                                  groupnorm_silu_fwd=K7_PER_FORWARD * (2 * 2 + 4),
-                                 groupnorm_silu_bwd=K7B_PER_STEP * 2 * 2)
+                                 groupnorm_silu_bwd=K7B_PER_STEP * 2 * 2, conv3x3=CONV3X3_PER_FORWARD * (2 * 2 + 4))
     accum_loss = metric(accum, "train/loss")
     if len(accum_loss) != 2 or not all(math.isfinite(x) for x in accum_loss):
         raise AssertionError(f"trainer.accum losses {accum_loss}")
@@ -2616,8 +2737,8 @@ def main() -> int:
     # bsi_torch.metrics (FID's InceptionV3 and statistics) and the eight
     # scripts of python -m bsi_torch.scripts, called in this process (the
     # kernels stay built), on the fit's ckpt_best: the CIFAR-10 recipe's UNet
-    # at full width, f32, TF32 off. Every UNet forward runs K1 once and K7f
-    # 66 times, and no other kernel; the Inception none. Inception weights:
+    # at full width, f32, TF32 off. Every UNet forward runs K1 once, K7f 66
+    # times and K8f 135, and no other kernel; the Inception none. Inception weights:
     # random, of pt_inception's shapes, fan-in-scaled convolutions and
     # non-trivial BatchNorm statistics, drawn from SEED into a .pth that
     # BSI_TPU_INCEPTION_WEIGHTS names. Cuts: eval batch 128 (the recipe's
@@ -2734,15 +2855,17 @@ def main() -> int:
     phase("fid.stats", dataset="synthetic 32x32x3 (seed 0)", n=want_n, s=f"{time.perf_counter() - t0:.2f}")
 
     def script(label: str, fn, argv: list[str], forwards: int) -> tuple[float, dict]:
-        """One script's main in this process; its K1 and K7f launches must be
-        ``forwards`` and K7f's 66 times that, every other kernel none."""
+        """One script's main in this process; its K1 launches must be
+        ``forwards``, K7f's 66 times that, K8f's 135 times, every other
+        kernel none."""
         reset_counts()
         t0 = time.perf_counter()
         if fn(argv) != 0:
             raise AssertionError(f"{label}: exit code not 0")
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = expect_counts(label, flash_attention=forwards, groupnorm_silu_fwd=K7_PER_FORWARD * forwards)
+        counts = expect_counts(label, flash_attention=forwards, groupnorm_silu_fwd=K7_PER_FORWARD * forwards,
+                               conv3x3=CONV3X3_PER_FORWARD * forwards)
         path_launches[label.replace(".", "_").replace("-", "_")] = counts
         return secs, counts
 
@@ -2777,10 +2900,11 @@ def main() -> int:
         if drawn.shape[0] != EVAL_BATCH or not bool(torch.isfinite(drawn).all()):
             raise AssertionError(f"eval.sampler: {tuple(drawn.shape)}, finite {bool(torch.isfinite(drawn).all())}")
     path_launches["eval_sampler"] = expect_counts("eval.sampler", flash_attention=2 * 9,
-                                                  groupnorm_silu_fwd=2 * 9 * K7_PER_FORWARD)
+                                                  groupnorm_silu_fwd=2 * 9 * K7_PER_FORWARD,
+                                                  conv3x3=2 * 9 * CONV3X3_PER_FORWARD)
     phase("eval.sampler", n=EVAL_BATCH, k=8, forwards=9, dtype="float32", tf32=False,
           s=[f"{x:.4f}" for x in sampler_s], ms_per_image_forward=[f"{x / (9 * EVAL_BATCH) * 1e3:.4f}" for x in sampler_s],
-          launches={"k1": 2 * 9, "k7f": 2 * 9 * K7_PER_FORWARD})
+          launches={"k1": 2 * 9, "k7f": 2 * 9 * K7_PER_FORWARD, "k8f": 2 * 9 * CONV3X3_PER_FORWARD})
     del trainer, drawn
 
     # [eval.elbo]: k = inf and 10 over the test split's 128 images, one
