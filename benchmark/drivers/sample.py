@@ -48,8 +48,8 @@ def setup(cell, s: dict, device):
     data = ArrayDataModule(u8, u8, batch_size=tr["batch"], eval_batch_size=tr["batch"], seed=0)
     trainer = harness.build_trainer(cell, data, device, harness.scratch_dir())
     trainer.state = trainer.init_state()
-    shapes = steps.MODELS[cell.kind].param_shapes(cell.reference_model())
-    harness.install_weights(trainer, weightgen.make(shapes, s["weights"], device), shapes)
+    shapes = cell.model.param_shapes(cell.reference_model())
+    harness.install_weights(trainer, weightgen.make(shapes, s["weights"], device, cell.model.SMALL_WEIGHTS), shapes)
     records = SimpleNamespace(open=None, done=[])
 
     def keep(module, args, output):
@@ -88,8 +88,8 @@ def reference(cell, s: dict, record: dict, j: int, rows, device, control: bool =
     products in TF32 and the sampler's arithmetic in bf16, the precisions
     below the cell's f32 with TF32 off."""
     tr = cell.traffic
-    shapes = steps.MODELS[cell.kind].param_shapes(cell.reference_model())
-    w = weightgen.make(shapes, s["weights"], device)
+    shapes = cell.model.param_shapes(cell.reference_model())
+    w = weightgen.make(shapes, s["weights"], device, cell.model.SMALL_WEIGHTS)
     h, wd, c = cell.config["data_shape"]
     eps = draws.sampling_noise(torch.Generator(device=device).manual_seed(s["sample"]), (tr["batch"], h, wd, c),
                                tr["k"], skip_calls=j)

@@ -50,12 +50,12 @@ def setup(cell, s: dict, device):
     from bsi_torch.data.base import ArrayDataModule
 
     tr = cell.traffic
-    shapes = steps.MODELS[cell.kind].param_shapes(cell.reference_model())
+    shapes = cell.model.param_shapes(cell.reference_model())
     u8 = images(cell, s["data"])
     data = ArrayDataModule(u8, u8[:tr["batch"]], batch_size=tr["batch"], eval_batch_size=tr["batch"], seed=s["data"])
     trainer = harness.build_trainer(cell, data, device, harness.scratch_dir())
     trainer.state = trainer.init_state()
-    w = weightgen.make(shapes, s["weights"], device)
+    w = weightgen.make(shapes, s["weights"], device, cell.model.SMALL_WEIGHTS)
     harness.install_weights(trainer, w, shapes)
     state = trainer.state
     state.step = state.opt_state.count = tr["start_step"]
@@ -106,8 +106,8 @@ def optimizer_cfg(cell) -> dict:
 def reference(cell, s: dict, u8: np.ndarray, device, prec: Precision) -> dict:
     """The reference's readings of the checked steps (TF32 off)."""
     tr = cell.traffic
-    shapes = steps.MODELS[cell.kind].param_shapes(cell.reference_model())
-    w = weightgen.make(shapes, s["weights"], device)
+    shapes = cell.model.param_shapes(cell.reference_model())
+    w = weightgen.make(shapes, s["weights"], device, cell.model.SMALL_WEIGHTS)
     b = tr["batch"]
     rows = draws.data_rows(len(u8), s["data"], tr["check_steps"] * b)
     batches = [torch.from_numpy(draws.to_unit(u8[rows[i * b:(i + 1) * b]])).to(device)

@@ -56,8 +56,16 @@ class Cell:
 
     @property
     def kind(self) -> str:
-        """``dit`` or ``unet``: the reference's model and the counts' shapes."""
+        """The configuration's model kind: its file ``reference/<kind>.py``
+        is the reference's model and the counts' shapes."""
         return self.config["model"]
+
+    @property
+    def model(self):
+        """The model kind's file (:func:`benchmark.reference.model`)."""
+        from benchmark import reference
+
+        return reference.model(self.kind)
 
     @property
     def precision(self) -> str:
@@ -76,16 +84,7 @@ class Cell:
 
     def reference_model(self) -> dict:
         """The model's sizes as the reference takes them."""
-        m = self.config["program"]["task"]["model"]
-        ff = m.get("fourier_features")
-        cfg = {"data_shape": tuple(self.config["data_shape"]), "dropout": m.get("dropout"),
-               "fourier": (ff["n_min"], ff["n_max"]) if ff else None}
-        if self.kind == "dit":
-            cfg.update({k: m[k] for k in ("patch_size", "dim", "depth", "heads")}, mlp_ratio=m.get("mlp_ratio", 4))
-        else:
-            cfg.update({k: m[k] for k in ("dim", "levels", "pos_emb_mult", "n_attention_heads")},
-                       pos_emb=(m["pos_emb"]["size"], m["pos_emb"]["expected_rate"]))
-        return cfg
+        return self.model.sizes(self.config)
 
     def algorithm(self) -> dict:
         return self.config["program"]["task"]["algorithm"]
@@ -213,5 +212,15 @@ def device_record(count: int, peak_bytes: int, trace=None) -> dict:
 
 
 def breakdown(trace) -> dict:
+    """The device's kinds of operation by time and its longest idle gaps,
+    each gap's label followed, where the program recorded spans, by the
+    innermost span at the gap's midpoint (``cudaLaunchKernel [step.forward]``)."""
+    from benchmark import spans
+
     ops = sorted(trace.by_kind.items(), key=lambda kv: -kv[1])[:10]
-    return {"device_ops": [[k, v] for k, v in ops], "idle_gaps": [[k, v] for k, v in trace.gaps[:10]]}
+    found = spans.recorded() if trace.base_ns is not None else []
+    gaps = []
+    for i, (label, seconds) in enumerate(trace.gaps[:10]):
+        span = spans.innermost(found, trace.span_ns(sum(trace.holes[i]) / 2)) if found else None
+        gaps.append([f"{label} [{span.name}]" if span is not None else label, seconds])
+    return {"device_ops": [[k, v] for k, v in ops], "idle_gaps": gaps}

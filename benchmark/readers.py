@@ -1,10 +1,13 @@
 """What the per-layer metrics' files (``metrics/<name>.py``) share.
 
-Each reader takes the traced run's ``info``: the cell, its :class:`~.trace.Trace`
-of the profiled stretch, the batch, the train steps (``steps``) or the
-denoiser forwards (``forwards``) in that stretch, the examples or samples
-of the traced window and its seconds, and the window's peak memory. A
-reader with nothing to read returns None.
+Each reader takes the traced run's ``info``: the cell (whose model kind's
+file, ``info.cell.model``, counts the FLOPs and the kernels' calls), its
+:class:`~.trace.Trace` of the profiled stretch, the batch, the train steps
+(``steps``) or the denoiser forwards (``forwards``) in that stretch, the
+examples or samples of the traced window and its seconds, and the window's
+peak memory. A reader with nothing to read returns None. A roofline reads
+the device time of a group of the port's kernels (:func:`.kinds.group`),
+which an added ``kernels/<id>.json`` can name anew.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ def mfu_percent(info, forwards_per_item: float, items: float):
     """Model FLOPs of ``items`` examples or samples at ``forwards_per_item``
     image-forwards each, over the window, against the card's peak for the
     cell's precision."""
-    flops = counts.MODEL_FLOPS[info.cell.kind](info.cell.reference_model()) * forwards_per_item * items
+    flops = info.cell.model.flops(info.cell.reference_model()) * forwards_per_item * items
     return 100.0 * flops / info.window_s / counts.PEAK_FLOPS[info.cell.precision]
 
 
@@ -42,12 +45,15 @@ def roofline_percent(info, calls: list, layer: set, repeats: int):
 
 
 def attention_calls(info, backward: bool):
-    return counts.attention_calls(info.cell.kind, info.cell.reference_model(), info.batch, info.cell.precision,
-                                  backward)
+    return info.cell.model.attention_calls(info.cell.reference_model(), info.batch, info.cell.precision, backward)
 
 
 def norm_calls(info, backward: bool):
-    return counts.norm_calls(info.cell.kind, info.cell.reference_model(), info.batch, info.cell.precision, backward)
+    return info.cell.model.norm_calls(info.cell.reference_model(), info.batch, info.cell.precision, backward)
+
+
+def conv3x3_calls(info):
+    return info.cell.model.conv3x3_calls(info.cell.reference_model(), info.batch, info.cell.precision)
 
 
 def ms_per_step(info, layer: set):
@@ -57,6 +63,6 @@ def ms_per_step(info, layer: set):
     return 1e3 * seconds / info.steps if seconds > 0 else None
 
 
-ATTENTION, NORM = kinds.ATTENTION, kinds.NORM
+ATTENTION, NORM, CONV = kinds.group("attention"), kinds.group("norm"), kinds.group("conv")
 OPTIMIZER = {kinds.OPTIMIZER}
 ELEMENTWISE = {kinds.ELEMENTWISE, kinds.COPY}

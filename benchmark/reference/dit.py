@@ -4,9 +4,10 @@ modulation, dropout on the attention's probabilities and before the MLP,
 a fixed 2D Nyquist table for the patch positions, the Nyquist embedding of
 t as the conditioning, Fourier features of the input beside it.
 
-``cfg``: ``data_shape`` (H, W, C), ``patch_size``, ``dim``, ``depth``,
-``heads``, ``mlp_ratio``, ``fourier`` ((n_min, n_max) or None). Parameter
-names are those of the port's ``DenoisingDiT``.
+The model kind ``dit`` (see :mod:`benchmark.reference`). ``cfg``, as
+:func:`sizes` gives it: ``data_shape`` (H, W, C), ``patch_size``, ``dim``,
+``depth``, ``heads``, ``mlp_ratio``, ``fourier`` ((n_min, n_max) or None),
+``dropout``. Parameter names are those of the port's ``DenoisingDiT``.
 """
 
 from __future__ import annotations
@@ -14,21 +15,76 @@ from __future__ import annotations
 import torch
 from torch.nn import functional as F
 
-from .layers import (F32, Precision, attention, dense, fourier_features, gelu_tanh, layer_norm, merge_heads,
-                     nyquist, nyquist_table_2d, split_qkv)
+from .. import counts
+from . import draws, shared_sizes
+from .layers import (F32, Precision, attention, dense, fourier_channels, fourier_features, gelu_tanh, layer_norm,
+                     merge_heads, nyquist, nyquist_table_2d, split_qkv)
+
+# the program's model sizes of the CPU tests' tiny cells (on 8x8 images)
+TINY = {"patch_size": 2, "dim": 128, "depth": 2, "heads": 2}
+# adaLN-Zero's modulation starts at 0, where every block is the identity,
+# which a check could not see through: its weights are drawn with std 0.02
+SMALL_WEIGHTS = (".ada_out.",)
 
 
-def _in_channels(cfg) -> int:
+def sizes(config: dict) -> dict:
+    m = config["program"]["task"]["model"]
+    return {**shared_sizes(config), **{k: m[k] for k in ("patch_size", "dim", "depth", "heads")},
+            "mlp_ratio": m.get("mlp_ratio", 4)}
+
+
+def _tokens(cfg) -> int:
+    h, w, _ = cfg["data_shape"]
+    return (h // cfg["patch_size"]) * (w // cfg["patch_size"])
+
+
+def flops(cfg: dict) -> float:
+    """FLOPs of one image through the DiT: 2 a multiply-add of every dense
+    layer (the modulation's once an image, the rest once a token) and
+    4 S^2 D for attention's two products."""
     c = cfg["data_shape"][-1]
-    ff = cfg.get("fourier")
-    return c * (1 + (2 * (ff[1] - ff[0] + 1) if ff else 0))
+    p, d = cfg["patch_size"], cfg["dim"]
+    s = _tokens(cfg)
+    hidden = cfg.get("mlp_ratio", 4) * d
+    block = 2 * s * (3 * d * d + d * d + 2 * d * hidden) + 2 * 7 * d * d + 4 * s * s * d
+    return cfg["depth"] * block + 2 * s * p * p * fourier_channels(cfg) * d + 2 * s * d * p * p * c
+
+
+def attention_calls(cfg: dict, batch: int, dtype: str, backward: bool) -> list[tuple[float, int]]:
+    """``[(bound seconds, calls a forward)]`` of the fused-qkv attention (K2,
+    and K3 with ``backward``): one a block."""
+    heads = cfg["heads"]
+    shapes = [((batch, heads, _tokens(cfg), cfg["dim"] // heads), cfg["depth"])]
+    return counts.calls(shapes, dtype, counts.attention_fwd, counts.attention_bwd if backward else None)
+
+
+def norm_calls(cfg: dict, batch: int, dtype: str, backward: bool) -> list[tuple[float, int]]:
+    """LayerNorm + modulate (K4f, K4b): twice a block."""
+    shapes = [((batch, _tokens(cfg), cfg["dim"]), 2 * cfg["depth"])]
+    return counts.calls(shapes, dtype, counts.ln_modulate_fwd, counts.ln_modulate_bwd if backward else None)
+
+
+def conv3x3_calls(cfg: dict, batch: int, dtype: str) -> list[tuple[float, int]]:
+    """No convolution."""
+    return []
+
+
+def dropout_plan(cfg: dict, batch: int, seed: int, rate: float, dtype, device) -> list:
+    """A train step's dropout draws at ``rate`` from ``seed``, in forward
+    order: a block's attention draw, then its pre-MLP keep ``[B, S, D]``
+    (``dtype`` is the compute dtype the masked tensor has)."""
+    seq = _tokens(cfg)
+    with draws.seeded(seed, device):
+        return [(draws.AttentionDraw.draw(batch, cfg["heads"], seq, rate, device),
+                 draws.module_keep((batch, seq, cfg["dim"]), rate, dtype, device, torch.contiguous_format))
+                for _ in range(cfg["depth"])]
 
 
 def param_shapes(cfg: dict) -> dict[str, tuple]:
     d, p, c = cfg["dim"], cfg["patch_size"], cfg["data_shape"][-1]
     hidden = cfg.get("mlp_ratio", 4) * d
     shapes = {
-        "dit.patch_encoder.weight": (d, p * p * _in_channels(cfg)), "dit.patch_encoder.bias": (d,),
+        "dit.patch_encoder.weight": (d, p * p * fourier_channels(cfg)), "dit.patch_encoder.bias": (d,),
         "dit.decoder_norm.weight": (d,), "dit.decoder_norm.bias": (d,),
         "dit.patch_decoder.weight": (p * p * c, d), "dit.patch_decoder.bias": (p * p * c,),
     }

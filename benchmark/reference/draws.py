@@ -8,9 +8,8 @@ the seeds the benchmark hands to both sides.
   normal of the sample batch's shape for the initial belief, then one a
   step, in order.
 - **Dropout of a train step**: the device's default generator, seeded with
-  the step's seed, draws in forward order. A DiT block draws its attention
-  mask, then its pre-MLP mask; a UNet residual block its one mask, blocks
-  in the order down, centre in, centre out, up. The attention mask comes,
+  the step's seed (:func:`seeded`), draws in forward order, as the model
+  kind's ``dropout_plan`` lists the draws. The attention mask comes,
   on a CUDA device, from one int32 seed a (row, head), drawn as
   ``randint(0, 2**31 - 1)``, through Philox4x32-10 (:func:`philox_keep`);
   elsewhere from a uniform a probability. A module's mask is torch's
@@ -22,6 +21,7 @@ the seeds the benchmark hands to both sides.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -92,48 +92,37 @@ class AttentionDraw:
     seq: int
     keep_prob: float
 
+    @classmethod
+    def draw(cls, batch: int, heads: int, seq: int, rate: float, device) -> "AttentionDraw":
+        """One call's draw from the device's default generator."""
+        if torch.device(device).type == "cuda":
+            return cls(torch.randint(0, 2**31 - 1, (batch, heads), dtype=torch.int32, device=device), None, seq,
+                       1.0 - rate)
+        return cls(None, torch.rand((batch, heads, seq, seq), device=device) < 1.0 - rate, seq, 1.0 - rate)
+
     def mask(self, rows: slice) -> torch.Tensor:
         if self.keep is not None:
             return self.keep[rows]
         return philox_keep(self.seeds[rows], self.seq, self.keep_prob)
 
 
-def _module_keep(shape, rate: float, dtype, device, memory_format) -> torch.Tensor:
+def module_keep(shape, rate: float, dtype, device, memory_format) -> torch.Tensor:
+    """A module's keep mask: torch's dropout of a tensor of ones of the
+    masked tensor's shape, dtype and memory format."""
     ones = torch.ones(shape, dtype=dtype, device=device).contiguous(memory_format=memory_format)
     return F.dropout(ones, rate, training=True) != 0
 
 
-def dropout_plan(kind: str, cfg: dict, batch: int, seed: int, rate: float, dtype, device) -> list:
-    """A train step's dropout draws in forward order, at ``rate``: for the
-    DiT one ``(AttentionDraw, pre-MLP keep [B, S, D])`` a block, for the UNet
-    one keep ``[B, C, H, W]`` a residual block. ``dtype`` is the compute
-    dtype the masked tensors have."""
+@contextlib.contextmanager
+def seeded(seed: int, device):
+    """The device's default generator seeded with ``seed`` inside the block
+    (a train step's dropout draws from it), its state restored after."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     index = (device.index if device.index is not None else torch.cuda.current_device()) if cuda else None
-    plan = []
     with torch.random.fork_rng(devices=[index] if cuda else []):
-        gen = torch.cuda.default_generators[index] if cuda else torch.default_generator
-        gen.manual_seed(seed)
-        if kind == "dit":
-            h, w, _ = cfg["data_shape"]
-            p, dim, heads = cfg["patch_size"], cfg["dim"], cfg["heads"]
-            seq = (h // p) * (w // p)
-            for _ in range(cfg["depth"]):
-                if cuda:
-                    seeds = torch.randint(0, 2**31 - 1, (batch, heads), dtype=torch.int32, device=device)
-                    attn = AttentionDraw(seeds, None, seq, 1.0 - rate)
-                else:
-                    uniform = torch.rand((batch, heads, seq, seq), device=device)
-                    attn = AttentionDraw(None, uniform < 1.0 - rate, seq, 1.0 - rate)
-                plan.append((attn, _module_keep((batch, seq, dim), rate, dtype, device, torch.contiguous_format)))
-        elif kind == "unet":
-            h, w, _ = cfg["data_shape"]
-            for _ in range(2 * cfg["levels"] + 2):
-                plan.append(_module_keep((batch, cfg["dim"], h, w), rate, dtype, device, torch.channels_last))
-        else:
-            raise ValueError(f"unknown model kind {kind!r}")
-    return plan
+        (torch.cuda.default_generators[index] if cuda else torch.default_generator).manual_seed(seed)
+        yield
 
 
 def train_noise(generator: torch.Generator, x: torch.Tensor):

@@ -118,6 +118,14 @@ def merge_heads(x):
     return x.permute(0, 2, 1, 3).reshape(b, s, h * d)
 
 
+def fourier_channels(cfg: dict) -> int:
+    """The input's channels with its Fourier features (``cfg["fourier"]``,
+    ``(n_min, n_max)`` or None) beside them."""
+    c = cfg["data_shape"][-1]
+    ff = cfg.get("fourier")
+    return c * (1 + (2 * (ff[1] - ff[0] + 1) if ff else 0))
+
+
 def fourier_features(x, n_min: int, n_max: int):
     """``sin(2 pi 2^n x + {0, pi/2})`` for n in [n_min, n_max] over the last
     axis of NHWC ``x``: ``[..., C * 2 * (n_max - n_min + 1)]``, ordered

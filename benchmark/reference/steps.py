@@ -1,26 +1,25 @@
 """The reference's side of a cell's check: its readings of the first train
 steps, and its step-by-step check of a sampling call.
 
-The model of a config is :mod:`.dit` or :mod:`.unet` (``kind``). Work runs
-in blocks of ``chunk`` rows, so that an f32 step at the cells' batches
-fits beside what is left on the card.
+The model is the file of its kind (``kind``, found by
+:func:`benchmark.reference.model`). Work runs in blocks of ``chunk`` rows,
+so that an f32 step at the cells' batches fits beside what is left on the
+card.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import dit, unet
+from . import model
 from .bsi import BSI
-from .draws import dropout_plan, step_seed, train_noise
+from .draws import step_seed, train_noise
 from .layers import F32, Precision
 from .optim import AdamW, ema_update
 
-MODELS = {"dit": dit, "unet": unet}
-
 
 def model_fn(kind: str, params: dict, cfg: dict, drop=None, rows=slice(None), prec: Precision = F32):
-    forward = MODELS[kind].forward
+    forward = model(kind).forward
     return lambda mu, t: forward(params, mu, t, cfg, drop, rows, prec)
 
 
@@ -48,8 +47,8 @@ def train_readings(kind: str, model_cfg: dict, algo_cfg: dict, opt: dict, weight
     for i, x in enumerate(batches):
         step = start_step + i
         t, eps = train_noise(gen, x)
-        drop = dropout_plan(kind, model_cfg, x.shape[0], step_seed(dropout_seed, step), rate, dropout_dtype,
-                            device) if rate > 0 else None
+        drop = model(kind).dropout_plan(model_cfg, x.shape[0], step_seed(dropout_seed, step), rate, dropout_dtype,
+                                        device) if rate > 0 else None
         n = x.shape[0]
         total = 0.0
         for lo in range(0, n, chunk):

@@ -6,9 +6,10 @@ GroupNorm, SiLU, 3x3 conv, FiLM by the conditioning, SiLU, dropout, 3x3 conv
 and the (1x1-projected where widths differ) skip. The conditioning is the
 Nyquist embedding of t through two dense layers with SiLU.
 
-``cfg``: ``data_shape``, ``dim``, ``levels``, ``pos_emb`` ((size, rate)),
-``pos_emb_mult``, ``n_attention_heads``, ``fourier``. Parameter names are
-those of the port's ``DenoisingVDMUNet``.
+The model kind ``unet`` (see :mod:`benchmark.reference`). ``cfg``, as
+:func:`sizes` gives it: ``data_shape``, ``dim``, ``levels``, ``pos_emb``
+((size, rate)), ``pos_emb_mult``, ``n_attention_heads``, ``fourier``,
+``dropout``. Parameter names are those of the port's ``DenoisingVDMUNet``.
 """
 
 from __future__ import annotations
@@ -16,8 +17,75 @@ from __future__ import annotations
 import torch
 from torch.nn import functional as F
 
-from .layers import (F32, Precision, attention, conv, dense, fourier_features, group_norm, merge_heads, nyquist,
-                     split_qkv)
+from .. import counts
+from . import draws, shared_sizes
+from .layers import (F32, Precision, attention, conv, dense, fourier_channels, fourier_features, group_norm,
+                     merge_heads, nyquist, split_qkv)
+
+# the program's model sizes of the CPU tests' tiny cells (on 8x8 images)
+TINY = {"dim": 32, "levels": 1}
+SMALL_WEIGHTS = ()
+
+
+def sizes(config: dict) -> dict:
+    m = config["program"]["task"]["model"]
+    return {**shared_sizes(config), **{k: m[k] for k in ("dim", "levels", "pos_emb_mult", "n_attention_heads")},
+            "pos_emb": (m["pos_emb"]["size"], m["pos_emb"]["expected_rate"])}
+
+
+def flops(cfg: dict) -> float:
+    """FLOPs of one image through the VDM-UNet: 2 a multiply-add of every
+    convolution and dense layer, 4 (HW)^2 C for the attention's products."""
+    h, w, c = cfg["data_shape"]
+    d, hw = cfg["dim"], h * w
+    c_dim = cfg["pos_emb"][0] * cfg["pos_emb_mult"]
+    conv = lambda cin, cout, k: 2 * hw * cin * cout * k * k
+    block = lambda cin: conv(cin, d, 3) + conv(d, d, 3) + (conv(cin, d, 1) if cin != d else 0) + 2 * c_dim * 2 * d
+    total = conv(fourier_channels(cfg), d, 3) + conv(d, c, 1)
+    total += 2 * cfg["pos_emb"][0] * c_dim + 2 * c_dim * c_dim
+    total += (cfg["levels"] + 2) * block(d) + cfg["levels"] * block(2 * d)
+    total += conv(d, 3 * d, 3) + conv(d, d, 3) + 4 * hw * hw * d
+    return total
+
+
+def attention_calls(cfg: dict, batch: int, dtype: str, backward: bool) -> list[tuple[float, int]]:
+    """``[(bound seconds, calls a forward)]`` of the one pixel attention in
+    the centre (K1; K5f and K5b at 256 pixels)."""
+    h, w, _ = cfg["data_shape"]
+    heads = cfg["n_attention_heads"]
+    shapes = [((batch, heads, h * w, cfg["dim"] // heads), 1)]
+    return counts.calls(shapes, dtype, counts.attention_fwd, counts.attention_bwd if backward else None)
+
+
+def norm_calls(cfg: dict, batch: int, dtype: str, backward: bool) -> list[tuple[float, int]]:
+    """GroupNorm + SiLU (K7f, K7b): once a residual block, at C = dim down
+    and in the centre, 2 dim up."""
+    h, w, _ = cfg["data_shape"]
+    d = cfg["dim"]
+    shapes = [((batch, h * w, d), cfg["levels"] + 2), ((batch, h * w, 2 * d), cfg["levels"])]
+    return counts.calls(shapes, dtype, counts.groupnorm_silu_fwd, counts.groupnorm_silu_bwd if backward else None)
+
+
+def conv3x3_calls(cfg: dict, batch: int, dtype: str) -> list[tuple[float, int]]:
+    """The forward's 3x3 convolutions (K8f in f32 on the card): ``encode``
+    from the input and its Fourier features; two a residual block (the first
+    from 2 dim up); the attention's qkv (to 3 dim) and output."""
+    h, w, _ = cfg["data_shape"]
+    d, levels = cfg["dim"], cfg["levels"]
+    shapes = [((batch, h, w, fourier_channels(cfg), d), 1), ((batch, h, w, d, d), (levels + 2) + (2 * levels + 2) + 1),
+              ((batch, h, w, 2 * d, d), levels), ((batch, h, w, d, 3 * d), 1)]
+    return counts.calls(shapes, dtype, counts.conv3x3_fwd)
+
+
+def dropout_plan(cfg: dict, batch: int, seed: int, rate: float, dtype, device) -> list:
+    """A train step's dropout draws at ``rate`` from ``seed``, in forward
+    order: one keep ``[B, C, H, W]`` (channels last) a residual block,
+    blocks down, centre in, centre out, up (``dtype`` is the compute dtype
+    the masked tensor has)."""
+    h, w, _ = cfg["data_shape"]
+    with draws.seeded(seed, device):
+        return [draws.module_keep((batch, cfg["dim"], h, w), rate, dtype, device, torch.channels_last)
+                for _ in _block_names(cfg["levels"])]
 
 
 def _block_names(levels: int):
@@ -27,8 +95,7 @@ def _block_names(levels: int):
 
 def param_shapes(cfg: dict) -> dict[str, tuple]:
     d, c = cfg["dim"], cfg["data_shape"][-1]
-    ff = cfg.get("fourier")
-    cin = c * (1 + (2 * (ff[1] - ff[0] + 1) if ff else 0))
+    cin = fourier_channels(cfg)
     emb = cfg["pos_emb"][0]
     c_dim = emb * cfg["pos_emb_mult"]
     shapes = {"pos_map_1.weight": (c_dim, emb), "pos_map_1.bias": (c_dim,),

@@ -42,3 +42,21 @@ def host_ms(spans: list, names: tuple, per: str):
     n = _count(spans, per)
     return sum(ns) / 1e6 / n if n and ns else None
 
+
+def innermost(spans: list, t_ns: float):
+    """The innermost span open at ``t_ns`` on the spans' clock, or None
+    (spans come in the order they opened, so a later one that holds the
+    time lies inside an earlier one)."""
+    return next((s for s in reversed(spans) if s.end_ns is not None and s.start_ns <= t_ns <= s.end_ns), None)
+
+
+def idle_ms(trace, spans: list, names: tuple, per: str):
+    """Idle ms of ``trace``'s holes whose midpoint lies inside a ``names``
+    span, over the number of ``per`` spans; None without a trace of device
+    operations, its base, or such spans."""
+    inside = [(s.start_ns, s.end_ns) for s in spans if s.name in names and s.end_ns is not None]
+    n = _count(spans, per)
+    if trace is None or trace.busy_s <= 0 or trace.base_ns is None or not inside or not n:
+        return None
+    held = lambda t: any(lo <= t <= hi for lo, hi in inside)
+    return sum(b - a for a, b in trace.holes if held(trace.span_ns((a + b) / 2))) / 1e3 / n

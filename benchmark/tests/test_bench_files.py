@@ -8,7 +8,7 @@ from pathlib import Path
 
 import pytest
 
-from benchmark import harness, kinds
+from benchmark import harness, kinds, reference
 
 REPO = Path(__file__).resolve().parents[2]
 BENCH = json.loads((REPO / "BENCHMARK.json").read_text())
@@ -87,7 +87,8 @@ def test_every_cell_loads_and_reports_what_its_metrics_move(cell):
         assert callable(harness.load_module(harness.HERE / "metrics" / f"{m['name']}.py").read)
     assert callable(harness.load_module(harness.HERE / "drivers" / f"{c.traffic['driver']}.py").run)
     assert c.limits and all(isinstance(v, float) and math.isfinite(v) for v in c.limits.values())
-    assert c.kind in ("dit", "unet") and c.precision in ("bf16", "f32")
+    assert c.model is reference.model(c.kind) and c.precision in ("bf16", "f32")
+    assert all(callable(getattr(c.model, name)) for name in reference.KIND if not name.isupper())
 
 
 def test_every_metric_file_is_named():
@@ -101,6 +102,7 @@ def test_every_metric_file_is_named():
     ("void (anonymous namespace)::gn_silu_bwd<__nv_bfloat16>((anonymous namespace)::Params)",
      "K7b groupnorm_silu backward"),
     ("ln_mod_fwd", "K4f layernorm_modulate"),
+    ("conv3x3_f32_fwd(float const*, float const*, float const*, float*, int, int, int, int, int, int)", "K8f conv3x3"),
     ("sm90_xmma_dgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize128x128x32", kinds.MATMUL),
     ("void pointwise_mult_and_sum_complex<float2, 8, 4>(float2*, float2*, float2*, int, int, int, int, int, float2)",
      kinds.MATMUL),

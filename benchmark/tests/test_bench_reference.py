@@ -8,13 +8,17 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import harness
+from benchmark import harness, reference
 from benchmark import weights as weightgen
 from benchmark.reference import bsi as rbsi
 from benchmark.reference import draws, optim, steps
 from benchmark.tests import tiny
 
-KINDS = {"dit": "dit-l2-in32.train-b64", "unet": "vdm-unet-c10.sample-k20-b128"}
+BENCH = harness.read_json(harness.REPO / "BENCHMARK.json")
+# the first cell of each model kind
+CELL_OF = {}
+for entry in BENCH["workloads"]:
+    CELL_OF.setdefault(harness.load_cell(entry["name"]).kind, entry["name"])
 # the port's plain attention (its path off the card) takes its softmax in
 # f32 at any dtype, so f64 agrees to f32's rounding there
 TOL = dict(rtol=1e-5, atol=1e-7)
@@ -28,13 +32,13 @@ def port_model(cell, dtype=torch.float64):
 
 
 def weights(cell, dtype=torch.float64):
-    shapes = steps.MODELS[cell.kind].param_shapes(cell.reference_model())
-    return {n: w.to(dtype) for n, w in weightgen.make(shapes, 7, "cpu").items()}
+    shapes = cell.model.param_shapes(cell.reference_model())
+    return {n: w.to(dtype) for n, w in weightgen.make(shapes, 7, "cpu", cell.model.SMALL_WEIGHTS).items()}
 
 
-@pytest.mark.parametrize("kind", sorted(KINDS))
+@pytest.mark.parametrize("kind", reference.kinds())
 def test_leaves_and_forward_match_the_port(kind):
-    cell = tiny.cell(KINDS[kind])
+    cell = tiny.cell(CELL_OF[kind])
     model, w = port_model(cell), weights(cell)
     assert {n: tuple(p.shape) for n, p in model.named_parameters()} == {n: tuple(v.shape) for n, v in w.items()}
     mu = torch.randn((3, *cell.config["data_shape"]), generator=torch.Generator().manual_seed(1), dtype=torch.float64)
@@ -44,11 +48,11 @@ def test_leaves_and_forward_match_the_port(kind):
     torch.testing.assert_close(ours, theirs, **TOL)
 
 
-@pytest.mark.parametrize("kind", sorted(KINDS))
+@pytest.mark.parametrize("kind", reference.kinds())
 def test_loss_gradients_and_sampler_step_match_the_port(kind):
     from bsi_torch.core import BSI
 
-    cell = tiny.cell(KINDS[kind])
+    cell = tiny.cell(CELL_OF[kind])
     model, w = port_model(cell), weights(cell)
     algo_cfg = cell.algorithm()
     port = BSI(data_shape=tuple(cell.config["data_shape"]), lambda_0=algo_cfg["lambda_0"], alpha_M=algo_cfg["alpha_M"],
@@ -127,8 +131,7 @@ def test_data_rows_are_the_train_stream():
     assert np.array_equal(draws.data_rows(50, 9, 120), np.concatenate([stream.next_indices(60) for _ in range(2)]))
 
 
-TRAIN_CELLS = [w["name"] for w in harness.read_json(harness.REPO / "BENCHMARK.json")["workloads"]
-               if harness.load_cell(w["name"]).traffic["driver"] == "train"]
+TRAIN_CELLS = [w["name"] for w in BENCH["workloads"] if harness.load_cell(w["name"]).traffic["driver"] == "train"]
 
 
 @pytest.mark.parametrize("name", TRAIN_CELLS)

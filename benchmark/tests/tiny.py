@@ -6,20 +6,17 @@ import copy
 
 from benchmark import harness
 
-TINY_MODEL = {
-    "dit": {"patch_size": 2, "dim": 128, "depth": 2, "heads": 2},
-    "unet": {"dim": 32, "levels": 1},
-}
 TINY_TRAFFIC = {"batch": 4, "n_train": 64, "reference_chunk": 2, "check_rows": 3}
 
 
 def cell(name: str, **traffic) -> harness.Cell:
-    """Cell ``name`` of ``BENCHMARK.json`` on 8x8 images at the tiny widths,
-    with its traffic's sizes cut (``traffic`` overrides them)."""
+    """Cell ``name`` of ``BENCHMARK.json`` on 8x8 images at its model
+    kind's tiny sizes (``TINY``), with its traffic's sizes cut (``traffic``
+    overrides them)."""
     c = harness.load_cell(name)
     c.config = copy.deepcopy(c.config)
     c.config["data_shape"] = [8, 8, 3]
-    c.config["program"]["task"]["model"].update(TINY_MODEL[c.kind])
+    c.config["program"]["task"]["model"].update(c.model.TINY)
     c.traffic = {**c.traffic, **{k: v for k, v in TINY_TRAFFIC.items() if k in c.traffic}, **traffic}
     if "k" in c.traffic:
         c.traffic["k"] = 3

@@ -9,7 +9,10 @@ turns it into the device's busy time (the union of every kernel's, copy's
 and set's interval), the time by kind of kernel (:mod:`.kinds`), and the
 longest idle gaps between device operations, each labelled with the CUDA
 call the host was in at the gap's middle, or else with the kind of the
-device operation that ended it.
+device operation that ended it. It keeps every idle hole's place, and the
+exported trace's ``baseTimeNanoseconds``: a trace's ``ts`` (µs) is the
+host's ``time.time_ns()`` less that base, over 1e3, which is the clock of
+the program's spans (:meth:`Trace.span_ns`).
 """
 
 from __future__ import annotations
@@ -54,7 +57,8 @@ class Stretch:
         try:
             self.prof.export_chrome_trace(path)
             with open(path) as f:
-                return read(json.load(f)["traceEvents"], self.window_s)
+                exported = json.load(f)
+            return read(exported["traceEvents"], self.window_s, exported.get("baseTimeNanoseconds"))
         finally:
             os.unlink(path)
 
@@ -74,6 +78,12 @@ class Trace:
     busy_s: float
     by_kind: dict = field(default_factory=dict)  # kind -> seconds
     gaps: list = field(default_factory=list)  # [(label, seconds)], longest first
+    holes: list = field(default_factory=list)  # [(start, end)] of every idle hole in µs, longest first
+    base_ns: int | None = None  # the trace's baseTimeNanoseconds
+
+    def span_ns(self, us: float) -> float:
+        """A time of the trace (µs) on the spans' clock (ns)."""
+        return self.base_ns + us * 1e3
 
 
 def _union(intervals):
@@ -86,7 +96,7 @@ def _union(intervals):
     return merged
 
 
-def read(events: list, window_s: float) -> Trace:
+def read(events: list, window_s: float, base_ns: int | None = None) -> Trace:
     by_kind: dict = {}
     spans = []
     for e in events:
@@ -105,4 +115,5 @@ def read(events: list, window_s: float) -> Trace:
         inside = [e for e in host if e["ts"] <= mid <= e["ts"] + e["dur"]]
         label = max(inside, key=lambda e: e["ts"])["name"] if inside else f"host, before {after}"
         gaps.append((label, (b - a) / 1e6))
-    return Trace(window_s=window_s, busy_s=busy, by_kind=by_kind, gaps=gaps)
+    return Trace(window_s=window_s, busy_s=busy, by_kind=by_kind, gaps=gaps, holes=[(a, b) for a, b, _ in holes],
+                 base_ns=base_ns)

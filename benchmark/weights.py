@@ -3,10 +3,9 @@
 Every leaf is a view of one standard normal drawn by a ``torch.Generator``
 on the device, in the order of the sorted leaf names, scaled by its kind:
 a matrix or a convolution kernel by ``1 / sqrt(fan_in)`` (the lecun scale
-of the models' own initialisers), except the DiT's ``ada_out``, whose
-normals have std 0.02 (at adaLN-Zero's init it is 0 and every block is the
-identity, which a check could not see through); a norm's scale is ``1 +
-0.02 n``; every bias ``0.02 n``.
+of the models' own initialisers), except those whose names hold one of
+``small`` (a model kind's ``SMALL_WEIGHTS``), whose normals have std 0.02;
+a norm's scale is ``1 + 0.02 n``; every bias ``0.02 n``.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ import math
 import torch
 
 
-def make(shapes: dict, seed: int, device) -> dict:
+def make(shapes: dict, seed: int, device, small: tuple) -> dict:
     names = sorted(shapes)
     sizes = [math.prod(shapes[n]) for n in names]
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -27,7 +26,7 @@ def make(shapes: dict, seed: int, device) -> dict:
         leaf = flat[start:start + size].view(shape)
         start += size
         if len(shape) > 1:
-            std = 0.02 if ".ada_out." in name else 1.0 / math.sqrt(math.prod(shape[1:]))
+            std = 0.02 if any(key in name for key in small) else 1.0 / math.sqrt(math.prod(shape[1:]))
             out[name] = leaf.mul_(std)
         elif name.endswith(".weight"):
             out[name] = leaf.mul_(0.02).add_(1.0)
